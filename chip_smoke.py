@@ -1,0 +1,438 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``d3net_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each; any failure raises and exits non-zero:
+
+1. device   — the card's name and ``nvidia-smi`` name/power limit.
+2. build    — nvcc builds every kernel of the detector path from ``csrc/``.
+3. kernel   — each kernel against its plain PyTorch version on the card,
+              bit-exact: random f32/bf16/int32 rows with pad sentinels and
+              out-of-range indices, and the JAX band_gather test plans.
+4. parity   — the tests/test_detector.py config in f32 with TF32 off
+              (``device.parity_precision``, this phase only): the
+              port on ``cuda`` against the port on ``cpu``, same weights.
+              Floats within rtol 1e-4 / atol 1e-5; integer outputs are
+              reported (atomic sums may flip a clustering threshold).
+5. flagship — the B=4 flagship detector forward (7-level U-Net, 131072
+              voxel caps, 134 input channels, bf16) through
+              ``load_detector``, at PyTorch's default precision settings
+              (those a user gets): the batch's real kernel maps through
+              ``gather_rows`` and ``band_gather`` (bit-exact), host collate
+              time, forward time (CUDA events, median of 7), peak memory,
+              finite outputs, and the gather launches of one forward
+              (counts reset just before).
+6. profile  — device time by kernel and by op over one flagship forward
+              (torch.profiler) and the device's idle share.
+7. kernels  — every gather of that forward replayed through the kernel,
+              its plain version and ``torch.index_select`` (the library
+              yardstick; the port never calls it); any call whose kernel
+              output differs from the plain version's fails the run, naming
+              its dtype and width. The bound is the bytes at 3.35 TB/s.
+
+The last two lines are ``nvidia-smi``'s name/power limit and
+``{"ok": true, "device": {...}}``. Without CUDA, or without the package
+beside it, the script exits non-zero and prints no result. It imports
+nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from d3net_tpu_torch import device
+from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
+from d3net_tpu_torch.data.synthetic import make_scene
+from d3net_tpu_torch.kernels import gather
+from d3net_tpu_torch.models.blocks import SubmConv, fold_tables
+from d3net_tpu_torch.models.pointgroup import PointGroup
+from d3net_tpu_torch.ops import segment, sparse_conv
+from d3net_tpu_torch.params import (
+    flagship_config, init_flax_variables, load_detector,
+)
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
+PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
+FWD_REPS = 7
+KERNEL_REPS = 5
+
+SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
+                 clusters_per_pass=16, max_num_proposal=8,
+                 cluster_npoint_thre=30, test_npoint_thresh=30,
+                 test_score_thresh=0.0, cluster_ring=1, cluster_cell_size=0.03,
+                 cluster_prop_iters=4)
+SMALL_SCENE = dict(num_instances=3, density=3000.0, size_range=(0.25, 0.5),
+                   floor_points=1000, room=4.0)
+SMALL_SPEC = dict(max_points=3072, voxel_caps=[3072, 1536, 768],
+                  max_instances=8, use_multiview=False, use_normal=True)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def randomize(tree, rng):
+    """Nonzero biases and BN statistics (as the CPU parity tests use)."""
+    for k, val in tree.items():
+        if isinstance(val, dict):
+            randomize(val, rng)
+        elif k in ("bias", "mean"):
+            tree[k] = rng.normal(0.0, 0.1, val.shape).astype(np.float32)
+        elif k in ("scale", "var"):
+            tree[k] = rng.uniform(0.5, 1.5, val.shape).astype(np.float32)
+    return tree
+
+
+# --------------------------------------------------------------------------
+def phase_build():
+    t0 = time.time()
+    gather.load_library()
+    emit({"phase": "build", "sources": [gather.SOURCE],
+          "seconds": round(time.time() - t0, 3)})
+
+
+def phase_kernel():
+    """Kernel vs plain, bit-exact, on random rows and band plans."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = 0
+    for dtype in gather.DTYPES:
+        for c in (1, 2, 3, 16, 20, 32, 48, 112, 134):
+            src = torch.randint(-1000, 1000, (4099, c), generator=g,
+                                device="cuda").to(dtype)
+            if dtype != torch.int32:
+                src = src / 7
+            # 4099 is the pad sentinel; -2, -1, 4100 and 4101 out of range
+            idx = torch.randint(-2, 4102, (50001,), generator=g, device="cuda",
+                                dtype=torch.int32)
+            got = gather.gather_rows(src, idx)
+            want = gather.gather_rows_plain(src, idx)
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather_rows {dtype} C={c} disagrees")
+            if not (got[(idx < 0) | (idx >= 4099)] == 0).all():
+                raise AssertionError("pad or out-of-range index did not read "
+                                     "zeros")
+            cases += 1
+    rng = np.random.default_rng(0)
+    for n, spread, chunk, nwin, c, dtype in (
+            (4096, 150, 512, 8, 128, torch.bfloat16),
+            (4096, 150, 512, 8, 256, torch.bfloat16),
+            (2048, 40, 256, 4, 128, torch.float32)):
+        idx = np.clip(np.arange(n) + rng.integers(-spread, spread + 1, n),
+                      0, n - 1).astype(np.int32)
+        if n == 2048:
+            idx[:64] = 0
+            idx[100:110] = idx[99]
+        plan = gather.plan_band_windows(idx, n, chunk=chunk, wblk=128,
+                                        nwin=nwin)
+        src = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32))
+        src = src.to("cuda", dtype)
+        got = gather.band_gather(src, plan)
+        if not torch.equal(got, src[torch.from_numpy(idx).cuda().long()]):
+            raise AssertionError(f"band_gather n={n} C={c} disagrees")
+        cases += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernel", "cases": cases, "exact": True})
+
+
+def phase_parity():
+    """Small config: the port on cuda vs the port on cpu, same weights."""
+    scenes = [make_scene(seed=i, **SMALL_SCENE) for i in range(2)]
+    batch_np = build_batch(scenes, BatchSpec(**SMALL_SPEC))
+    in_ch = batch_np["point_feats"].shape[-1] + 3
+    variables = init_flax_variables(PointGroup(in_ch, **SMALL_CFG), seed=0)
+    randomize(variables, np.random.default_rng(0))
+    outs = {}
+    with device.parity_precision(), torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            model = load_detector(variables, SMALL_CFG, device=dev)
+            out = model(batch_to_torch(batch_np, dev))
+            outs[dev] = {k: v.cpu() for k, v in out.items()}
+    cpu, gpu = outs["cpu"], outs["cuda"]
+    ints = {k: bool(torch.equal(cpu[k], gpu[k])) for k in cpu
+            if not cpu[k].is_floating_point()}
+    errs, bad = {}, []
+    for k in cpu:
+        if cpu[k].is_floating_point():
+            d = (gpu[k] - cpu[k]).abs()
+            errs[k] = float(d.max())
+            if not torch.allclose(gpu[k], cpu[k], rtol=PARITY_RTOL,
+                                  atol=PARITY_ATOL):
+                bad.append(k)
+    # with equal clusters everything must agree; after a reported flip only
+    # the stages before clustering are held to the tolerance
+    held = bad if all(ints.values()) else [
+        k for k in bad if k in ("semantic_scores", "pt_offsets", "pt_feats")]
+    emit({"phase": "parity", "integers_equal": ints, "max_abs_err": errs,
+          "outside_tolerance": bad, "rtol": PARITY_RTOL, "atol": PARITY_ATOL})
+    if held:
+        raise AssertionError(f"cuda vs cpu outside tolerance: {held}")
+
+
+class GatherRecorder:
+    """Stands in for the ``gather`` module inside the ops that call it, to
+    keep each call's tensors for the kernel replay; the real wrapper (and
+    its launch count) still runs every call."""
+
+    def __init__(self, real):
+        self.real = real
+        self.calls = []
+
+    def gather_rows(self, src, idx):
+        self.calls.append((src, idx))
+        return self.real.gather_rows(src, idx)
+
+
+def phase_flagship():
+    flag = flagship_config()
+    t0 = time.time()
+    scenes = [make_scene(seed=i, **flag.scene_kwargs)
+              for i in range(flag.batch_size)]
+    scene_s = time.time() - t0
+    t0 = time.time()
+    batch_np = build_batch(scenes, flag.spec)
+    host_collate_s = time.time() - t0
+    batch = batch_to_torch(batch_np, "cuda")
+    in_ch = flag.spec.feat_dim() + 3
+    variables = init_flax_variables(PointGroup(in_ch, **flag.model), seed=0)
+    model = load_detector(variables, flag.model)      # cuda by default
+    expected = sum(isinstance(m, SubmConv) for m in model.modules()) + 4
+
+    # the real kernel maps of this batch through the kernel, bit-exact
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for li, t in enumerate(fold_tables(batch["tables"])):
+        for name in ("nbr", "down", "up"):
+            if name not in t:
+                continue
+            n_src = int(t[name].max())          # the global zero-row sentinel
+            src = torch.randn(n_src, 16, generator=g, device="cuda").bfloat16()
+            idx = t[name].reshape(-1).contiguous()
+            if not torch.equal(gather.gather_rows(src, idx),
+                               gather.gather_rows_plain(src, idx)):
+                raise AssertionError(f"level {li} {name}: kernel disagrees")
+    # band_gather on every tap of scene 0's level-0 table that a window plan
+    # fits (INVALID -> own row, as the JAX band_gather tests do); the z+-1
+    # taps 12-14 are banded by the key order, so at least those plan
+    nbr0 = batch_np["tables"][0]["nbr"][0]
+    cap = nbr0.shape[0]
+    src = torch.randn(cap, 16, generator=g, device="cuda").bfloat16()
+    planned = []
+    for tap in range(nbr0.shape[1]):
+        idx = np.where(nbr0[:, tap] >= cap, np.arange(cap), nbr0[:, tap])
+        plan = gather.plan_band_windows(idx, cap, chunk=512, wblk=128, nwin=8)
+        if plan is None:
+            continue
+        planned.append(tap)
+        want = src[torch.from_numpy(idx).to("cuda")]
+        if not torch.equal(gather.band_gather(src, plan), want):
+            raise AssertionError(f"band_gather on level-0 tap {tap} disagrees")
+    if not {12, 13, 14} <= set(planned):
+        raise AssertionError(f"z taps did not plan: planned {planned}")
+
+    with torch.no_grad():
+        model(batch)                                        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev_ms, wall_ms = [], []
+        for _ in range(FWD_REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.time()
+            a.record()
+            model(batch)
+            b.record()
+            torch.cuda.synchronize()
+            wall_ms.append((time.time() - t0) * 1e3)
+            ev_ms.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+
+        # the main path, counted: counts set to 0 just before, read after
+        rec = GatherRecorder(gather)
+        sparse_conv.gather, segment.gather = rec, rec
+        try:
+            gather.gather_rows.launches = 0
+            out = model(batch)
+            torch.cuda.synchronize()
+            launches = gather.gather_rows.launches
+        finally:
+            sparse_conv.gather, segment.gather = gather, gather
+
+    b_, n = batch["point_mask"].shape
+    p, k = 2 * 128, 128
+    shapes = {"semantic_scores": (b_, n, 20), "pt_offsets": (b_, n, 3),
+              "member_pt": (b_, 2, n), "proposal_scores_all": (b_, p),
+              "proposal_feats_batched": (b_, k, 16),
+              "proposal_bbox_batched": (b_, k, 8, 3),
+              "object_assignment": (b_, k)}
+    for key, shape in shapes.items():
+        if tuple(out[key].shape) != shape:
+            raise AssertionError(f"{key} shape {tuple(out[key].shape)}")
+    for key, v in out.items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{key} has non-finite values")
+    if launches != expected or len(rec.calls) != expected:
+        raise AssertionError(
+            f"gather launches {launches} (recorded {len(rec.calls)}), "
+            f"expected {expected} per forward")
+    fwd_ms = statistics.median(ev_ms)
+    emit({"phase": "flagship", "batch": b_, "points_cap": n,
+          "voxels_l0": [int(x) for x in batch_np["tables"][0]["mask"].sum(1)],
+          "in_channels": in_ch, "compute_dtype": flag.model["compute_dtype"],
+          "scene_gen_s": round(scene_s, 3),
+          "host_collate_s": round(host_collate_s, 3),
+          "detector_fwd_ms": fwd_ms, "detector_fwd_ms_all": ev_ms,
+          "detector_fwd_wall_ms": statistics.median(wall_ms),
+          "scenes_per_sec": b_ / (fwd_ms / 1e3),
+          "max_memory_allocated": peak,
+          "gather_launches_per_forward": launches,
+          "clusters": int(out["cluster_mask_all"].sum()),
+          "proposals": int(out["proposal_batch_mask"].sum()),
+          "band_taps_planned": planned})
+    return rec.calls, launches, model, batch
+
+
+def phase_profile(model, batch):
+    """Device time by kernel and by launching op over one flagship forward
+    (torch.profiler), and the device's idle share of that forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        model(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if ms > 0:
+            row = [e.key[:90], round(ms, 3), e.count]
+            (kernels if e.device_type == DeviceType.CUDA else ops).append(row)
+    kernels.sort(key=lambda r: -r[1])
+    ops.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in kernels)
+    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy,
+          "idle_share": 1.0 - busy / wall_ms,
+          "kernel_launches": sum(r[2] for r in kernels),
+          "top_kernels": kernels[:15], "top_ops": ops[:15]})
+
+
+def _time_ms(fn, reps):
+    """Median over ``reps`` of one pass of ``fn`` (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_kernels(calls, launches):
+    """Replay the forward's gathers: kernel, plain, index_select. Every
+    call must be bit-exact against the plain version."""
+    err = 0.0
+    bytes_needed = 0
+    padded = []
+    for i, (src, idx) in enumerate(calls):
+        got = gather.gather_rows(src, idx)
+        want = gather.gather_rows_plain(src, idx)
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"gather {i} of the forward ({src.dtype}, width "
+                f"{src.shape[1]}, {idx.numel()} rows): kernel disagrees with "
+                f"the plain version")
+        row = src.shape[1] * src.element_size()
+        rows_read = int(torch.unique(idx[idx < src.shape[0]]).numel())
+        bytes_needed += rows_read * row + 4 * idx.numel() + idx.numel() * row
+        padded.append(torch.cat([src, src.new_zeros(1, src.shape[1])]))
+        del got, want
+    torch.cuda.synchronize()
+
+    def kernel():
+        for src, idx in calls:
+            gather.gather_rows(src, idx)
+
+    def plain():
+        for src, idx in calls:
+            gather.gather_rows_plain(src, idx)
+
+    def library():
+        for (_, idx), src in zip(calls, padded):
+            torch.index_select(src, 0, idx)
+
+    ms = _time_ms(kernel, KERNEL_REPS)
+    plain_ms = _time_ms(plain, KERNEL_REPS)
+    library_ms = _time_ms(library, KERNEL_REPS)
+    ms_again = _time_ms(kernel, KERNEL_REPS)
+    by_width = {}
+    for src, idx in calls:
+        key = f"{src.dtype}".replace("torch.", "") + f"x{src.shape[1]}"
+        by_width[key] = by_width.get(key, 0) + idx.numel()
+    emit({"phase": "kernels", "gathers_per_forward": len(calls),
+          "rows_by_dtype_width": by_width, "bytes_needed": bytes_needed,
+          "kernel_ms_first_last": [ms, ms_again]})
+    return [{
+        "name": "gather_rows",
+        "route": "cuda",
+        "source": "d3net_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "d3net_tpu/ops/pallas_gather.py:100",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": statistics.median([ms, ms_again]),
+        "plain_ms": plain_ms,
+        "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one",
+              file=sys.stderr)
+        return 2
+    t_start = time.time()
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    phase_build()
+    phase_kernel()
+    phase_parity()
+    calls, launches, model, batch = phase_flagship()
+    phase_profile(model, batch)
+    del model, batch
+    kernels = phase_kernels(calls, launches)
+    emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

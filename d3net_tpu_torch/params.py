@@ -1,0 +1,187 @@
+"""Flax variables of ``PointGroup`` -> the port's ``state_dict``, and the
+``load_detector`` entry point.
+
+The Flax tree (``{"params": ..., "batch_stats": ...}`` as nested dicts of
+numpy arrays) and the port's modules share names, so a variable path maps
+to a ``state_dict`` key by joining with dots. Layout changes:
+
+- ``nn.Dense`` kernel ``(in, out)``      -> ``Linear.weight (out, in)``
+- ``nn.Conv`` kernel DHWIO               -> ``Conv.weight`` OIDHW
+- ``nn.ConvTranspose`` kernel DHWIO      -> ``ConvTranspose.weight`` IODHW,
+  flipped in D, H and W (Flax's ``transpose_kernel=False`` applies the
+  kernel unflipped over the dilated input; ``conv_transpose3d`` is the
+  adjoint of a correlation, which flips it)
+- sparse-conv ``kernel (K, Cin, Cout)`` and ``MaskedBatchNorm``
+  ``scale/bias`` (params) and ``mean/var`` (batch_stats) stay as they are.
+
+The conversion fails if any Flax leaf is left unused or any port
+parameter or buffer is left unset.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from d3net_tpu_torch.data.collate import BatchSpec
+from d3net_tpu_torch.device import DeviceLike, resolve_device
+from d3net_tpu_torch.models.blocks import MaskedBatchNorm, SubmConv
+from d3net_tpu_torch.models.pointgroup import PointGroup
+from d3net_tpu_torch.models.scorenet import Conv, ConvTranspose
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, path))
+        else:
+            flat[path] = np.asarray(v)
+    return flat
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = tree
+        *parents, leaf = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+# per module kind: (collection, flax leaf, torch key, flax->torch, torch->flax)
+_T = lambda a: a.T                                          # noqa: E731
+_CONV = lambda a: a.transpose(4, 3, 0, 1, 2)                # noqa: E731
+_CONV_INV = lambda a: a.transpose(2, 3, 4, 1, 0)            # noqa: E731
+_CONVT = lambda a: a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)    # noqa: E731
+_CONVT_INV = lambda a: a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]  # noqa: E731
+_SAME = lambda a: a                                         # noqa: E731
+
+_LEAVES = {
+    nn.Linear: [("params", "kernel", "weight", _T, _T),
+                ("params", "bias", "bias", _SAME, _SAME)],
+    Conv: [("params", "kernel", "weight", _CONV, _CONV_INV)],
+    ConvTranspose: [("params", "kernel", "weight", _CONVT, _CONVT_INV)],
+    SubmConv: [("params", "kernel", "kernel", _SAME, _SAME)],
+    MaskedBatchNorm: [("params", "scale", "scale", _SAME, _SAME),
+                      ("params", "bias", "bias", _SAME, _SAME),
+                      ("batch_stats", "mean", "mean", _SAME, _SAME),
+                      ("batch_stats", "var", "var", _SAME, _SAME)],
+}
+
+
+def _leaf_modules(model: nn.Module):
+    """(dotted prefix, module, leaf spec) of every module holding leaves."""
+    for name, mod in model.named_modules():
+        spec = _LEAVES.get(type(mod))
+        if spec is not None:
+            yield (f"{name}." if name else ""), mod, spec
+
+
+def flax_to_state_dict(variables: Mapping[str, Any],
+                       model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Convert a Flax variable tree into ``model``'s state_dict.
+
+    Raises ValueError if a Flax leaf is unused or a model entry unset.
+    """
+    flat = {c: _flatten(variables.get(c, {})) for c in ("params", "batch_stats")}
+    extra = set(variables) - set(flat)
+    if extra:
+        raise ValueError(f"unexpected variable collections {sorted(extra)}")
+    used = {c: set() for c in flat}
+    sd: Dict[str, torch.Tensor] = {}
+    for name, mod, spec in _leaf_modules(model):
+        for coll, leaf, key, fwd, _ in spec:
+            path = f"{name}{leaf}"
+            if path not in flat[coll]:
+                raise ValueError(f"Flax {coll} has no {path} for {key}")
+            if path in used[coll]:
+                raise ValueError(f"Flax {coll} leaf {path} consumed twice")
+            used[coll].add(path)
+            target = getattr(mod, key)
+            value = np.ascontiguousarray(fwd(flat[coll][path]))
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(
+                    f"{path}: converted shape {value.shape} != port "
+                    f"{tuple(target.shape)}")
+            sd[f"{name}{key}"] = torch.from_numpy(value).to(target.dtype)
+    for coll in flat:
+        left = set(flat[coll]) - used[coll]
+        if left:
+            raise ValueError(f"unused Flax {coll} leaves: {sorted(left)}")
+    unset = set(model.state_dict()) - set(sd)
+    if unset:
+        raise ValueError(f"port entries not set by the conversion: {sorted(unset)}")
+    return sd
+
+
+def init_flax_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
+    """Random Flax-layout variables for ``model``, made with numpy.
+
+    Kernels are He-normal for the sparse and dense convs and LeCun-normal
+    for the Dense layers (Flax's initializers, untruncated); biases and BN
+    shifts 0, BN scales 1, running mean 0 and var 1 — what ``model.init``
+    gives. Feed the result through :func:`flax_to_state_dict`.
+    """
+    rng = np.random.default_rng(seed)
+    flat: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
+    for name, mod, spec in _leaf_modules(model):
+        for coll, leaf, key, _, inv in spec:
+            shape = inv(np.empty(tuple(getattr(mod, key).shape))).shape
+            if leaf == "kernel":
+                fan_in = math.prod(shape[:-1])
+                gain = 1.0 if isinstance(mod, nn.Linear) else 2.0
+                v = rng.normal(0.0, math.sqrt(gain / fan_in), shape)
+            elif leaf in ("scale", "var"):
+                v = np.ones(shape)
+            else:
+                v = np.zeros(shape)
+            flat[coll][f"{name}{leaf}"] = v.astype(np.float32)
+    return {c: _unflatten(f) for c, f in flat.items()}
+
+
+def load_detector(variables: Mapping[str, Any], cfg: Mapping[str, Any],
+                  device: DeviceLike = None) -> PointGroup:
+    """``PointGroup(**cfg)`` with Flax ``variables`` loaded, in eval mode.
+
+    Runs on CUDA unless ``device`` says otherwise; raises without a GPU
+    when no device is given. The input width comes from the input conv.
+    """
+    dev = resolve_device(device)
+    in_channels = int(np.shape(variables["params"]["input_conv"]["kernel"])[1])
+    model = PointGroup(in_channels, **cfg)
+    model.load_state_dict(flax_to_state_dict(variables, model))
+    return model.to(dev).eval()
+
+
+class Flagship(NamedTuple):
+    """The flagship detector workload of the JAX package's ``bench.py``."""
+
+    batch_size: int
+    scene_kwargs: Dict[str, Any]   # make_scene(seed=i, **scene_kwargs)
+    spec: BatchSpec
+    model: Dict[str, Any]          # PointGroup kwargs beyond its defaults
+
+
+def flagship_config() -> Flagship:
+    """B=4 synthetic ScanNet-sized scenes, 7 levels of 131072..2048 voxel
+    caps, 134 input channels (normal + 128 multiview + xyz), m=16, 128
+    clusters per pass, bf16 compute — ``bench.py`` with ``conv_impl="gather"``."""
+    spec = BatchSpec(
+        max_points=131072,
+        voxel_caps=[131072, 65536, 32768, 16384, 8192, 4096, 2048],
+        max_instances=32,
+        use_multiview=True,
+        use_normal=True,
+        conv_impl="gather",
+    )
+    scene_kwargs = dict(num_instances=16, density=2500.0, floor_points=30000,
+                        room=8.0, with_multiview=True)
+    return Flagship(4, scene_kwargs, spec, dict(compute_dtype="bfloat16"))

@@ -1,0 +1,86 @@
+"""The port stands alone: no module of d3net_tpu_torch, nor chip_smoke.py,
+imports JAX, Flax or the JAX package; entry points refuse to fall back to
+the CPU quietly."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+sys.path.insert(0, {root!r})
+import d3net_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(d3net_tpu_torch.__path__,
+                                               "d3net_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "d3net_tpu"))
+print(json.dumps({{"modules": names, "bad": bad}}))
+"""
+
+
+def _run(args, cwd=ROOT, timeout=120):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run(args, capture_output=True, text=True, cwd=cwd,
+                          env=env, timeout=timeout)
+
+
+def test_port_imports_no_jax_flax_or_reference():
+    import json
+
+    out = _run([sys.executable, "-c", _IMPORT_ALL.format(root=ROOT)])
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for mod in ("d3net_tpu_torch.models.pointgroup",
+                "d3net_tpu_torch.kernels.gather", "d3net_tpu_torch.params"):
+        assert mod in res["modules"]
+
+
+def test_load_detector_without_device_raises_without_gpu(monkeypatch):
+    from d3net_tpu_torch import params
+    from d3net_tpu_torch.models.pointgroup import PointGroup
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    variables = params.init_flax_variables(
+        PointGroup(9, m=4, blocks=(1, 2)), seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params.load_detector(variables, dict(m=4, blocks=(1, 2)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params.load_detector(variables, dict(m=4, blocks=(1, 2)),
+                             device="cuda")
+
+
+def _smoke(path, cuda: bool, cwd):
+    """Run chip_smoke.py as __main__ with torch.cuda.is_available forced."""
+    code = ("import sys, runpy, torch\n"
+            f"torch.cuda.is_available = lambda: {cuda}\n"
+            f"sys.argv = [{path!r}]\n"
+            f"runpy.run_path({path!r}, run_name='__main__')\n")
+    return _run([sys.executable, "-c", code], cwd=cwd)
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = _smoke(os.path.join(ROOT, "chip_smoke.py"), False, ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the repo
+    it fails even where a card is present."""
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    out = _smoke(str(tmp_path / "chip_smoke.py"), True, tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "No module named 'd3net_tpu_torch'" in out.stderr
