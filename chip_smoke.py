@@ -6,16 +6,30 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device   — the card's name and ``nvidia-smi`` name/power limit.
-2. build    — nvcc builds every kernel of the detector path from ``csrc/``.
+2. build    — nvcc builds every kernel source of ``csrc/`` (one nvcc per
+              source, all started together).
 3. kernel   — each kernel against its plain PyTorch version on the card,
               bit-exact: random f32/bf16/int32 rows with pad sentinels and
               out-of-range indices, and the JAX band_gather test plans.
-4. parity   — the tests/test_detector.py config in f32 with TF32 off
+4. probe    — the three probe kernels (``kernels/probe.py``) bit-exact
+              against their plain versions on random cases (edge chunks,
+              out-of-window rel, f32/bf16, C in 64/128/256), then the
+              probe entry point (``d3net_tpu_torch.probe``) at its own size
+              (n=262144, c=128 bf16, ch=512, wblk=128, nwin=6), its
+              launches counted (counts set to 0 just before).
+5. parity   — the tests/test_detector.py config in f32 with TF32 off
               (``device.parity_precision``, this phase only): the
               port on ``cuda`` against the port on ``cpu``, same weights.
               Floats within rtol 1e-4 / atol 1e-5; integer outputs are
               reported (atomic sums may flip a clustering threshold).
-5. flagship — the B=4 flagship detector forward (7-level U-Net, 131072
+6. train_parity — one train step of that config, f32 with TF32 off, on
+              ``cuda`` against ``cpu``, same weights, same injected
+              ``jitter_u`` and ``proposal_perm``, with and without
+              clustering: losses and grad_norm rtol 1e-4, every gradient
+              rtol 1e-3 / atol 1e-6, new BN statistics rtol 1e-4 / atol
+              1e-5; integer outputs reported (with clustering, a reported
+              flip leaves only the pre-clustering losses held).
+7. flagship — the B=4 flagship detector forward (7-level U-Net, 131072
               voxel caps, 134 input channels, bf16) through
               ``load_detector``, at PyTorch's default precision settings
               (those a user gets): the batch's real kernel maps through
@@ -23,13 +37,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               time, forward time (CUDA events, median of 7), peak memory,
               finite outputs, and the gather launches of one forward
               (counts reset just before).
-6. profile  — device time by kernel and by op over one flagship forward
+8. profile  — device time by kernel and by op over one flagship forward
               (torch.profiler) and the device's idle share.
-7. kernels  — every gather of that forward replayed through the kernel,
+9. kernels  — every gather of that forward replayed through the kernel,
               its plain version and ``torch.index_select`` (the library
               yardstick; the port never calls it); any call whose kernel
               output differs from the plain version's fails the run, naming
               its dtype and width. The bound is the bytes at 3.35 TB/s.
+10. train   — the flagship B=4 train step through ``create_train_state``
+              and ``detector_train_step`` at PyTorch's defaults: 2 warm-up
+              and 5 timed steps (CUDA events), peak memory, every step's
+              losses and grad_norm (all finite), the gather launches of one
+              step (counts set to 0 just before: forward 71 convs + 4 row
+              gathers, a dW re-gather per conv, a dx gather per conv but
+              the input conv's), and one profiled step (train_profile).
 
 The last two lines are ``nvidia-smi``'s name/power limit and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -44,25 +65,35 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from d3net_tpu_torch import device
+from d3net_tpu_torch import probe as probe_cli
+from d3net_tpu_torch.probe import check_exact, time_ms
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
 from d3net_tpu_torch.data.synthetic import make_scene
-from d3net_tpu_torch.kernels import gather
+from d3net_tpu_torch.kernels import build, gather, probe
 from d3net_tpu_torch.models.blocks import SubmConv, fold_tables
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.ops import segment, sparse_conv
 from d3net_tpu_torch.params import (
-    flagship_config, init_flax_variables, load_detector,
+    flagship_config, flatten, init_flax_variables, load_detector,
+    state_dict_to_flax,
+)
+from d3net_tpu_torch.train.trainer import (
+    create_train_state, detector_train_step,
 )
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6
 FWD_REPS = 7
 KERNEL_REPS = 5
+TRAIN_WARMUP, TRAIN_REPS = 2, 5
+SOURCES = (gather.SOURCE, probe.SOURCE)
 
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
@@ -101,8 +132,11 @@ def randomize(tree, rng):
 # --------------------------------------------------------------------------
 def phase_build():
     t0 = time.time()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(build.build_library, SOURCES))
     gather.load_library()
-    emit({"phase": "build", "sources": [gather.SOURCE],
+    probe.load_library()
+    emit({"phase": "build", "sources": list(SOURCES),
           "seconds": round(time.time() - t0, 3)})
 
 
@@ -149,6 +183,97 @@ def phase_kernel():
     emit({"phase": "kernel", "cases": cases, "exact": True})
 
 
+def phase_probe():
+    """The probe kernels on random cases, then the probe entry point at its
+    own size with its launches counted; returns their ``kernels`` entries."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    err = {"probe_scale2": 0.0, "window3_gather": 0.0,
+           "prefetch_window_gather": 0.0}
+    cases = 0
+    for n in (1, 7, 8, 4096, 100003):
+        x = (torch.randn(n + 1, generator=g, device="cuda") * 1e3).bfloat16()
+        x[n // 2] = 3.0e38                  # 2x overflows to inf in both
+        for t in (x[:n], x[1:]):            # 16-byte aligned, and 2 B off
+            err["probe_scale2"] = max(err["probe_scale2"], check_exact(
+                f"probe_scale2 n={n}", probe.probe_scale2(t),
+                probe.probe_scale2_plain(t)))
+            cases += 1
+    for dtype in probe.DTYPES:
+        for c in (64, 128, 256):
+            for ch, nchunk in ((512, 6), (128, 1), (128, 5)):
+                n = ch * nchunk
+                src = torch.randn(n, c, generator=g, device="cuda").to(dtype)
+                # below 0 aliases into chunk 0's repeated block, past n into
+                # the last chunk's; beyond a chunk's band reads zeros
+                idx = torch.randint(-ch - 3, n + ch + 3, (n,), generator=g,
+                                    device="cuda", dtype=torch.int32)
+                err["window3_gather"] = max(err["window3_gather"], check_exact(
+                    f"window3_gather {dtype} C={c} ch={ch} n={n}",
+                    probe.window3_gather(src, idx, ch),
+                    probe.window3_gather_plain(src, idx, ch)))
+                cases += 1
+            n_src, chunk, wblk, nwin = 4096, 512, 128, 6
+            n = 5 * chunk + 37                  # a ragged last chunk
+            src = torch.randn(n_src, c, generator=g, device="cuda").to(dtype)
+            # some windows run past the source end (those rows read zeros)
+            bases = torch.randint(0, n_src // wblk - nwin + 3, (6,),
+                                  generator=g, device="cuda",
+                                  dtype=torch.int32)
+            rel = torch.randint(-20, nwin * wblk + 20, (n,), generator=g,
+                                device="cuda", dtype=torch.int32)
+            kw = dict(chunk=chunk, wblk=wblk, nwin=nwin)
+            err["prefetch_window_gather"] = max(
+                err["prefetch_window_gather"], check_exact(
+                    f"prefetch_window_gather {dtype} C={c}",
+                    probe.prefetch_window_gather(src, rel, bases, **kw),
+                    probe.prefetch_window_gather_plain(src, rel, bases, **kw)))
+            cases += 1
+    torch.cuda.synchronize()
+
+    # the probe path, counted: counts set to 0 just before, read after
+    kernels = (probe.probe_scale2, probe.window3_gather,
+               probe.prefetch_window_gather)
+    for k in kernels:
+        k.launches = 0
+    dev = torch.device("cuda")
+    res = {r["probe"]: r for r in probe_cli.run(
+        probe_cli.PROBES, dev, n=262144, c=128, ch=512)}
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    if not all(launches.values()):
+        raise AssertionError(f"a probe kernel was not launched: {launches}")
+    emit({"phase": "probe", "random_cases": cases, "launches": launches,
+          "results": res})
+
+    x = torch.ones((256, 128), dtype=torch.bfloat16, device="cuda")
+    smoke = res["smoke"]
+    entries = [{
+        "name": "probe_scale2", "route": "cuda",
+        "source": "d3net_tpu_torch/csrc/probe_kernels.cu",
+        "replaces": "scripts/pallas_probe.py:62",
+        "launches": launches["probe_scale2"],
+        "max_abs_err": max(err["probe_scale2"], smoke["max_abs_err"]),
+        "ms": smoke["ms"],
+        "plain_ms": time_ms(lambda: probe.probe_scale2_plain(x)),
+        "bound_ms": smoke["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_ms(lambda: torch.mul(x, 2.0)),
+    }]
+    for name, key, line in (("window3_gather", "band", 84),
+                            ("prefetch_window_gather", "prefetch", 210)):
+        r = res[key]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "d3net_tpu_torch/csrc/probe_kernels.cu",
+            "replaces": f"scripts/pallas_probe.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": max(err[name], r["max_abs_err"]),
+            "ms": r["ms"]["kernel"], "plain_ms": r["ms"]["plain"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "library_ms": r["ms"]["index_select"]})
+    return entries
+
+
 def phase_parity():
     """Small config: the port on cuda vs the port on cpu, same weights."""
     scenes = [make_scene(seed=i, **SMALL_SCENE) for i in range(2)]
@@ -181,6 +306,77 @@ def phase_parity():
           "outside_tolerance": bad, "rtol": PARITY_RTOL, "atol": PARITY_ATOL})
     if held:
         raise AssertionError(f"cuda vs cpu outside tolerance: {held}")
+
+
+def _train_once(variables, batch_np, dev, do_clustering, jitter, perm):
+    """One small-config train step on ``dev``: metrics, gradients, new BN
+    statistics, and (with clustering) the integer outputs of the same
+    train-mode forward."""
+    model = load_detector(variables, SMALL_CFG, device=dev)
+    state = create_train_state(model)
+    batch = batch_to_torch(batch_np, dev)
+    kw = dict(jitter_u=torch.from_numpy(jitter).to(dev),
+              proposal_perm=torch.from_numpy(perm).to(dev)[None])
+    _, metrics = detector_train_step(model, state, batch,
+                                     do_clustering=do_clustering, **kw)
+    grads = flatten(state_dict_to_flax(
+        model, {n: p.grad for n, p in model.named_parameters()})["params"])
+    stats = flatten(state_dict_to_flax(model)["batch_stats"])
+    ints = {}
+    if do_clustering:
+        fresh = load_detector(variables, SMALL_CFG, device=dev)
+        with torch.no_grad():
+            out = fresh(batch, train=True, **kw)
+        ints = {k: v.cpu() for k, v in out.items()
+                if not v.is_floating_point()}
+    return ({k: float(v) for k, v in metrics.items()}, grads, stats, ints)
+
+
+def phase_train_parity():
+    """Small config, f32, TF32 off: a train step on cuda vs on cpu."""
+    scenes = [make_scene(seed=i, **SMALL_SCENE) for i in range(2)]
+    batch_np = build_batch(scenes, BatchSpec(**SMALL_SPEC))
+    in_ch = batch_np["point_feats"].shape[-1] + 3
+    variables = init_flax_variables(PointGroup(in_ch, **SMALL_CFG), seed=0)
+    randomize(variables, np.random.default_rng(0))
+    rng = np.random.default_rng(3)
+    b = batch_np["point_mask"].shape[0]
+    jitter = rng.random((b, 2 * SMALL_CFG["clusters_per_pass"], 3)).astype(
+        np.float32)
+    perm = rng.permutation(SMALL_CFG["max_num_proposal"])
+    report, held_bad = {}, []
+    with device.parity_precision():
+        for do_clustering in (True, False):
+            cpu, gpu = (_train_once(variables, batch_np, dev, do_clustering,
+                                    jitter, perm) for dev in ("cpu", "cuda"))
+            ints = {k: bool(torch.equal(cpu[3][k], gpu[3][k])) for k in cpu[3]}
+            clusters_equal = all(ints.values())
+            bad = []
+            for k, want in cpu[0].items():
+                if not np.isclose(gpu[0][k], want, rtol=PARITY_RTOL, atol=0):
+                    bad.append(k)
+            for name, (group, rtol, atol) in (
+                    ("grad", (1, GRAD_RTOL, GRAD_ATOL)),
+                    ("bn", (2, PARITY_RTOL, PARITY_ATOL))):
+                for k, want in cpu[group].items():
+                    if not np.allclose(gpu[group][k], want, rtol=rtol,
+                                       atol=atol):
+                        bad.append(f"{name}:{k}")
+            grad_err = max(float(np.abs(gpu[1][k] - v).max())
+                           for k, v in cpu[1].items())
+            held = bad if clusters_equal else [
+                k for k in bad if k in ("semantic_loss", "offset_norm_loss",
+                                        "offset_dir_loss")]
+            held_bad += held
+            report["clustering" if do_clustering else "no_clustering"] = {
+                "losses_cpu": cpu[0], "losses_cuda": gpu[0],
+                "integers_equal": ints, "grad_max_abs_err": grad_err,
+                "outside_tolerance": bad}
+    emit({"phase": "train_parity", **report, "loss_rtol": PARITY_RTOL,
+          "grad_rtol": GRAD_RTOL, "grad_atol": GRAD_ATOL})
+    if held_bad:
+        raise AssertionError(f"train step cuda vs cpu outside tolerance: "
+                             f"{held_bad}")
 
 
 class GatherRecorder:
@@ -302,19 +498,19 @@ def phase_flagship():
           "clusters": int(out["cluster_mask_all"].sum()),
           "proposals": int(out["proposal_batch_mask"].sum()),
           "band_taps_planned": planned})
-    return rec.calls, launches, model, batch
+    return rec.calls, launches, model, batch, variables
 
 
-def phase_profile(model, batch):
-    """Device time by kernel and by launching op over one flagship forward
-    (torch.profiler), and the device's idle share of that forward."""
+def phase_profile(name, fn):
+    """Device time by kernel and by launching op over one call of ``fn``
+    (torch.profiler), and the device's idle share of that call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        model(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     kernels, ops = [], []
@@ -326,26 +522,10 @@ def phase_profile(model, batch):
     kernels.sort(key=lambda r: -r[1])
     ops.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_busy_ms": busy,
+    emit({"phase": name, "wall_ms": wall_ms, "device_busy_ms": busy,
           "idle_share": 1.0 - busy / wall_ms,
           "kernel_launches": sum(r[2] for r in kernels),
           "top_kernels": kernels[:15], "top_ops": ops[:15]})
-
-
-def _time_ms(fn, reps):
-    """Median over ``reps`` of one pass of ``fn`` (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def phase_kernels(calls, launches):
@@ -382,10 +562,10 @@ def phase_kernels(calls, launches):
         for (_, idx), src in zip(calls, padded):
             torch.index_select(src, 0, idx)
 
-    ms = _time_ms(kernel, KERNEL_REPS)
-    plain_ms = _time_ms(plain, KERNEL_REPS)
-    library_ms = _time_ms(library, KERNEL_REPS)
-    ms_again = _time_ms(kernel, KERNEL_REPS)
+    ms = time_ms(kernel, KERNEL_REPS, inner=1)
+    plain_ms = time_ms(plain, KERNEL_REPS, inner=1)
+    library_ms = time_ms(library, KERNEL_REPS, inner=1)
+    ms_again = time_ms(kernel, KERNEL_REPS, inner=1)
     by_width = {}
     for src, idx in calls:
         key = f"{src.dtype}".replace("torch.", "") + f"x{src.shape[1]}"
@@ -408,6 +588,65 @@ def phase_kernels(calls, launches):
     }]
 
 
+def phase_train(variables, batch):
+    """The flagship B=4 train step: timed steps, peak memory, finite losses,
+    the gather launches of one step, and one profiled step."""
+    flag = flagship_config()
+    model = load_detector(variables, flag.model)       # cuda by default
+    n_conv = sum(isinstance(m, SubmConv) for m in model.modules())
+    # forward: every conv + 4 row gathers to points; backward: a dW
+    # re-gather per conv and a dx gather per conv but the input conv's
+    expected = (n_conv + 4) + n_conv + (n_conv - 1)
+    state = create_train_state(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        return detector_train_step(model, state, batch, gen)[1]
+
+    history = []
+    for _ in range(TRAIN_WARMUP):
+        history.append({k: float(v) for k, v in step().items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev_ms, wall_ms = [], []
+    for _ in range(TRAIN_REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        a.record()
+        metrics = step()
+        b.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.time() - t0) * 1e3)
+        ev_ms.append(a.elapsed_time(b))
+        history.append({k: float(v) for k, v in metrics.items()})
+    peak = torch.cuda.max_memory_allocated()
+
+    # the train path, counted: counts set to 0 just before, read after
+    gather.gather_rows.launches = 0
+    history.append({k: float(v) for k, v in step().items()})
+    torch.cuda.synchronize()
+    launches = gather.gather_rows.launches
+    for i, h in enumerate(history):
+        bad = [k for k, v in h.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"train step {i}: non-finite {bad}")
+    if launches != expected:
+        raise AssertionError(f"gather launches {launches} per train step, "
+                             f"expected {expected}")
+    emit({"phase": "train", "batch": batch["point_mask"].shape[0],
+          "compute_dtype": flag.model["compute_dtype"],
+          "detector_train_step_ms": statistics.median(ev_ms),
+          "detector_train_step_ms_all": ev_ms,
+          "detector_train_step_wall_ms": statistics.median(wall_ms),
+          "scenes_per_sec": batch["point_mask"].shape[0]
+          / (statistics.median(ev_ms) / 1e3),
+          "max_memory_allocated": peak,
+          "gather_launches_per_step": launches, "convs": n_conv,
+          "steps": history})
+    phase_profile("train_profile", step)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -420,13 +659,22 @@ def main() -> int:
           "cuda": torch.version.cuda})
     phase_build()
     phase_kernel()
+    probe_entries = phase_probe()
     phase_parity()
-    calls, launches, model, batch = phase_flagship()
-    phase_profile(model, batch)
-    del model, batch
+    phase_train_parity()
+    calls, launches, model, batch, variables = phase_flagship()
+
+    def forward():
+        with torch.no_grad():
+            model(batch)
+
+    phase_profile("profile", forward)
+    del model
     kernels = phase_kernels(calls, launches)
+    del calls
+    phase_train(variables, batch)
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
-    emit({"kernels": kernels})
+    emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,12 @@ is ``csrc/gather_rows.cu``; its note gives the bound and the design.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. ``gather_rows.launches`` counts kernel launches.
+
+Under autograd (``src.requires_grad`` with grad mode on) the gather is a
+``torch.autograd.Function`` whose backward is the gradient XLA gives a
+gather: the output gradient rows scatter-added into zeros ``(n_src, C)``
+with ``index_add_``, sentinel and out-of-range rows dropped. The JAX
+``band_gather`` has no VJP kernel of its own, so neither has this one.
 """
 
 from __future__ import annotations
@@ -68,9 +74,34 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[r] = src[idx[r]]`` for ``0 <= idx[r] < n_src``; any other index
     reads a zero row — ``idx[r] == n_src`` is the kernel-map INVALID
-    sentinel. (n,) -> (n, C).
+    sentinel. (n,) -> (n, C). Differentiable in ``src``.
     """
     _check(src, idx)
+    if src.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(src, idx)
+    return _gather(src, idx)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_src = src.shape[0]
+        return _gather(src, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        """``dsrc[idx[r]] += g[r]``; rows outside ``[0, n_src)`` drop into
+        a trash row."""
+        (idx,) = ctx.saved_tensors
+        n_src = ctx.n_src
+        keep = torch.where((idx >= 0) & (idx < n_src), idx, n_src).long()
+        out = g.new_zeros((n_src + 1, g.shape[1]))
+        out.index_add_(0, keep, g.contiguous())
+        return out[:n_src], None
+
+
+def _gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if src.device.type == "cpu":
         return gather_rows_plain(src, idx)
     if src.device.type != "cuda":

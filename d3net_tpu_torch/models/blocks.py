@@ -9,6 +9,13 @@ a Flax variable path maps onto a ``state_dict`` key by joining with dots.
 Features are ``(B, M_l, C)`` rows per level. Tables come folded by
 :func:`fold_tables`: every scene's indices are offset into one flat row
 domain with one zero-row sentinel, so each conv is one gather launch.
+
+Every conv is ``sparse_conv_t``: its backward goes through the transpose
+table (the table itself, mirrored, for submanifold convs; the sibling
+``up``/``down`` table for the stride-2 pair), as the JAX ``SubmConv``
+passes it. The JAX ``UBlock`` wraps its blocks in ``nn.remat`` because
+TPU activations pad 2-8x in HBM; the port keeps every activation (the
+flagship train step fits the card without recomputation, PERF.md).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from d3net_tpu_torch.ops.segment import fold_index
-from d3net_tpu_torch.ops.sparse_conv import sparse_conv
+from d3net_tpu_torch.ops.sparse_conv import sparse_conv_t
 
 LevelTables = Dict[str, torch.Tensor]
 
@@ -98,10 +105,18 @@ class SubmConv(nn.Module):
         self.kernel = nn.Parameter(
             torch.randn(kernel_volume, in_channels, out_channels) * std)
 
-    def forward(self, feats: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-        """feats (B, M_in, Cin), nbr (B*M_out, K) -> (B, M_out, Cout)."""
+    def forward(self, feats: torch.Tensor, nbr: torch.Tensor,
+                nbr_t=None, flip_t: bool = True) -> torch.Tensor:
+        """feats (B, M_in, Cin), nbr (B*M_out, K) -> (B, M_out, Cout).
+
+        ``nbr_t``/``flip_t`` route the backward (``sparse_conv_t``); a
+        submanifold table is its own transpose under the mirror, so the
+        defaults serve it.
+        """
         b, _, cin = feats.shape
-        out = sparse_conv(feats.reshape(-1, cin), nbr, self.kernel)
+        out = sparse_conv_t(feats.reshape(-1, cin), nbr,
+                            nbr if nbr_t is None else nbr_t, self.kernel,
+                            flip_t)
         return out.reshape(b, -1, out.shape[-1])
 
 
@@ -172,10 +187,10 @@ class UBlock(nn.Module):
         if self.deeper:
             t1 = tables[1]
             h = F.relu(self.MaskedBatchNorm_0(x, t0["mask"], train))
-            h = self.SubmConv_0(h, t0["down"])
+            h = self.SubmConv_0(h, t0["down"], t0["up"], False)
             h = self.UBlock_0(h, tables[1:], train)
             h = F.relu(self.MaskedBatchNorm_1(h, t1["mask"], train))
-            h = self.SubmConv_1(h, t0["up"])
+            h = self.SubmConv_1(h, t0["up"], t0["down"], False)
             x = torch.cat([x, h], dim=-1)
             for i in range(self.block_reps):
                 x = getattr(self, f"tail{i}")(x, t0, train)

@@ -1,8 +1,8 @@
-"""PointGroup instance-segmentation detector, inference forward.
+"""PointGroup instance-segmentation detector.
 
-Counterpart of ``d3net_tpu/models/pointgroup.py`` at ``train=False``:
-voxel scatter-mean, 7-level sparse U-Net, semantic + offset heads,
-dual-pass (original / offset-shifted) on-device clustering, per-cluster
+Counterpart of ``d3net_tpu/models/pointgroup.py``: voxel scatter-mean,
+7-level sparse U-Net, semantic + offset heads, dual-pass (original /
+offset-shifted) on-device clustering, per-cluster
 stats and dense 14^3 grids, dense ScoreNet, and score-ranked selection of
 ``max_num_proposal`` proposals. Submodule names follow the Flax setup
 names so the converted ``state_dict`` keys line up (``params.py``).
@@ -16,6 +16,13 @@ is one ``gather_rows`` launch over the flattened rows.
 ``compute_dtype="bfloat16"`` casts like JAX: the backbone and ScoreNet
 run in bf16; heads, BN statistics, geometry and the grid scatter-mean
 (accumulated in f32) stay f32.
+
+``train=True`` uses batch statistics in every BN (and updates the running
+ones), jitters each cluster's grid placement (``jitter_u``) and shuffles
+the top-K proposal slots (``proposal_perm``); both come from an explicit
+``torch.Generator`` or are passed in as tensors. Clustering is not
+differentiable: its coordinates and weights are detached, as the JAX
+module wraps them in ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -81,8 +88,8 @@ class PointGroup(nn.Module):
         super().__init__()
         if pred_bbox:
             raise NotImplementedError(
-                "pred_bbox: the bbox regression head comes with the detector "
-                "train-step slice")
+                "pred_bbox: the bbox regression head and bbox_loss are not "
+                "ported yet (every conf/ config sets it off)")
         del cluster_ring
         self.m = m
         self.classes = classes
@@ -234,12 +241,16 @@ class PointGroup(nn.Module):
         return votes.reshape(b, p_total, self.classes).argmax(-1).to(torch.int32)
 
     # ------------------------------------------------------------------
-    def forward(self, batch: Dict[str, Any],
-                train: bool = False) -> Dict[str, Any]:
-        if train:
-            raise NotImplementedError(
-                "train=True (cluster jitter and proposal shuffle RNG) comes "
-                "with the detector train-step slice")
+    def forward(self, batch: Dict[str, Any], train: bool = False,
+                do_clustering: bool = True, *,
+                generator: Optional[torch.Generator] = None,
+                jitter_u: Optional[torch.Tensor] = None,
+                proposal_perm: Optional[torch.Tensor] = None,
+                ) -> Dict[str, Any]:
+        """``do_clustering=False`` returns after the heads (the run loop's
+        pre-clustering epochs). Under ``train``, ``jitter_u (B, P, 3)`` in
+        [0, 1) and ``proposal_perm (B, K)`` are drawn from ``generator``
+        unless given; at eval the jitter is 0.5 and there is no shuffle."""
         point_xyz = batch["point_xyz"]          # (B, N, 3)
         point_feats = batch["point_feats"]      # (B, N, C)
         point_mask = batch["point_mask"]        # (B, N)
@@ -264,9 +275,12 @@ class PointGroup(nn.Module):
             "pt_offsets": seg.gather_padded_batched(offsets_v, p2v),
             "pt_feats": seg.gather_padded_batched(vfeats, p2v),
         }
+        if not do_clustering:
+            return out
         sem_scores = out["semantic_scores"]
         pt_feats = out["pt_feats"]
         p_total = 2 * self.clusters_per_pass
+        dev = point_xyz.device
 
         if self.requires_gt_mask:
             # GT instances as proposals (modes 4-6): pass 0 carries the GT
@@ -289,8 +303,10 @@ class PointGroup(nn.Module):
             vsem_pred = sem_scores_v.argmax(-1).to(torch.int32)
             vvalid = vmask.bool() & (vsem_pred > 0)
             vshift = vxyz + offsets_v
+            # grouping is not differentiable (JAX: stop_gradient)
             member_v, cluster_mask, _ = self._cluster_batch(
-                torch.stack([vxyz, vshift], dim=1), vsem_pred, vvalid, vweight)
+                torch.stack([vxyz, vshift], dim=1).detach(), vsem_pred,
+                vvalid, vweight.detach())
 
             # point-level membership: one int32 gather for both passes
             mp = seg.gather_padded_batched(
@@ -307,7 +323,11 @@ class PointGroup(nn.Module):
         out["cluster_size"] = stats["size"]
 
         # --- scorenet --------------------------------------------------
-        jitter_u = torch.full((b, p_total, 3), 0.5, device=point_xyz.device)
+        if not train:
+            jitter_u = torch.full((b, p_total, 3), 0.5, device=dev)
+        elif jitter_u is None:
+            jitter_u = torch.rand((b, p_total, 3), generator=generator,
+                                  device=dev)
         grids, occ = self._build_grids(member_pt, point_xyz, pt_feats,
                                        point_mask, stats, jitter_u)
         g = self.score_fullscale
@@ -327,6 +347,13 @@ class PointGroup(nn.Module):
                  & (stats["npoint"] > self.test_npoint_thresh))
         rank = torch.where(valid, objness, torch.full_like(objness, -1.0))
         _, top_idx = topk_stable(rank, self.max_num_proposal)  # (B, K)
+        if train:
+            if proposal_perm is None:
+                proposal_perm = torch.stack([
+                    torch.randperm(self.max_num_proposal, generator=generator,
+                                   device=dev) for _ in range(b)])
+            top_idx = torch.take_along_dim(
+                top_idx, proposal_perm.long().to(dev).expand(b, -1), dim=1)
 
         proposal_mask = _take(valid, top_idx)
         fmask = proposal_mask[..., None]

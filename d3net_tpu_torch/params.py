@@ -1,5 +1,6 @@
-"""Flax variables of ``PointGroup`` -> the port's ``state_dict``, and the
-``load_detector`` entry point.
+"""Flax variables of ``PointGroup`` <-> the port's ``state_dict``, optax
+Adam moments -> the torch optimizer's state, and the ``load_detector``
+entry point.
 
 The Flax tree (``{"params": ..., "batch_stats": ...}`` as nested dicts of
 numpy arrays) and the port's modules share names, so a variable path maps
@@ -15,13 +16,16 @@ to a ``state_dict`` key by joining with dots. Layout changes:
   ``scale/bias`` (params) and ``mean/var`` (batch_stats) stay as they are.
 
 The conversion fails if any Flax leaf is left unused or any port
-parameter or buffer is left unset.
+parameter or buffer is left unset. ``state_dict_to_flax`` is its inverse
+(also for a mapping of gradients), and ``optax_adam_state_to_torch``
+carries optax's ``mu``/``nu``/``count`` into ``exp_avg``/``exp_avg_sq``/
+``step``, so a run can move between the frameworks in either direction.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, NamedTuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -34,12 +38,13 @@ from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.models.scorenet import Conv, ConvTranspose
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested variable tree -> ``{dotted path: numpy array}``."""
     flat = {}
     for k, v in tree.items():
         path = f"{prefix}.{k}" if prefix else k
         if isinstance(v, Mapping):
-            flat.update(_flatten(v, path))
+            flat.update(flatten(v, path))
         else:
             flat[path] = np.asarray(v)
     return flat
@@ -91,7 +96,7 @@ def flax_to_state_dict(variables: Mapping[str, Any],
 
     Raises ValueError if a Flax leaf is unused or a model entry unset.
     """
-    flat = {c: _flatten(variables.get(c, {})) for c in ("params", "batch_stats")}
+    flat = {c: flatten(variables.get(c, {})) for c in ("params", "batch_stats")}
     extra = set(variables) - set(flat)
     if extra:
         raise ValueError(f"unexpected variable collections {sorted(extra)}")
@@ -120,6 +125,74 @@ def flax_to_state_dict(variables: Mapping[str, Any],
     if unset:
         raise ValueError(f"port entries not set by the conversion: {sorted(unset)}")
     return sd
+
+
+def state_dict_to_flax(model: nn.Module,
+                       tensors: Optional[Mapping[str, torch.Tensor]] = None,
+                       ) -> Dict[str, Any]:
+    """``model``'s state_dict (or ``tensors``, a mapping keyed like it, such
+    as ``{name: p.grad}``) -> Flax ``{"params", "batch_stats"}`` as numpy.
+
+    With ``tensors`` given, only the collections its keys reach appear;
+    raises ValueError if one of its keys is not a converted leaf.
+    """
+    full = tensors is None
+    tensors = model.state_dict() if full else tensors
+    flat: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
+    used = set()
+    for name, _, spec in _leaf_modules(model):
+        for coll, leaf, key, _, inv in spec:
+            k = f"{name}{key}"
+            if k not in tensors:
+                if full:
+                    raise ValueError(f"state_dict has no {k}")
+                continue
+            used.add(k)
+            value = tensors[k].detach().to("cpu", torch.float32).numpy()
+            flat[coll][f"{name}{leaf}"] = np.ascontiguousarray(inv(value))
+    left = set(tensors) - used
+    if left:
+        raise ValueError(f"entries with no Flax leaf: {sorted(left)}")
+    return {c: _unflatten(f) for c, f in flat.items() if f or full}
+
+
+def _params_to_tensors(tree: Mapping[str, Any],
+                       model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A Flax ``params``-shaped tree (weights, or optax moments of them) ->
+    ``{state_dict key: tensor}`` over the model's parameters."""
+    flat = flatten(tree)
+    out: Dict[str, torch.Tensor] = {}
+    for name, _, spec in _leaf_modules(model):
+        for coll, leaf, key, fwd, _ in spec:
+            if coll == "params":
+                v = np.ascontiguousarray(fwd(flat.pop(f"{name}{leaf}")))
+                out[f"{name}{key}"] = torch.from_numpy(v.astype(np.float32))
+    if flat:
+        raise ValueError(f"unused leaves: {sorted(flat)}")
+    return out
+
+
+def optax_adam_state_to_torch(opt_state: Any, model: nn.Module,
+                              optimizer: torch.optim.Optimizer) -> None:
+    """Load optax ``scale_by_adam`` state into a torch Adam/AdamW over
+    ``model.parameters()``: ``mu -> exp_avg``, ``nu -> exp_avg_sq``,
+    ``count -> step``. ``opt_state`` is optax's state as it stands (the
+    ``ScaleByAdamState``, or a chain's tuple holding exactly one), with
+    numpy or JAX arrays as leaves."""
+    entries = [opt_state] if hasattr(opt_state, "mu") else list(opt_state)
+    found = [s for s in entries if hasattr(s, "mu")]
+    if len(found) != 1:
+        raise ValueError("opt_state holds no single scale_by_adam state")
+    adam = found[0]
+    mu = _params_to_tensors(adam.mu, model)
+    nu = _params_to_tensors(adam.nu, model)
+    step = float(np.asarray(adam.count))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype),
+        }
 
 
 def init_flax_variables(model: nn.Module, seed: int) -> Dict[str, Any]:

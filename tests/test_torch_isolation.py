@@ -1,6 +1,7 @@
 """The port stands alone: no module of d3net_tpu_torch, nor chip_smoke.py,
-imports JAX, Flax or the JAX package; entry points refuse to fall back to
-the CPU quietly."""
+imports JAX, Flax, optax, the JAX package or the repo's scripts (the probe
+keeps its own copy of what it needs from scripts/pallas_probe.py); entry
+points refuse to fall back to the CPU quietly."""
 
 import os
 import shutil
@@ -22,7 +23,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "d3net_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "d3net_tpu", "scripts", "pallas_probe"))
 print(json.dumps({{"modules": names, "bad": bad}}))
 """
 
@@ -42,8 +44,13 @@ def test_port_imports_no_jax_flax_or_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("d3net_tpu_torch.models.pointgroup",
-                "d3net_tpu_torch.kernels.gather", "d3net_tpu_torch.params"):
+                "d3net_tpu_torch.kernels.gather", "d3net_tpu_torch.params",
+                "d3net_tpu_torch.kernels.probe", "d3net_tpu_torch.probe",
+                "d3net_tpu_torch.train.losses",
+                "d3net_tpu_torch.train.trainer"):
         assert mod in res["modules"]
+    assert os.path.exists(os.path.join(ROOT, "d3net_tpu_torch", "train",
+                                       "__init__.py"))
 
 
 def test_load_detector_without_device_raises_without_gpu(monkeypatch):
