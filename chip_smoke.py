@@ -28,7 +28,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               clustering: losses and grad_norm rtol 1e-4, every gradient
               rtol 1e-3 / atol 1e-6, new BN statistics rtol 1e-4 / atol
               1e-5; integer outputs reported (with clustering, a reported
-              flip leaves only the pre-clustering losses held).
+              flip leaves only the pre-clustering losses held). The cuda
+              step takes each ReLU's side from the cpu step's input, and
+              an input that changes side must lie within 1e-5 (relative)
+              of the kink.
 7. flagship — the B=4 flagship detector forward (7-level U-Net, 131072
               voxel caps, 134 input channels, bf16) through
               ``load_detector``, at PyTorch's default precision settings
@@ -50,7 +53,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               losses and grad_norm (all finite), the gather launches of one
               step (counts set to 0 just before: forward 71 convs + 4 row
               gathers, a dW re-gather per conv, a dx gather per conv but
-              the input conv's), and one profiled step (train_profile).
+              the input conv's), each of them held bit-exact against the
+              plain version as it runs, and one profiled step
+              (train_profile).
 
 The last two lines are ``nvidia-smi``'s name/power limit and
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -60,6 +65,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -69,13 +75,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch.probe import check_exact, time_ms
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
 from d3net_tpu_torch.data.synthetic import make_scene
-from d3net_tpu_torch.kernels import build, gather, probe
+from d3net_tpu_torch.kernels import gather, probe
 from d3net_tpu_torch.models.blocks import SubmConv, fold_tables
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.ops import segment, sparse_conv
@@ -90,10 +97,10 @@ from d3net_tpu_torch.train.trainer import (
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6
+KINK_NOISE = 1e-5     # largest ReLU input, relative, that may change side
 FWD_REPS = 7
 KERNEL_REPS = 5
 TRAIN_WARMUP, TRAIN_REPS = 2, 5
-SOURCES = (gather.SOURCE, probe.SOURCE)
 
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
@@ -131,12 +138,13 @@ def randomize(tree, rng):
 
 # --------------------------------------------------------------------------
 def phase_build():
+    """Each kernel module's ``load_library`` (nvcc at first use), all
+    started together."""
     t0 = time.time()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        list(pool.map(build.build_library, SOURCES))
-    gather.load_library()
-    probe.load_library()
-    emit({"phase": "build", "sources": list(SOURCES),
+    modules = (gather, probe)
+    with ThreadPoolExecutor(len(modules)) as pool:
+        list(pool.map(lambda m: m.load_library(), modules))
+    emit({"phase": "build", "sources": [m.SOURCE for m in modules],
           "seconds": round(time.time() - t0, 3)})
 
 
@@ -274,13 +282,19 @@ def phase_probe():
     return entries
 
 
-def phase_parity():
-    """Small config: the port on cuda vs the port on cpu, same weights."""
+def small_case():
+    """The small config's B=2 batch and random weights."""
     scenes = [make_scene(seed=i, **SMALL_SCENE) for i in range(2)]
     batch_np = build_batch(scenes, BatchSpec(**SMALL_SPEC))
     in_ch = batch_np["point_feats"].shape[-1] + 3
     variables = init_flax_variables(PointGroup(in_ch, **SMALL_CFG), seed=0)
     randomize(variables, np.random.default_rng(0))
+    return batch_np, variables
+
+
+def phase_parity():
+    """Small config: the port on cuda vs the port on cpu, same weights."""
+    batch_np, variables = small_case()
     outs = {}
     with device.parity_precision(), torch.no_grad():
         for dev in ("cpu", "cuda"):
@@ -308,17 +322,61 @@ def phase_parity():
         raise AssertionError(f"cuda vs cpu outside tolerance: {held}")
 
 
-def _train_once(variables, batch_np, dev, do_clustering, jitter, perm):
-    """One small-config train step on ``dev``: metrics, gradients, new BN
-    statistics, and (with clustering) the integer outputs of the same
+@contextlib.contextmanager
+def relu_sides(ref, record):
+    """Stands in for ``F.relu`` for one train step. ``record``: keeps each
+    call's input (the reference step, on the cpu). Otherwise each call
+    takes the side of the kink the reference's input took (``x * (ref >
+    0)``), and the yielded dict counts the inputs whose own side differs
+    and the largest of those inputs, relative to the call's largest input.
+
+    An input within float noise of 0 can land on either side of the kink
+    when sums run in another order, and that one element's gradient then
+    reaches every layer before it (seen on the card: one ScoreNet element
+    at 1e-8 on the cpu, -1e-7 on cuda). Following the reference's side
+    keeps the gradients comparable; ``KINK_NOISE`` bounds the crossings."""
+    real = F.relu
+    calls = iter(ref)
+    seen = {"crossings": 0, "largest": 0.0}
+
+    def relu(x, inplace=False):
+        if record:
+            ref.append(x.detach().clone())
+            return real(x, inplace)
+        want = next(calls).to(x.device)
+        side = want > 0
+        cross = side != (x.detach() > 0)
+        if bool(cross.any()):
+            size = max(float(want.abs().max()), 1e-30)
+            near = torch.maximum(want[cross].abs(), x.detach()[cross].abs())
+            seen["crossings"] += int(cross.sum())
+            seen["largest"] = max(seen["largest"], float(near.max()) / size)
+        return x * side
+
+    F.relu = relu
+    try:
+        yield seen
+    finally:
+        F.relu = real
+    if not record and next(calls, None) is not None:
+        raise AssertionError("the step made fewer ReLU calls than the "
+                             "reference")
+
+
+def _train_once(variables, batch_np, dev, do_clustering, jitter, perm,
+                relu_ref, record):
+    """One small-config train step on ``dev`` (ReLU sides recorded into or
+    taken from ``relu_ref``): metrics, gradients, new BN statistics, the
+    kink crossings, and (with clustering) the integer outputs of the same
     train-mode forward."""
     model = load_detector(variables, SMALL_CFG, device=dev)
     state = create_train_state(model)
     batch = batch_to_torch(batch_np, dev)
     kw = dict(jitter_u=torch.from_numpy(jitter).to(dev),
               proposal_perm=torch.from_numpy(perm).to(dev)[None])
-    _, metrics = detector_train_step(model, state, batch,
-                                     do_clustering=do_clustering, **kw)
+    with relu_sides(relu_ref, record) as kinks:
+        _, metrics = detector_train_step(state, batch,
+                                         do_clustering=do_clustering, **kw)
     grads = flatten(state_dict_to_flax(
         model, {n: p.grad for n, p in model.named_parameters()})["params"])
     stats = flatten(state_dict_to_flax(model)["batch_stats"])
@@ -329,16 +387,13 @@ def _train_once(variables, batch_np, dev, do_clustering, jitter, perm):
             out = fresh(batch, train=True, **kw)
         ints = {k: v.cpu() for k, v in out.items()
                 if not v.is_floating_point()}
-    return ({k: float(v) for k, v in metrics.items()}, grads, stats, ints)
+    return ({k: float(v) for k, v in metrics.items()}, grads, stats, ints,
+            kinks)
 
 
 def phase_train_parity():
     """Small config, f32, TF32 off: a train step on cuda vs on cpu."""
-    scenes = [make_scene(seed=i, **SMALL_SCENE) for i in range(2)]
-    batch_np = build_batch(scenes, BatchSpec(**SMALL_SPEC))
-    in_ch = batch_np["point_feats"].shape[-1] + 3
-    variables = init_flax_variables(PointGroup(in_ch, **SMALL_CFG), seed=0)
-    randomize(variables, np.random.default_rng(0))
+    batch_np, variables = small_case()
     rng = np.random.default_rng(3)
     b = batch_np["point_mask"].shape[0]
     jitter = rng.random((b, 2 * SMALL_CFG["clusters_per_pass"], 3)).astype(
@@ -347,11 +402,15 @@ def phase_train_parity():
     report, held_bad = {}, []
     with device.parity_precision():
         for do_clustering in (True, False):
+            relu_ref = []
             cpu, gpu = (_train_once(variables, batch_np, dev, do_clustering,
-                                    jitter, perm) for dev in ("cpu", "cuda"))
+                                    jitter, perm, relu_ref, dev == "cpu")
+                        for dev in ("cpu", "cuda"))
+            kinks, bad = gpu[4], []
+            if kinks["largest"] > KINK_NOISE:
+                bad.append("relu_kink_crossing")
             ints = {k: bool(torch.equal(cpu[3][k], gpu[3][k])) for k in cpu[3]}
             clusters_equal = all(ints.values())
-            bad = []
             for k, want in cpu[0].items():
                 if not np.isclose(gpu[0][k], want, rtol=PARITY_RTOL, atol=0):
                     bad.append(k)
@@ -371,7 +430,7 @@ def phase_train_parity():
             report["clustering" if do_clustering else "no_clustering"] = {
                 "losses_cpu": cpu[0], "losses_cuda": gpu[0],
                 "integers_equal": ints, "grad_max_abs_err": grad_err,
-                "outside_tolerance": bad}
+                "relu_kink_crossings": kinks, "outside_tolerance": bad}
     emit({"phase": "train_parity", **report, "loss_rtol": PARITY_RTOL,
           "grad_rtol": GRAD_RTOL, "grad_atol": GRAD_ATOL})
     if held_bad:
@@ -380,17 +439,32 @@ def phase_train_parity():
 
 
 class GatherRecorder:
-    """Stands in for the ``gather`` module inside the ops that call it, to
-    keep each call's tensors for the kernel replay; the real wrapper (and
-    its launch count) still runs every call."""
+    """Stands in for the ``gather`` module inside the ops that call it; the
+    real wrapper (and its launch count) still runs every call. It keeps
+    each call's tensors for the kernel replay, or with ``check`` holds each
+    call's output against the plain version on the same tensors as the
+    call happens (in the backward too) and keeps only a count."""
 
-    def __init__(self, real):
+    def __init__(self, real, check=False):
         self.real = real
+        self.check = check
         self.calls = []
+        self.checked = 0
 
     def gather_rows(self, src, idx):
-        self.calls.append((src, idx))
-        return self.real.gather_rows(src, idx)
+        out = self.real.gather_rows(src, idx)
+        if not self.check:
+            self.calls.append((src, idx))
+            return out
+        with torch.no_grad():
+            want = self.real.gather_rows_plain(src.detach(), idx)
+        if not torch.equal(out, want):
+            raise AssertionError(
+                f"gather {self.checked} of the train step ({src.dtype}, width "
+                f"{src.shape[1]}, {idx.numel()} rows): kernel disagrees with "
+                f"the plain version")
+        self.checked += 1
+        return out
 
 
 def phase_flagship():
@@ -601,7 +675,7 @@ def phase_train(variables, batch):
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def step():
-        return detector_train_step(model, state, batch, gen)[1]
+        return detector_train_step(state, batch, gen)[1]
 
     history = []
     for _ in range(TRAIN_WARMUP):
@@ -622,18 +696,25 @@ def phase_train(variables, batch):
         history.append({k: float(v) for k, v in metrics.items()})
     peak = torch.cuda.max_memory_allocated()
 
-    # the train path, counted: counts set to 0 just before, read after
-    gather.gather_rows.launches = 0
-    history.append({k: float(v) for k, v in step().items()})
-    torch.cuda.synchronize()
-    launches = gather.gather_rows.launches
+    # the train path, counted: counts set to 0 just before, read after;
+    # every gather of the step (forward, dW re-gathers, dx gathers) is held
+    # bit-exact against the plain version as it runs
+    rec = GatherRecorder(gather, check=True)
+    sparse_conv.gather, segment.gather = rec, rec
+    try:
+        gather.gather_rows.launches = 0
+        history.append({k: float(v) for k, v in step().items()})
+        torch.cuda.synchronize()
+        launches = gather.gather_rows.launches
+    finally:
+        sparse_conv.gather, segment.gather = gather, gather
     for i, h in enumerate(history):
         bad = [k for k, v in h.items() if not np.isfinite(v)]
         if bad:
             raise AssertionError(f"train step {i}: non-finite {bad}")
-    if launches != expected:
-        raise AssertionError(f"gather launches {launches} per train step, "
-                             f"expected {expected}")
+    if launches != expected or rec.checked != expected:
+        raise AssertionError(f"gather launches {launches} per train step "
+                             f"(checked {rec.checked}), expected {expected}")
     emit({"phase": "train", "batch": batch["point_mask"].shape[0],
           "compute_dtype": flag.model["compute_dtype"],
           "detector_train_step_ms": statistics.median(ev_ms),
@@ -643,6 +724,7 @@ def phase_train(variables, batch):
           / (statistics.median(ev_ms) / 1e3),
           "max_memory_allocated": peak,
           "gather_launches_per_step": launches, "convs": n_conv,
+          "gathers_checked_exact": rec.checked,
           "steps": history})
     phase_profile("train_profile", step)
 

@@ -19,16 +19,19 @@
 //   gives a zero row (the TPU kernel's one-hot row is empty). At the edge
 //   chunks the window repeats a chunk (0,0,1 and j-1,j,j), so its row map
 //   is its own: window row w is source row clamp(j-1+w/ch)*ch + w%ch.
-//   Bound: bytes, the window read for every chunk (3*n*C*b), the output
-//   written (n*C*b) and the index read (4n).
+//   Bound: bytes the gather needs, each distinct source row it reaches
+//   read once, the output written (n*C*b) and the index read (4n). The
+//   window plan itself reads every row three times (3*n*C*b); the gap
+//   between the two is what the plan costs.
 //
 // prefetch_window_gather -- replaces probe_prefetch.f,
 //   scripts/pallas_probe.py:210 (pallas_call at :280), the memory plan of
 //   the JAX band_gather (d3net_tpu/ops/pallas_gather.py:100): output chunk
 //   j reads from nwin*wblk source rows starting at row bases[j]*wblk;
 //   out[r] = window[rel[r]] for 0 <= rel < nwin*wblk, else a zero row.
-//   Window rows outside the source read zeros. Bound: bytes, nwin*wblk
-//   rows read per chunk, the output written, rel and bases read.
+//   Window rows outside the source read zeros. Bound: bytes the gather
+//   needs, each distinct source row it reaches read once, the output
+//   written, rel and bases read; the plan reads nwin*wblk rows per chunk.
 //
 // Design of the two window gathers: there is no one-hot matmul on Hopper;
 // a gather out of shared memory is exact and costs no tensor-core work. A

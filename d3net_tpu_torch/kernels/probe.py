@@ -154,9 +154,8 @@ def prefetch_window_gather_plain(src, rel, bases, *, chunk: int, wblk: int,
 def prefetch_window_gather(src: torch.Tensor, rel: torch.Tensor,
                            bases: torch.Tensor, *, chunk: int, wblk: int,
                            nwin: int) -> torch.Tensor:
-    """``src (n_src, C)``, ``rel (n,)`` int32 (or the JAX ``(1, n)``),
-    ``bases (ceil(n / chunk),)`` int32 -> ``(n, C)``."""
-    rel = rel.reshape(-1)
+    """``src (n_src, C)``, ``rel (n,)`` int32, ``bases (ceil(n / chunk),)``
+    int32 -> ``(n, C)``."""
     row = _check_window("prefetch_window_gather", src, rel, nwin * wblk)
     n = rel.shape[0]
     if bases.dtype != torch.int32 or bases.shape != (-(-n // chunk),):

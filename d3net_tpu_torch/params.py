@@ -176,11 +176,10 @@ def optax_adam_state_to_torch(opt_state: Any, model: nn.Module,
                               optimizer: torch.optim.Optimizer) -> None:
     """Load optax ``scale_by_adam`` state into a torch Adam/AdamW over
     ``model.parameters()``: ``mu -> exp_avg``, ``nu -> exp_avg_sq``,
-    ``count -> step``. ``opt_state`` is optax's state as it stands (the
-    ``ScaleByAdamState``, or a chain's tuple holding exactly one), with
+    ``count -> step``. ``opt_state`` is the optax chain's state tuple as
+    ``optax.adam``/``adamw`` leave it (one ``ScaleByAdamState`` in it), with
     numpy or JAX arrays as leaves."""
-    entries = [opt_state] if hasattr(opt_state, "mu") else list(opt_state)
-    found = [s for s in entries if hasattr(s, "mu")]
+    found = [s for s in opt_state if hasattr(s, "mu")]
     if len(found) != 1:
         raise ValueError("opt_state holds no single scale_by_adam state")
     adam = found[0]

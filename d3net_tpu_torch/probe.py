@@ -21,7 +21,10 @@ version, and on the card times with CUDA events (median of 5 passes of
 ``band`` and ``prefetch`` report ns/row for four gathers of the same rows:
 the window kernel, ``gather_rows``, the plain version and
 ``torch.index_select`` (the library yardstick; the port never calls it),
-beside the bytes bound at 3.35 TB/s. One JSON line per probe.
+beside the bytes bound at 3.35 TB/s. The bound counts the bytes the
+gather needs (each distinct source row it reaches read once, the output
+written, the index read); ``plan_bytes`` counts what the TPU window plan
+moves (every window read in full). One JSON line per probe.
 
 Runs on the card unless ``--device cpu`` is given; on the CPU it runs the
 plain versions and times nothing. Exits non-zero if a check fails.
@@ -88,11 +91,23 @@ def check_exact(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def gather_bytes(src: torch.Tensor, idx: torch.Tensor,
+                 index_bytes: int) -> int:
+    """Bytes a gather of ``src[idx]`` must move: each distinct source row
+    it reaches read once, the output written, the index read."""
+    row = src.shape[1] * src.element_size()
+    reached = idx[(idx >= 0) & (idx < src.shape[0])]
+    return (int(torch.unique(reached).numel()) + idx.shape[0]) * row \
+        + index_bytes
+
+
 def _gathers(name: str, kernel: Callable[[], torch.Tensor],
              plain: Callable[[], torch.Tensor], src: torch.Tensor,
-             idx: torch.Tensor, bound_bytes: int) -> Dict[str, object]:
-    """Check ``kernel`` against ``plain`` and against ``src[idx]``; on the
-    card, time the four gathers of the same rows."""
+             idx: torch.Tensor, index_bytes: int,
+             plan_bytes: int) -> Dict[str, object]:
+    """Check ``kernel`` against ``plain`` and against ``src[idx]`` (``idx``
+    the absolute indices, all inside their windows); on the card, time the
+    four gathers of the same rows."""
     n = idx.shape[0]
     got, want = kernel(), plain()
     res: Dict[str, object] = {"probe": name, "rows": n,
@@ -107,8 +122,9 @@ def _gathers(name: str, kernel: Callable[[], torch.Tensor],
                   lambda: torch.index_select(src, 0, idx_l))}
         res["ms"] = ms
         res["ns_per_row"] = {k: v * 1e6 / n for k, v in ms.items()}
-        res["bound_bytes"] = bound_bytes
-        res["bound_ms"] = bound_bytes / HBM_BYTES_PER_S * 1e3
+        res["bound_bytes"] = gather_bytes(src, idx, index_bytes)
+        res["bound_ms"] = res["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        res["plan_bytes"] = plan_bytes
     return res
 
 
@@ -147,7 +163,7 @@ def probe_band(dev: torch.device, n: int, c: int,
     b = src.element_size()
     return _gathers("band", lambda: probe.window3_gather(src, idx, ch),
                     lambda: probe.window3_gather_plain(src, idx, ch),
-                    src, idx, 3 * n * c * b + n * c * b + 4 * n)
+                    src, idx, 4 * n, 3 * n * c * b + n * c * b + 4 * n)
 
 
 def prefetch_case(n: int, c: int, ch: int, wblk: int, nwin: int):
@@ -178,12 +194,13 @@ def probe_prefetch(dev: torch.device, n: int, c: int, ch: int,
     kw = dict(chunk=ch, wblk=wblk, nwin=nwin)
     b = src.element_size()
     nchunk = n // ch
-    bound = (nchunk * nwin * wblk * c * b + n * c * b + 4 * n + 4 * nchunk)
+    index_bytes = 4 * n + 4 * nchunk
+    plan = nchunk * nwin * wblk * c * b + n * c * b + index_bytes
     return _gathers("prefetch",
                     lambda: probe.prefetch_window_gather(src, rel, bases, **kw),
                     lambda: probe.prefetch_window_gather_plain(src, rel, bases,
                                                                **kw),
-                    src, idx, bound)
+                    src, idx, index_bytes, plan)
 
 
 def probe_gather(dev: torch.device, n: int, c: int) -> Dict[str, object]:
@@ -202,10 +219,9 @@ def probe_gather(dev: torch.device, n: int, c: int) -> Dict[str, object]:
             ms = {"gather_rows": time_ms(lambda: gather.gather_rows(src, idx)),
                   "index_select": time_ms(
                       lambda: torch.index_select(src, 0, idx_l))}
-            rows_read = int(torch.unique(idx).numel())
             res[name] = {
                 "ms": ms, "ns_per_row": {k: v * 1e6 / n for k, v in ms.items()},
-                "bound_ms": (rows_read * c * 2 + n * c * 2 + 4 * n)
+                "bound_ms": gather_bytes(src, idx, 4 * n)
                 / HBM_BYTES_PER_S * 1e3}
     return res
 

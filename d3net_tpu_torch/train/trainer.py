@@ -68,7 +68,7 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
-def detector_train_step(model: nn.Module, state: TrainState, batch: Dict,
+def detector_train_step(state: TrainState, batch: Dict,
                         generator: Optional[torch.Generator] = None, *,
                         loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
                         do_clustering: bool = True,
@@ -81,8 +81,7 @@ def detector_train_step(model: nn.Module, state: TrainState, batch: Dict,
     unless given as tensors. Returns the state (updated in place) and the
     losses plus ``grad_norm``, as detached tensors.
     """
-    if model is not state.model:
-        raise ValueError("detector_train_step: model is not state.model")
+    model = state.model
     params = [p for p in model.parameters() if p.requires_grad]
     state.optimizer.zero_grad(set_to_none=True)
     out = model(batch, train=True, do_clustering=do_clustering,
@@ -104,12 +103,11 @@ def detector_train_step(model: nn.Module, state: TrainState, batch: Dict,
     return state, metrics
 
 
-def detector_eval_step(model: nn.Module, state: TrainState, batch: Dict,
+def detector_eval_step(state: TrainState, batch: Dict,
                        do_clustering: bool = True):
-    """Eval-mode forward and losses, no gradient: ``(out, losses)``."""
-    if model is not state.model:
-        raise ValueError("detector_eval_step: model is not state.model")
+    """Eval-mode forward and losses of ``state.model``, no gradient:
+    ``(out, losses)``."""
     with torch.no_grad():
-        out = model(batch, train=False, do_clustering=do_clustering)
+        out = state.model(batch, train=False, do_clustering=do_clustering)
         losses = detector_loss(out, batch, with_score=do_clustering)
     return out, losses

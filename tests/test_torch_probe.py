@@ -90,7 +90,7 @@ def test_prefetch_matches_band_gather_impl(dtype):
     if dtype is jnp.bfloat16:
         tsrc = tsrc.bfloat16()
     got = probe.prefetch_window_gather(
-        tsrc, torch.from_numpy(rel[None]), torch.from_numpy(bases),
+        tsrc, torch.from_numpy(rel), torch.from_numpy(bases),
         chunk=chunk, wblk=wblk, nwin=nwin)
     np.testing.assert_array_equal(got.float().numpy(), want)
     out_of_window = (rel < 0) | (rel >= nwin * wblk)
