@@ -13,10 +13,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               out-of-range indices, and the JAX band_gather test plans.
 4. probe    — the three probe kernels (``kernels/probe.py``) bit-exact
               against their plain versions on random cases (edge chunks,
-              out-of-window rel, f32/bf16, C in 64/128/256), then the
-              probe entry point (``d3net_tpu_torch.probe``) at its own size
-              (n=262144, c=128 bf16, ch=512, wblk=128, nwin=6), its
-              launches counted (counts set to 0 just before).
+              out-of-window rel, f32/bf16, C in 64/128/256, and the ring's
+              run edges: nchunk in {1, 2, 3, L-1, L, L+1, 2L+1} at rows of
+              128-1024 bytes, with the card's plan and with runs of L),
+              the ring's plan at the probe's size (line ``probe_plan``),
+              then the probe entry point (``d3net_tpu_torch.probe``) at its
+              own size (n=262144, c=128 bf16, ch=512, wblk=128, nwin=6),
+              its launches counted (counts set to 0 just before), with
+              per-call ``ms`` and profiled ``device_ms`` of each kernel
+              and its library call.
 5. parity   — the tests/test_detector.py config in f32 with TF32 off
               (``device.parity_precision``, this phase only): the
               port on ``cuda`` against the port on ``cpu``, same weights.
@@ -46,7 +51,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               its plain version and ``torch.index_select`` (the library
               yardstick; the port never calls it); any call whose kernel
               output differs from the plain version's fails the run, naming
-              its dtype and width. The bound is the bytes at 3.35 TB/s.
+              its dtype and width. The bound is the bytes at 3.35 TB/s;
+              ``device_ms`` is the profiled device time of one replay.
 10. train   — the flagship B=4 train step through ``create_train_state``
               and ``detector_train_step`` at PyTorch's defaults: 2 warm-up
               and 5 timed steps (CUDA events), peak memory, every step's
@@ -54,13 +60,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               step (counts set to 0 just before: forward 71 convs + 4 row
               gathers, a dW re-gather per conv, a dx gather per conv but
               the input conv's), each of them held bit-exact against the
-              plain version as it runs, and one profiled step
-              (train_profile).
+              plain version as it runs and its bytes counted (the train
+              path's bound), and one profiled step (train_profile, which
+              gives the train path's ``gather_rows`` device time).
 
-The last two lines are ``nvidia-smi``'s name/power limit and
-``{"ok": true, "device": {...}}``. Without CUDA, or without the package
-beside it, the script exits non-zero and prints no result. It imports
-nothing of JAX or of the JAX package.
+Then the ``kernels`` line: one entry per kernel, with its launches on its
+path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
+version's and the library call's time (``library_ms``,
+``library_device_ms``) and the bound. The last two lines are
+``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the package beside it, the script exits non-zero
+and prints no result. It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -79,7 +89,7 @@ import torch.nn.functional as F
 
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
-from d3net_tpu_torch.probe import check_exact, time_ms
+from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
 from d3net_tpu_torch.data.synthetic import make_scene
 from d3net_tpu_torch.kernels import gather, probe
@@ -206,20 +216,37 @@ def phase_probe():
                 f"probe_scale2 n={n}", probe.probe_scale2(t),
                 probe.probe_scale2_plain(t)))
             cases += 1
+
+    def window3_case(dtype, c, ch, nchunk, plan=None):
+        n = ch * nchunk
+        src = torch.randn(n, c, generator=g, device="cuda").to(dtype)
+        # below 0 aliases into chunk 0's repeated block, past n into the
+        # last chunk's; beyond a chunk's band reads zeros
+        idx = torch.randint(-ch - 3, n + ch + 3, (n,), generator=g,
+                            device="cuda", dtype=torch.int32)
+        err["window3_gather"] = max(err["window3_gather"], check_exact(
+            f"window3_gather {dtype} C={c} ch={ch} n={n} plan={plan}",
+            probe.window3_gather(src, idx, ch, plan),
+            probe.window3_gather_plain(src, idx, ch)))
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in probe.DTYPES:
         for c in (64, 128, 256):
             for ch, nchunk in ((512, 6), (128, 1), (128, 5)):
-                n = ch * nchunk
-                src = torch.randn(n, c, generator=g, device="cuda").to(dtype)
-                # below 0 aliases into chunk 0's repeated block, past n into
-                # the last chunk's; beyond a chunk's band reads zeros
-                idx = torch.randint(-ch - 3, n + ch + 3, (n,), generator=g,
-                                    device="cuda", dtype=torch.int32)
-                err["window3_gather"] = max(err["window3_gather"], check_exact(
-                    f"window3_gather {dtype} C={c} ch={ch} n={n}",
-                    probe.window3_gather(src, idx, ch),
-                    probe.window3_gather_plain(src, idx, ch)))
+                window3_case(dtype, c, ch, nchunk)
                 cases += 1
+            # the ring's run edges: L is the plan's run length at the
+            # probe's size for this row width; each nchunk runs with the
+            # card's own plan and with a plan of runs of L chunks
+            row = c * torch.empty((), dtype=dtype).element_size()
+            for ch in (128, 512):
+                run = probe.window3_ring_plan(262144, ch, row, sms).run_chunks
+                for nchunk in sorted({1, 2, 3, max(run - 1, 1), run, run + 1,
+                                      2 * run + 1}):
+                    window3_case(dtype, c, ch, nchunk)
+                    window3_case(dtype, c, ch, nchunk, probe.window3_ring_plan(
+                        ch * nchunk, ch, row, sms, run_chunks=run))
+                    cases += 2
             n_src, chunk, wblk, nwin = 4096, 512, 128, 6
             n = 5 * chunk + 37                  # a ragged last chunk
             src = torch.randn(n_src, c, generator=g, device="cuda").to(dtype)
@@ -238,6 +265,10 @@ def phase_probe():
             cases += 1
     torch.cuda.synchronize()
 
+    plan = probe.window3_ring_plan(262144, 512, 128 * 2, sms)
+    emit({"phase": "probe_plan", "kernel": "window3_gather", "n": 262144,
+          "ch": 512, "row_bytes": 256, "sms": sms, **plan._asdict()})
+
     # the probe path, counted: counts set to 0 just before, read after
     kernels = (probe.probe_scale2, probe.window3_gather,
                probe.prefetch_window_gather)
@@ -253,7 +284,6 @@ def phase_probe():
     emit({"phase": "probe", "random_cases": cases, "launches": launches,
           "results": res})
 
-    x = torch.ones((256, 128), dtype=torch.bfloat16, device="cuda")
     smoke = res["smoke"]
     entries = [{
         "name": "probe_scale2", "route": "cuda",
@@ -261,11 +291,12 @@ def phase_probe():
         "replaces": "scripts/pallas_probe.py:62",
         "launches": launches["probe_scale2"],
         "max_abs_err": max(err["probe_scale2"], smoke["max_abs_err"]),
-        "ms": smoke["ms"],
-        "plain_ms": time_ms(lambda: probe.probe_scale2_plain(x)),
+        "ms": smoke["ms"], "device_ms": smoke["device_ms"],
+        "plain_ms": smoke["plain_ms"],
         "bound_ms": smoke["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
-        "library_ms": time_ms(lambda: torch.mul(x, 2.0)),
+        "library_ms": smoke["library_ms"],
+        "library_device_ms": smoke["library_device_ms"],
     }]
     for name, key, line in (("window3_gather", "band", 84),
                             ("prefetch_window_gather", "prefetch", 210)):
@@ -276,9 +307,13 @@ def phase_probe():
             "replaces": f"scripts/pallas_probe.py:{line}",
             "launches": launches[name],
             "max_abs_err": max(err[name], r["max_abs_err"]),
-            "ms": r["ms"]["kernel"], "plain_ms": r["ms"]["plain"],
+            "ms": r["ms"]["kernel"], "device_ms": r["device_ms"]["kernel"],
+            "plain_ms": r["ms"]["plain"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
-            "library_ms": r["ms"]["index_select"]})
+            "plan_bytes": r["plan_bytes"],
+            "library_ms": r["ms"]["index_select"],
+            "library_device_ms": r["device_ms"]["index_select"]})
+    entries[1]["moved_bytes"] = res["band"]["moved_bytes"]
     return entries
 
 
@@ -443,13 +478,16 @@ class GatherRecorder:
     real wrapper (and its launch count) still runs every call. It keeps
     each call's tensors for the kernel replay, or with ``check`` holds each
     call's output against the plain version on the same tensors as the
-    call happens (in the backward too) and keeps only a count."""
+    call happens (in the backward too) and keeps only a count and the bytes
+    the calls need (``probe.gather_bytes``: distinct source rows reached,
+    output, index)."""
 
     def __init__(self, real, check=False):
         self.real = real
         self.check = check
         self.calls = []
         self.checked = 0
+        self.bytes_needed = 0
 
     def gather_rows(self, src, idx):
         out = self.real.gather_rows(src, idx)
@@ -464,6 +502,7 @@ class GatherRecorder:
                 f"{src.shape[1]}, {idx.numel()} rows): kernel disagrees with "
                 f"the plain version")
         self.checked += 1
+        self.bytes_needed += probe_cli.gather_bytes(src, idx, 4 * idx.numel())
         return out
 
 
@@ -600,6 +639,7 @@ def phase_profile(name, fn):
           "idle_share": 1.0 - busy / wall_ms,
           "kernel_launches": sum(r[2] for r in kernels),
           "top_kernels": kernels[:15], "top_ops": ops[:15]})
+    return kernels
 
 
 def phase_kernels(calls, launches):
@@ -640,6 +680,8 @@ def phase_kernels(calls, launches):
     plain_ms = time_ms(plain, KERNEL_REPS, inner=1)
     library_ms = time_ms(library, KERNEL_REPS, inner=1)
     ms_again = time_ms(kernel, KERNEL_REPS, inner=1)
+    dev_ms = device_ms(kernel, inner=2)
+    library_dev_ms = device_ms(library, inner=2)
     by_width = {}
     for src, idx in calls:
         key = f"{src.dtype}".replace("torch.", "") + f"x{src.shape[1]}"
@@ -655,16 +697,20 @@ def phase_kernels(calls, launches):
         "launches": launches,
         "max_abs_err": err,
         "ms": statistics.median([ms, ms_again]),
+        "device_ms": dev_ms,
         "plain_ms": plain_ms,
         "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "library_ms": library_ms,
+        "library_device_ms": library_dev_ms,
     }]
 
 
 def phase_train(variables, batch):
     """The flagship B=4 train step: timed steps, peak memory, finite losses,
-    the gather launches of one step, and one profiled step."""
+    the gather launches of one step and the bytes they need, and one
+    profiled step. Returns the train path's ``gather_rows`` numbers for its
+    ``kernels`` entry."""
     flag = flagship_config()
     model = load_detector(variables, flag.model)       # cuda by default
     n_conv = sum(isinstance(m, SubmConv) for m in model.modules())
@@ -725,8 +771,13 @@ def phase_train(variables, batch):
           "max_memory_allocated": peak,
           "gather_launches_per_step": launches, "convs": n_conv,
           "gathers_checked_exact": rec.checked,
+          "gather_bytes_needed": rec.bytes_needed,
           "steps": history})
-    phase_profile("train_profile", step)
+    prof = phase_profile("train_profile", step)
+    return {"train_launches": launches,
+            "train_bound_ms": rec.bytes_needed / HBM_BYTES_PER_S * 1e3,
+            "train_device_ms": sum(r[1] for r in prof
+                                   if "gather_rows_kernel" in r[0])}
 
 
 def main() -> int:
@@ -738,7 +789,11 @@ def main() -> int:
     smi = nvidia_smi_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda,
+          # the private helpers of kernels/launch.py (else public calls)
+          "torch_C_cuda_getDevice": hasattr(torch._C, "_cuda_getDevice"),
+          "torch_C_cuda_getCurrentRawStream": hasattr(
+              torch._C, "_cuda_getCurrentRawStream")})
     phase_build()
     phase_kernel()
     probe_entries = phase_probe()
@@ -754,7 +809,7 @@ def main() -> int:
     del model
     kernels = phase_kernels(calls, launches)
     del calls
-    phase_train(variables, batch)
+    kernels[0].update(phase_train(variables, batch))
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

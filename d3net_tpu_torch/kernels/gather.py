@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from d3net_tpu_torch.kernels import build
+from d3net_tpu_torch.kernels.launch import launch
 
 SOURCE = "gather_rows.cu"
 DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -106,18 +107,14 @@ def _gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather_rows_plain(src, idx)
     if src.device.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {src.device}")
-    lib = load_library()
+    fn = load_library().d3_gather_rows
     out = torch.empty((idx.shape[0], src.shape[1]), dtype=src.dtype,
                       device=src.device)
     if idx.shape[0] == 0 or src.shape[1] == 0:
         return out
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = lib.d3_gather_rows(
-            src.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-            src.shape[0], src.shape[1] * src.element_size(), stream)
-    if err != 0:
-        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {err}")
+    launch("gather_rows", fn, src.get_device(), src.data_ptr(),
+           idx.data_ptr(), out.data_ptr(), idx.shape[0], src.shape[0],
+           src.shape[1] * src.element_size())
     gather_rows.launches += 1
     return out
 

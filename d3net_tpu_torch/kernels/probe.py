@@ -20,15 +20,23 @@ kernel or raises. Each wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from d3net_tpu_torch.kernels import build, gather
+from d3net_tpu_torch.kernels.launch import launch
 
 SOURCE = "probe_kernels.cu"
 DTYPES = (torch.float32, torch.bfloat16)
 SMEM_MAX = 232448          # bytes of shared memory a Hopper block may use
+SMEM_PER_SM = 233472       # an H100 SM's 228 KB; each block reserves 1 KB
+THREADS_PER_SM = 2048
+SM_COUNT = 132             # H100 SXM
+RING_SLOTS = 4             # csrc/probe_kernels.cu kRingSlots
+RING_THREADS = 512         # csrc/probe_kernels.cu kRingThreads
+TMA_BOX_ROWS = 256         # the most rows one TMA box may hold
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
@@ -41,7 +49,8 @@ def load_library() -> ctypes.CDLL:
         lib = build.load_library(SOURCE)
         for fn, args in (
                 ("d3_probe_scale2", [_P, _P, _L, _P]),
-                ("d3_window3_gather", [_P, _P, _P, _L, _L, _L, _P]),
+                ("d3_window3_gather",
+                 [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _P]),
                 ("d3_prefetch_window_gather",
                  [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _P])):
             getattr(lib, fn).restype = ctypes.c_int
@@ -51,25 +60,16 @@ def load_library() -> ctypes.CDLL:
 
 
 def _on_card(name: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on a mix."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: tensors on {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
+    """True for contiguous tensors on one CUDA device, False for contiguous
+    CPU tensors; raises on anything else."""
+    index = tensors[0].get_device()           # -1 on the CPU
     for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-    return dev.type == "cuda"
-
-
-def _launch(name: str, fn, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        if t.get_device() != index or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous and on one "
+                             f"device, got {[str(u.device) for u in tensors]}")
+    if index < 0 and tensors[0].device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
+    return index >= 0
 
 
 # -- #2: probe_smoke -------------------------------------------------------
@@ -84,8 +84,8 @@ def probe_scale2(x: torch.Tensor) -> torch.Tensor:
     if not _on_card("probe_scale2", x):
         return probe_scale2_plain(x)
     out = torch.empty_like(x)
-    _launch("probe_scale2", load_library().d3_probe_scale2, x.device,
-            x.data_ptr(), out.data_ptr(), x.numel())
+    launch("probe_scale2", load_library().d3_probe_scale2, x.get_device(),
+           x.data_ptr(), out.data_ptr(), x.numel())
     probe_scale2.launches += 1
     return out
 
@@ -94,20 +94,90 @@ probe_scale2.launches = 0
 
 
 # -- shared checks of the two window gathers --------------------------------
-def _check_window(name, src, index, n_rows_window):
+def _check_window(name, src, index):
     if src.dim() != 2 or src.dtype not in DTYPES:
         raise TypeError(f"{name}: src must be (n, C) f32/bf16, got "
                         f"{tuple(src.shape)} {src.dtype}")
     if index.dim() != 1 or index.dtype != torch.int32:
         raise TypeError(f"{name}: index must be 1-D int32")
     row = src.shape[1] * src.element_size()
-    if row % 16 or n_rows_window * 16 > SMEM_MAX:
-        raise ValueError(f"{name}: {row}-byte rows or a {n_rows_window}-row "
-                         f"window do not fit 16-byte slices in shared memory")
+    if row % 16:
+        raise ValueError(f"{name}: {row}-byte rows are not 16-byte vectors")
     return row
 
 
 # -- #3: the probe's band kernel ---------------------------------------------
+class RingPlan(NamedTuple):
+    """How the ring kernel of ``window3_gather`` cuts its work
+    (``csrc/probe_kernels.cu``)."""
+
+    slice_bytes: int    # S: the column slice of every row that a block owns
+    run_chunks: int     # L: consecutive output chunks that a block gathers
+    box_rows: int       # rows of one TMA box: a multiple of 8, at most 256
+    nbox: int           # boxes per chunk slot, nbox * box_rows >= ch
+    slices: int         # row_bytes // S
+    runs: int           # ceil(nchunk / L)
+    blocks: int         # slices * runs
+    blocks_per_sm: int  # resident at once on one SM at this shared memory
+    smem_bytes: int     # per block: 4 slots, two index buffers, barriers
+    moved_bytes: int    # read (source slots, indices) and written (output)
+
+
+@functools.lru_cache(maxsize=64)
+def window3_ring_plan(n: int, ch: int, row_bytes: int, sms: int = SM_COUNT,
+                      run_chunks: Optional[int] = None) -> RingPlan:
+    """The ring kernel's plan for ``n`` rows of ``row_bytes`` bytes in
+    chunks of ``ch`` rows, on a card of ``sms`` SMs.
+
+    ``S`` is the widest of 16, 32, 64, 128 and 256 bytes (a power of two,
+    at most one TMA box's 256) that divides the row and keeps
+    ``RING_SLOTS`` chunk slots and the two index buffers inside a block's
+    shared memory. ``L`` is the fewest chunks per run that keep every block
+    in one wave (``run_chunks`` sets it instead), and every chunk lies in
+    exactly one run. Raises ValueError when no slice fits."""
+    if ch <= 0 or n <= 0 or n % ch:
+        raise ValueError(f"window3_ring_plan: n={n}, ch={ch}: needs n > 0 "
+                         f"and n % ch == 0")
+    if row_bytes <= 0 or row_bytes % 16:
+        raise ValueError(f"window3_ring_plan: {row_bytes}-byte rows are not "
+                         f"16-byte vectors")
+    nchunk = n // ch
+    nbox = -(-ch // TMA_BOX_ROWS)
+    box_rows = -(-(-(-ch // nbox)) // 8) * 8
+    slot_rows = nbox * box_rows
+    fixed = 2 * 4 * ch + 8 * RING_SLOTS
+    fits = [s for s in (16, 32, 64, 128, 256)
+            if row_bytes % s == 0
+            and RING_SLOTS * slot_rows * s + fixed <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"window3_gather: {RING_SLOTS} slots of {ch}-row "
+                         f"chunks do not fit {SMEM_MAX} bytes of shared "
+                         f"memory")
+    s = fits[-1]
+    smem = RING_SLOTS * slot_rows * s + fixed
+    per_sm = max(1, min(SMEM_PER_SM // (smem + 1024),
+                        THREADS_PER_SM // RING_THREADS))
+    slices = row_bytes // s
+    if run_chunks is None:
+        run_chunks = -(-nchunk // max(1, sms * per_sm // slices))
+    elif run_chunks <= 0:
+        raise ValueError(f"window3_ring_plan: run_chunks={run_chunks}")
+    runs = -(-nchunk // run_chunks)
+    rows_read = 0           # each run's chunks [j0-1, j0+L] clamped, once
+    for r in range(runs):
+        j0, j1 = r * run_chunks, min((r + 1) * run_chunks, nchunk)
+        for c in range(max(j0 - 1, 0), min(j1, nchunk - 1) + 1):
+            rows_read += min(slot_rows, n - c * ch)
+    moved = (rows_read + n) * row_bytes + slices * 4 * n
+    return RingPlan(s, run_chunks, box_rows, nbox, slices, runs,
+                    slices * runs, per_sm, smem, moved)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def window3_gather_plain(src: torch.Tensor, idx: torch.Tensor,
                          ch: int) -> torch.Tensor:
     n = src.shape[0]
@@ -120,10 +190,13 @@ def window3_gather_plain(src: torch.Tensor, idx: torch.Tensor,
     return gather.gather_rows_plain(src, torch.where(ok, row, -1).int())
 
 
-def window3_gather(src: torch.Tensor, idx: torch.Tensor,
-                   ch: int) -> torch.Tensor:
-    """``src (n, C)``, ``idx (n,)`` int32, ``n % ch == 0`` -> ``(n, C)``."""
-    row = _check_window("window3_gather", src, idx, 3 * ch)
+def window3_gather(src: torch.Tensor, idx: torch.Tensor, ch: int,
+                   plan: Optional[RingPlan] = None) -> torch.Tensor:
+    """``src (n, C)``, ``idx (n,)`` int32, ``n % ch == 0`` -> ``(n, C)``.
+
+    On the card the ring kernel runs with ``window3_ring_plan``'s plan for
+    this card, or with ``plan`` (which puts the run edges elsewhere)."""
+    row = _check_window("window3_gather", src, idx)
     n = src.shape[0]
     if ch <= 0 or n % ch or idx.shape[0] != n:
         raise ValueError(f"window3_gather: n={n}, len(idx)={idx.shape[0]}, "
@@ -131,8 +204,14 @@ def window3_gather(src: torch.Tensor, idx: torch.Tensor,
     if not _on_card("window3_gather", src, idx):
         return window3_gather_plain(src, idx, ch)
     out = torch.empty_like(src)
-    _launch("window3_gather", load_library().d3_window3_gather, src.device,
-            src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, ch, row)
+    if n == 0:
+        return out
+    if plan is None:
+        plan = window3_ring_plan(n, ch, row, _sm_count(src.get_device()))
+    launch("window3_gather", load_library().d3_window3_gather,
+           src.get_device(), src.data_ptr(), idx.data_ptr(), out.data_ptr(),
+           n, ch, row, plan.slice_bytes, plan.run_chunks, plan.box_rows,
+           plan.nbox)
     window3_gather.launches += 1
     return out
 
@@ -156,7 +235,11 @@ def prefetch_window_gather(src: torch.Tensor, rel: torch.Tensor,
                            nwin: int) -> torch.Tensor:
     """``src (n_src, C)``, ``rel (n,)`` int32, ``bases (ceil(n / chunk),)``
     int32 -> ``(n, C)``."""
-    row = _check_window("prefetch_window_gather", src, rel, nwin * wblk)
+    row = _check_window("prefetch_window_gather", src, rel)
+    if nwin * wblk * 16 > SMEM_MAX:
+        raise ValueError(f"prefetch_window_gather: a {nwin * wblk}-row "
+                         f"window does not fit 16-byte slices in shared "
+                         f"memory")
     n = rel.shape[0]
     if bases.dtype != torch.int32 or bases.shape != (-(-n // chunk),):
         raise ValueError(f"prefetch_window_gather: bases {tuple(bases.shape)}"
@@ -165,10 +248,10 @@ def prefetch_window_gather(src: torch.Tensor, rel: torch.Tensor,
         return prefetch_window_gather_plain(src, rel, bases, chunk=chunk,
                                             wblk=wblk, nwin=nwin)
     out = torch.empty((n, src.shape[1]), dtype=src.dtype, device=src.device)
-    _launch("prefetch_window_gather",
-            load_library().d3_prefetch_window_gather, src.device,
-            src.data_ptr(), rel.data_ptr(), bases.data_ptr(), out.data_ptr(),
-            n, src.shape[0], chunk, wblk, nwin, row)
+    launch("prefetch_window_gather",
+           load_library().d3_prefetch_window_gather, src.get_device(),
+           src.data_ptr(), rel.data_ptr(), bases.data_ptr(), out.data_ptr(),
+           n, src.shape[0], chunk, wblk, nwin, row)
     prefetch_window_gather.launches += 1
     return out
 

@@ -8,11 +8,19 @@ memory beat a direct row gather?
 Counterpart of ``scripts/pallas_probe.py`` (its TPU question, asked of
 Hopper). Each probe builds the TPU probe's own data (same construction,
 numpy seeds 0 and 1), checks its kernel bit-exact against the plain
-version, and on the card times with CUDA events (median of 5 passes of
-``INNER`` launches):
+version, and on the card reports two times per call: ``ms``, what a caller
+pays (CUDA events, median of 5 passes of ``INNER`` back-to-back calls),
+and ``device_ms``, the device time of what one call launches
+(``torch.profiler`` over ``INNER`` calls):
 
-- ``smoke``:    ``probe_scale2`` on a (256, 128) bf16 block of ones;
-- ``band``:     ``window3_gather`` (three-chunk window) on in-band indices;
+- ``smoke``:    ``probe_scale2`` on a (256, 128) bf16 block of ones, beside
+  ``torch.mul(x, 2.0)``, and the host µs of each step of one launch
+  (``host_us``: the checks, ``empty_like``, the stream read, the device
+  switch, the ctypes call);
+- ``band``:     ``window3_gather`` (three-chunk window, the ring kernel) on
+  in-band indices, with the ring's plan (``window3_ring_plan``), the
+  bytes its blocks move (``moved_bytes``), and the ring again with runs of
+  half and twice the plan's length (``ring_runs``);
 - ``prefetch``: ``prefetch_window_gather`` (``nwin * wblk``-row window
   from a per-chunk base) on indices that fit their window;
 - ``gather``:   ``gather_rows`` and ``torch.index_select`` on banded and on
@@ -36,17 +44,20 @@ import argparse
 import json
 import statistics
 import sys
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from d3net_tpu_torch.device import resolve_device
-from d3net_tpu_torch.kernels import gather, probe
+from d3net_tpu_torch.kernels import gather, launch, probe
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 REPS = 5
 INNER = 10
+HOST_REPS = 200           # calls per round: well inside the launch queue
+HOST_ROUNDS = 5
 
 
 def time_ms(fn: Callable[[], object], reps: int = REPS,
@@ -65,6 +76,49 @@ def time_ms(fn: Callable[[], object], reps: int = REPS,
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def device_ms(fn: Callable[[], object], inner: int = INNER) -> float:
+    """Device time per call of ``fn``: the self device time of every kernel
+    (and copy) that ``inner`` calls launch, read with ``torch.profiler``
+    after one warm-up call, over ``inner``. Raises without a card, and when
+    the profiler records no device time."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms needs a CUDA card; a CPU run has no "
+                           "device time")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(inner):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return us / 1e3 / inner
+
+
+def host_us(fn: Callable[[], object], reps: int = HOST_REPS,
+            rounds: int = HOST_ROUNDS) -> float:
+    """Host time per call of ``fn`` in µs: the median over ``rounds`` of
+    ``perf_counter`` over ``reps`` back-to-back calls, the card synchronised
+    before each round. ``reps`` launches stay well inside the card's launch
+    queue, so the host never waits for the device."""
+    fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -122,10 +176,46 @@ def _gathers(name: str, kernel: Callable[[], torch.Tensor],
                   lambda: torch.index_select(src, 0, idx_l))}
         res["ms"] = ms
         res["ns_per_row"] = {k: v * 1e6 / n for k, v in ms.items()}
+        res["device_ms"] = {
+            "kernel": device_ms(kernel),
+            "gather_rows": device_ms(lambda: gather.gather_rows(src, idx)),
+            "index_select": device_ms(
+                lambda: torch.index_select(src, 0, idx_l))}
         res["bound_bytes"] = gather_bytes(src, idx, index_bytes)
         res["bound_ms"] = res["bound_bytes"] / HBM_BYTES_PER_S * 1e3
         res["plan_bytes"] = plan_bytes
     return res
+
+
+def launch_host_us(x: torch.Tensor) -> Dict[str, float]:
+    """Host µs of one ``probe_scale2`` call and of each of its steps, beside
+    ``torch.mul``'s whole call and the steps of the launch path the port
+    took before (a ``torch.cuda.device`` block and a ``Stream`` object)."""
+    index = x.get_device()
+    fn = probe.load_library().d3_probe_scale2
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), out.data_ptr(), x.numel())
+    stream = launch.current_stream(index)
+
+    def device_block():
+        with torch.cuda.device(index):
+            pass
+
+    return {
+        "probe_scale2": host_us(lambda: probe.probe_scale2(x)),
+        "torch.mul": host_us(lambda: torch.mul(x, 2.0)),
+        "checks": host_us(lambda: probe._on_card("probe_scale2", x)),
+        "empty_like": host_us(lambda: torch.empty_like(x)),
+        "data_ptr_x2": host_us(lambda: (x.data_ptr(), out.data_ptr())),
+        "current_device": host_us(launch._current_device),
+        "raw_stream": host_us(lambda: launch.current_stream(index)),
+        "ctypes_call": host_us(lambda: fn(*args, stream)),
+        "launch_helper": host_us(lambda: launch.launch(
+            "probe_scale2", fn, index, *args)),
+        "old_device_block": host_us(device_block),
+        "old_stream_object": host_us(
+            lambda: torch.cuda.current_stream(index).cuda_stream),
+    }
 
 
 def probe_smoke(dev: torch.device) -> Dict[str, object]:
@@ -137,8 +227,19 @@ def probe_smoke(dev: torch.device) -> Dict[str, object]:
         "probe": "smoke", "ok": True,
         "max_abs_err": check_exact("smoke", out, probe.probe_scale2_plain(x))}
     if dev.type == "cuda":
-        res["ms"] = time_ms(lambda: probe.probe_scale2(x))
+        def kernel():
+            return probe.probe_scale2(x)
+
+        def library():
+            return torch.mul(x, 2.0)
+
+        res["ms"] = time_ms(kernel)
+        res["device_ms"] = device_ms(kernel)
+        res["library_ms"] = time_ms(library)
+        res["library_device_ms"] = device_ms(library)
+        res["plain_ms"] = time_ms(lambda: probe.probe_scale2_plain(x))
         res["bound_bytes"] = 2 * x.numel() * x.element_size()
+        res["host_us"] = launch_host_us(x)
     return res
 
 
@@ -161,9 +262,29 @@ def probe_band(dev: torch.device, n: int, c: int,
     src_np, idx_np = band_case(n, c, ch)
     src, idx = _bf16(src_np, dev), torch.from_numpy(idx_np).to(dev)
     b = src.element_size()
-    return _gathers("band", lambda: probe.window3_gather(src, idx, ch),
-                    lambda: probe.window3_gather_plain(src, idx, ch),
-                    src, idx, 4 * n, 3 * n * c * b + n * c * b + 4 * n)
+    res = _gathers("band", lambda: probe.window3_gather(src, idx, ch),
+                   lambda: probe.window3_gather_plain(src, idx, ch),
+                   src, idx, 4 * n, 3 * n * c * b + n * c * b + 4 * n)
+    if dev.type == "cuda":
+        sms = probe._sm_count(src.get_device())
+        plan = probe.window3_ring_plan(n, ch, c * b, sms)
+        res["plan"] = plan._asdict()
+        res["moved_bytes"] = plan.moved_bytes
+        # the same gather with runs of half and twice the plan's length
+        want = probe.window3_gather_plain(src, idx, ch)
+        runs = {}
+        for run in (max(plan.run_chunks // 2, 1), plan.run_chunks,
+                    2 * plan.run_chunks):
+            p = probe.window3_ring_plan(n, ch, c * b, sms, run_chunks=run)
+
+            def ring():
+                return probe.window3_gather(src, idx, ch, p)
+
+            check_exact(f"band L={run}", ring(), want)
+            runs[run] = {"blocks": p.blocks, "moved_bytes": p.moved_bytes,
+                         "ms": time_ms(ring), "device_ms": device_ms(ring)}
+        res["ring_runs"] = runs
+    return res
 
 
 def prefetch_case(n: int, c: int, ch: int, wblk: int, nwin: int):

@@ -1,6 +1,8 @@
 """Card-only checks of the port (marker ``cuda``): each kernel against its
-plain version, the detector on cuda against the detector on cpu, and the
-sparse conv's backward on cuda against the same on cpu.
+plain version (the ring kernel of ``window3_gather`` at its run edges
+too), the launch path on PyTorch's current stream, the detector on cuda
+against the detector on cpu, and the sparse conv's backward on cuda
+against the same on cpu.
 
 This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -99,6 +101,53 @@ def test_window3_gather_matches_plain(card, dtype, c):
         got = probe.window3_gather(src, idx, ch)
         assert probe.window3_gather.launches == before + 1
         assert torch.equal(got, probe.window3_gather_plain(src, idx, ch))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", probe.DTYPES)
+@pytest.mark.parametrize("c", [64, 128, 256])
+@pytest.mark.parametrize("ch", [128, 512])
+def test_window3_gather_run_edges(card, dtype, c, ch):
+    """nchunk in {1, 2, 3, L-1, L, L+1, 2L+1}, L the plan's run length at
+    the probe's size, with the card's plan and with runs of L chunks."""
+    g = torch.Generator(device="cuda").manual_seed(c + ch)
+    row = c * torch.empty((), dtype=dtype).element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    run = probe.window3_ring_plan(262144, ch, row, sms).run_chunks
+    for nchunk in sorted({1, 2, 3, max(run - 1, 1), run, run + 1,
+                          2 * run + 1}):
+        n = ch * nchunk
+        src = torch.randn(n, c, generator=g, device="cuda").to(dtype)
+        idx = torch.randint(-ch - 3, n + ch + 3, (n,), generator=g,
+                            device="cuda", dtype=torch.int32)
+        want = probe.window3_gather_plain(src, idx, ch)
+        for plan in (None, probe.window3_ring_plan(n, ch, row, sms,
+                                                   run_chunks=run)):
+            assert torch.equal(probe.window3_gather(src, idx, ch, plan),
+                               want), (nchunk, plan)
+
+
+@pytest.mark.cuda
+def test_launch_honours_the_current_stream(card):
+    """Inputs written on a side stream behind a long sleep: each kernel,
+    launched under ``torch.cuda.stream(side)``, reads the written values,
+    which it would not if it ran on another stream."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    y = torch.randn(4096, 64, generator=g, device="cuda")
+    idx = torch.randint(-600, 4096 + 600, (4096,), generator=g,
+                        device="cuda", dtype=torch.int32)
+    x = torch.zeros_like(y)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)        # ~0.1 s of device cycles
+        x.copy_(y)
+        got = (gather.gather_rows(x, idx), probe.window3_gather(x, idx, 512),
+               probe.probe_scale2(x.bfloat16()))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], gather.gather_rows_plain(y, idx))
+    assert torch.equal(got[1], probe.window3_gather_plain(y, idx, 512))
+    assert torch.equal(got[2], probe.probe_scale2_plain(y.bfloat16()))
 
 
 @pytest.mark.cuda

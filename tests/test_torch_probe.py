@@ -3,8 +3,10 @@ against the Pallas TPU kernels they port, run in interpret mode on the CPU:
 ``probe_smoke`` and ``_band_gather_pallas`` of ``scripts/pallas_probe.py``
 and ``_band_gather_impl`` of ``d3net_tpu/ops/pallas_gather.py`` (the body
 of ``probe_prefetch.f``). A gather does no arithmetic: all exact. Also the
-probe entry point: it runs with ``--device cpu`` and refuses to run
-without a card otherwise."""
+ring kernel's plan (``window3_ring_plan``, which the card's launch takes
+as it is) and the probe entry point: it runs with ``--device cpu`` and
+refuses to run without a card otherwise, and its device times raise
+without a card."""
 
 import importlib.util
 import os
@@ -18,7 +20,7 @@ import torch
 
 from d3net_tpu.ops import pallas_gather as pg
 from d3net_tpu_torch import probe as probe_cli
-from d3net_tpu_torch.kernels import probe
+from d3net_tpu_torch.kernels import launch, probe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,7 +47,7 @@ def test_scale2_matches_probe_smoke(tpu_probe):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
-@pytest.mark.parametrize("nchunk", [1, 5])
+@pytest.mark.parametrize("nchunk", [1, 2, 3, 5])
 def test_window3_matches_band_gather_pallas(tpu_probe, dtype, nchunk):
     """Out-of-band indices read zero rows; below 0 in the first chunk and
     past the end in the last one read the repeated edge block, as the TPU
@@ -70,6 +72,61 @@ def test_window3_matches_band_gather_pallas(tpu_probe, dtype, nchunk):
     rel = idx - (j - 1) * ch
     assert ((rel < 0) | (rel >= 3 * ch)).any()
     assert (want[(rel < 0) | (rel >= 3 * ch)] == 0).all()
+
+
+@pytest.mark.parametrize("n,ch,row_bytes", [
+    (262144, 512, 256),        # the probe's size
+    (512 * 7, 512, 1024), (128, 128, 128), (128 * 300, 128, 512),
+    (300 * 7, 300, 256), (257 * 3, 257, 48), (5, 1, 16), (3000 * 2, 3000, 16),
+])
+@pytest.mark.parametrize("run_chunks", [None, 4])
+def test_window3_ring_plan(n, ch, row_bytes, run_chunks):
+    """Four slots of a chunk in one block's shared memory, S a 16-byte
+    multiple (a power of two) that divides the row, every chunk in exactly
+    one run, the blocks in one wave unless a run was forced."""
+    plan = probe.window3_ring_plan(n, ch, row_bytes, run_chunks=run_chunks)
+    s, run, nchunk = plan.slice_bytes, plan.run_chunks, n // ch
+    assert probe.RING_SLOTS == 4
+    assert s in (16, 32, 64, 128, 256) and row_bytes % s == 0
+    assert plan.slices == row_bytes // s
+    assert plan.box_rows % 8 == 0 and plan.box_rows <= 256
+    assert plan.nbox * plan.box_rows >= ch
+    slot = plan.nbox * plan.box_rows * s
+    assert plan.smem_bytes == 4 * slot + 8 * ch + 32 <= probe.SMEM_MAX
+    chunks = [c for r in range(plan.runs)
+              for c in range(r * run, min((r + 1) * run, nchunk))]
+    assert chunks == list(range(nchunk))          # each chunk once, in order
+    assert (plan.runs - 1) * run < nchunk         # no empty run
+    assert plan.blocks == plan.slices * plan.runs
+    if run_chunks is None:
+        assert plan.blocks <= max(132 * plan.blocks_per_sm, plan.slices)
+    else:
+        assert run == run_chunks
+    # each run reads its chunks and one neighbour on each side, at most
+    out = n * row_bytes
+    assert out * 2 <= plan.moved_bytes - plan.slices * 4 * n
+    assert plan.moved_bytes - plan.slices * 4 * n <= out + (
+        nchunk + 2 * plan.runs) * plan.nbox * plan.box_rows * row_bytes
+
+
+def test_window3_ring_plan_at_the_probes_size():
+    """n=262144 bf16 rows of 128 channels, ch=512: 64-byte slices, runs of
+    16 chunks, 4 x 32 = 128 blocks in one wave of the 132 SMs, one block
+    per SM. Runs 1-30 read 18 chunks, the two edge runs 17: with 4 reads of
+    the index and the output, the blocks move 146,538,496 bytes."""
+    plan = probe.window3_ring_plan(262144, 512, 256)
+    assert (plan.slice_bytes, plan.run_chunks, plan.blocks,
+            plan.blocks_per_sm) == (64, 16, 128, 1)
+    assert plan.smem_bytes == 4 * 512 * 64 + 2 * 512 * 4 + 32
+    assert plan.moved_bytes == 146538496 == (30 * 18 + 2 * 17) * 512 * 256 \
+        + 4 * 4 * 262144 + 262144 * 256
+
+
+def test_window3_ring_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared"):
+        probe.window3_ring_plan(4000 * 2, 4000, 16)
+    with pytest.raises(ValueError):
+        probe.window3_ring_plan(1000, 512, 256)   # n % ch != 0
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
@@ -108,6 +165,26 @@ def test_probe_data_matches_the_tpu_probe(tpu_probe):
     src, idx, bases, rel = probe_cli.prefetch_case(4096, 8, 512, 128, 6)
     np.testing.assert_array_equal(
         np.repeat(bases, 512) * 128 + rel, idx)
+
+
+def test_device_ms_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the refusal needs a machine without")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        probe_cli.device_ms(lambda: None)
+
+
+def test_launch_passes_the_stream_last_and_raises_on_an_error(monkeypatch):
+    """The one launch path: the current stream of the tensors' device goes
+    last, and a non-zero return of the C side raises."""
+    monkeypatch.setattr(launch, "_current_device", lambda: 0)
+    monkeypatch.setattr(launch, "current_stream", lambda index: 1000 + index)
+    calls = []
+    launch.launch("k", lambda *a: calls.append(a) or 0, 0, 7, 8)
+    assert calls == [(7, 8, 1000)]
+    with pytest.raises(RuntimeError, match="k kernel launch failed: CUDA "
+                                           "error 700"):
+        launch.launch("k", lambda *a: 700, 0, 7)
 
 
 def test_probe_band_and_prefetch_on_cpu():
