@@ -15,13 +15,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               against their plain versions on random cases (edge chunks,
               out-of-window rel, f32/bf16, C in 64/128/256, and the ring's
               run edges: nchunk in {1, 2, 3, L-1, L, L+1, 2L+1} at rows of
-              128-1024 bytes, with the card's plan and with runs of L),
-              the ring's plan at the probe's size (line ``probe_plan``),
-              then the probe entry point (``d3net_tpu_torch.probe``) at its
-              own size (n=262144, c=128 bf16, ch=512, wblk=128, nwin=6),
-              its launches counted (counts set to 0 just before), with
-              per-call ``ms`` and profiled ``device_ms`` of each kernel
-              and its library call.
+              128-1024 bytes, with every plan that a card of 1 to all of
+              this card's SMs gets), the ring's plan at the probe's size
+              (line ``probe_plan``), then the probe entry point
+              (``d3net_tpu_torch.probe``) at its own size (n=262144, c=128
+              bf16, ch=512, wblk=128, nwin=6), its launches counted (counts
+              set to 0 just before), with per-call ``ms`` of each kernel
+              beside its plain version and library call (taking turns),
+              then their profiled ``device_ms``.
 5. parity   — the tests/test_detector.py config in f32 with TF32 off
               (``device.parity_precision``, this phase only): the
               port on ``cuda`` against the port on ``cpu``, same weights.
@@ -236,17 +237,20 @@ def phase_probe():
                 window3_case(dtype, c, ch, nchunk)
                 cases += 1
             # the ring's run edges: L is the plan's run length at the
-            # probe's size for this row width; each nchunk runs with the
-            # card's own plan and with a plan of runs of L chunks
+            # probe's size for this row width; each nchunk runs with every
+            # plan that a card of 1 to `sms` SMs gets (this card's among
+            # them), so runs of every length the plan picks end everywhere
             row = c * torch.empty((), dtype=dtype).element_size()
             for ch in (128, 512):
                 run = probe.window3_ring_plan(262144, ch, row, sms).run_chunks
                 for nchunk in sorted({1, 2, 3, max(run - 1, 1), run, run + 1,
                                       2 * run + 1}):
-                    window3_case(dtype, c, ch, nchunk)
-                    window3_case(dtype, c, ch, nchunk, probe.window3_ring_plan(
-                        ch * nchunk, ch, row, sms, run_chunks=run))
-                    cases += 2
+                    plans = {p.run_chunks: p for p in (
+                        probe.window3_ring_plan(ch * nchunk, ch, row, s)
+                        for s in range(1, sms + 1))}
+                    for plan in plans.values():
+                        window3_case(dtype, c, ch, nchunk, plan)
+                        cases += 1
             n_src, chunk, wblk, nwin = 4096, 512, 128, 6
             n = 5 * chunk + 37                  # a ragged last chunk
             src = torch.randn(n_src, c, generator=g, device="cuda").to(dtype)
@@ -291,12 +295,12 @@ def phase_probe():
         "replaces": "scripts/pallas_probe.py:62",
         "launches": launches["probe_scale2"],
         "max_abs_err": max(err["probe_scale2"], smoke["max_abs_err"]),
-        "ms": smoke["ms"], "device_ms": smoke["device_ms"],
-        "plain_ms": smoke["plain_ms"],
+        "ms": smoke["ms"]["kernel"], "device_ms": smoke["device_ms"]["kernel"],
+        "plain_ms": smoke["ms"]["plain"],
         "bound_ms": smoke["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
-        "library_ms": smoke["library_ms"],
-        "library_device_ms": smoke["library_device_ms"],
+        "library_ms": smoke["ms"]["torch.mul"],
+        "library_device_ms": smoke["device_ms"]["torch.mul"],
     }]
     for name, key, line in (("window3_gather", "band", 84),
                             ("prefetch_window_gather", "prefetch", 210)):
@@ -676,10 +680,8 @@ def phase_kernels(calls, launches):
         for (_, idx), src in zip(calls, padded):
             torch.index_select(src, 0, idx)
 
-    ms = time_ms(kernel, KERNEL_REPS, inner=1)
-    plain_ms = time_ms(plain, KERNEL_REPS, inner=1)
-    library_ms = time_ms(library, KERNEL_REPS, inner=1)
-    ms_again = time_ms(kernel, KERNEL_REPS, inner=1)
+    ms = time_ms({"kernel": kernel, "plain": plain, "library": library},
+                 KERNEL_REPS, inner=1)
     dev_ms = device_ms(kernel, inner=2)
     library_dev_ms = device_ms(library, inner=2)
     by_width = {}
@@ -688,7 +690,7 @@ def phase_kernels(calls, launches):
         by_width[key] = by_width.get(key, 0) + idx.numel()
     emit({"phase": "kernels", "gathers_per_forward": len(calls),
           "rows_by_dtype_width": by_width, "bytes_needed": bytes_needed,
-          "kernel_ms_first_last": [ms, ms_again]})
+          "ms": ms})
     return [{
         "name": "gather_rows",
         "route": "cuda",
@@ -696,12 +698,12 @@ def phase_kernels(calls, launches):
         "replaces": "d3net_tpu/ops/pallas_gather.py:100",
         "launches": launches,
         "max_abs_err": err,
-        "ms": statistics.median([ms, ms_again]),
+        "ms": ms["kernel"],
         "device_ms": dev_ms,
-        "plain_ms": plain_ms,
+        "plain_ms": ms["plain"],
         "bound_ms": bytes_needed / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
-        "library_ms": library_ms,
+        "library_ms": ms["library"],
         "library_device_ms": library_dev_ms,
     }]
 

@@ -124,8 +124,8 @@ class RingPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def window3_ring_plan(n: int, ch: int, row_bytes: int, sms: int = SM_COUNT,
-                      run_chunks: Optional[int] = None) -> RingPlan:
+def window3_ring_plan(n: int, ch: int, row_bytes: int,
+                      sms: int = SM_COUNT) -> RingPlan:
     """The ring kernel's plan for ``n`` rows of ``row_bytes`` bytes in
     chunks of ``ch`` rows, on a card of ``sms`` SMs.
 
@@ -133,7 +133,7 @@ def window3_ring_plan(n: int, ch: int, row_bytes: int, sms: int = SM_COUNT,
     at most one TMA box's 256) that divides the row and keeps
     ``RING_SLOTS`` chunk slots and the two index buffers inside a block's
     shared memory. ``L`` is the fewest chunks per run that keep every block
-    in one wave (``run_chunks`` sets it instead), and every chunk lies in
+    in one wave (so fewer SMs give longer runs), and every chunk lies in
     exactly one run. Raises ValueError when no slice fits."""
     if ch <= 0 or n <= 0 or n % ch:
         raise ValueError(f"window3_ring_plan: n={n}, ch={ch}: needs n > 0 "
@@ -158,10 +158,7 @@ def window3_ring_plan(n: int, ch: int, row_bytes: int, sms: int = SM_COUNT,
     per_sm = max(1, min(SMEM_PER_SM // (smem + 1024),
                         THREADS_PER_SM // RING_THREADS))
     slices = row_bytes // s
-    if run_chunks is None:
-        run_chunks = -(-nchunk // max(1, sms * per_sm // slices))
-    elif run_chunks <= 0:
-        raise ValueError(f"window3_ring_plan: run_chunks={run_chunks}")
+    run_chunks = -(-nchunk // max(1, sms * per_sm // slices))
     runs = -(-nchunk // run_chunks)
     rows_read = 0           # each run's chunks [j0-1, j0+L] clamped, once
     for r in range(runs):
@@ -195,7 +192,8 @@ def window3_gather(src: torch.Tensor, idx: torch.Tensor, ch: int,
     """``src (n, C)``, ``idx (n,)`` int32, ``n % ch == 0`` -> ``(n, C)``.
 
     On the card the ring kernel runs with ``window3_ring_plan``'s plan for
-    this card, or with ``plan`` (which puts the run edges elsewhere)."""
+    this card. ``plan`` is the card checks' hook: a plan made for fewer SMs
+    puts the run edges elsewhere."""
     row = _check_window("window3_gather", src, idx)
     n = src.shape[0]
     if ch <= 0 or n % ch or idx.shape[0] != n:

@@ -9,22 +9,22 @@ Counterpart of ``scripts/pallas_probe.py`` (its TPU question, asked of
 Hopper). Each probe builds the TPU probe's own data (same construction,
 numpy seeds 0 and 1), checks its kernel bit-exact against the plain
 version, and on the card reports two times per call: ``ms``, what a caller
-pays (CUDA events, median of 5 passes of ``INNER`` back-to-back calls),
-and ``device_ms``, the device time of what one call launches
-(``torch.profiler`` over ``INNER`` calls):
+pays (CUDA events, median of ``REPS`` passes of ``INNER`` back-to-back
+calls, the calls compared taking turns), and ``device_ms``, the device
+time of what one call launches (``torch.profiler`` over ``INNER`` calls,
+read after every ``ms`` of the run):
 
 - ``smoke``:    ``probe_scale2`` on a (256, 128) bf16 block of ones, beside
-  ``torch.mul(x, 2.0)``, and the host µs of each step of one launch
-  (``host_us``: the checks, ``empty_like``, the stream read, the device
-  switch, the ctypes call);
+  ``torch.mul(x, 2.0)``;
 - ``band``:     ``window3_gather`` (three-chunk window, the ring kernel) on
-  in-band indices, with the ring's plan (``window3_ring_plan``), the
-  bytes its blocks move (``moved_bytes``), and the ring again with runs of
-  half and twice the plan's length (``ring_runs``);
+  in-band indices, with the ring's plan (``window3_ring_plan``) and the
+  bytes its blocks move (``moved_bytes``);
 - ``prefetch``: ``prefetch_window_gather`` (``nwin * wblk``-row window
   from a per-chunk base) on indices that fit their window;
 - ``gather``:   ``gather_rows`` and ``torch.index_select`` on banded and on
-  random indices (the TPU probe's "XLA take" baseline).
+  random indices (the TPU probe's "XLA take" baseline);
+- ``launch`` (only when named): the host µs of one ``probe_scale2`` call,
+  of ``torch.mul``'s, and of each step of the launch (``host_us``).
 
 ``band`` and ``prefetch`` report ns/row for four gathers of the same rows:
 the window kernel, ``gather_rows``, the plain version and
@@ -45,7 +45,7 @@ import json
 import statistics
 import sys
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -54,29 +54,33 @@ from d3net_tpu_torch.device import resolve_device
 from d3net_tpu_torch.kernels import gather, launch, probe
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
-REPS = 5
+REPS = 11
 INNER = 10
 HOST_REPS = 200           # calls per round: well inside the launch queue
 HOST_ROUNDS = 5
 
 
-def time_ms(fn: Callable[[], object], reps: int = REPS,
-            inner: int = INNER) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` calls (CUDA
-    events), after one warm-up call."""
-    fn()
+def time_ms(fns: Dict[str, Callable[[], object]], reps: int = REPS,
+            inner: int = INNER) -> Dict[str, float]:
+    """Per-call time of each of ``fns``: the median over ``reps`` of the
+    mean time of ``inner`` back-to-back calls (CUDA events), after one
+    warm-up call each. The functions take turns within each rep, so that a
+    drift of the host's speed reaches them all alike."""
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
-    times = []
+    times: Dict[str, list] = {k: [] for k in fns}
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
+        for k, fn in fns.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(inner):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            times[k].append(a.elapsed_time(b) / inner)
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def device_ms(fn: Callable[[], object], inner: int = INNER) -> float:
@@ -104,22 +108,25 @@ def device_ms(fn: Callable[[], object], inner: int = INNER) -> float:
     return us / 1e3 / inner
 
 
-def host_us(fn: Callable[[], object], reps: int = HOST_REPS,
-            rounds: int = HOST_ROUNDS) -> float:
-    """Host time per call of ``fn`` in µs: the median over ``rounds`` of
-    ``perf_counter`` over ``reps`` back-to-back calls, the card synchronised
-    before each round. ``reps`` launches stay well inside the card's launch
+def host_us(fns: Dict[str, Callable[[], object]], reps: int = HOST_REPS,
+            rounds: int = HOST_ROUNDS) -> Dict[str, float]:
+    """Host time per call of each of ``fns`` in µs: the median over
+    ``rounds`` of ``perf_counter`` over ``reps`` back-to-back calls, the
+    functions taking turns within each round and the card synchronised
+    before each. ``reps`` launches stay well inside the card's launch
     queue, so the host never waits for the device."""
-    fn()
-    times = []
+    for fn in fns.values():
+        fn()
+    times: Dict[str, list] = {k: [] for k in fns}
     for _ in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        times.append((time.perf_counter() - t0) / reps * 1e6)
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times[k].append((time.perf_counter() - t0) / reps * 1e6)
     torch.cuda.synchronize()
-    return statistics.median(times)
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def make_banded_indices(n: int, seed: int = 0) -> np.ndarray:
@@ -157,68 +164,33 @@ def gather_bytes(src: torch.Tensor, idx: torch.Tensor,
 
 def _gathers(name: str, kernel: Callable[[], torch.Tensor],
              plain: Callable[[], torch.Tensor], src: torch.Tensor,
-             idx: torch.Tensor, index_bytes: int,
-             plan_bytes: int) -> Dict[str, object]:
+             idx: torch.Tensor, index_bytes: int, plan_bytes: int):
     """Check ``kernel`` against ``plain`` and against ``src[idx]`` (``idx``
     the absolute indices, all inside their windows); on the card, time the
-    four gathers of the same rows."""
+    four gathers of the same rows. Returns the result and the calls whose
+    device time ``run`` reads."""
     n = idx.shape[0]
     got, want = kernel(), plain()
     res: Dict[str, object] = {"probe": name, "rows": n,
                               "max_abs_err": check_exact(name, got, want)}
     check_exact(f"{name} vs src[idx]", want, src[idx.long()])
-    if src.is_cuda:
-        idx_l = idx.long()
-        ms = {"kernel": time_ms(kernel),
-              "gather_rows": time_ms(lambda: gather.gather_rows(src, idx)),
-              "plain": time_ms(plain),
-              "index_select": time_ms(
-                  lambda: torch.index_select(src, 0, idx_l))}
-        res["ms"] = ms
-        res["ns_per_row"] = {k: v * 1e6 / n for k, v in ms.items()}
-        res["device_ms"] = {
-            "kernel": device_ms(kernel),
-            "gather_rows": device_ms(lambda: gather.gather_rows(src, idx)),
-            "index_select": device_ms(
-                lambda: torch.index_select(src, 0, idx_l))}
-        res["bound_bytes"] = gather_bytes(src, idx, index_bytes)
-        res["bound_ms"] = res["bound_bytes"] / HBM_BYTES_PER_S * 1e3
-        res["plan_bytes"] = plan_bytes
-    return res
+    if not src.is_cuda:
+        return res, {}
+    idx_l = idx.long()
+    calls = {"kernel": kernel,
+             "gather_rows": lambda: gather.gather_rows(src, idx),
+             "plain": plain,
+             "index_select": lambda: torch.index_select(src, 0, idx_l)}
+    res["ms"] = time_ms(calls)
+    res["ns_per_row"] = {k: v * 1e6 / n for k, v in res["ms"].items()}
+    res["bound_bytes"] = gather_bytes(src, idx, index_bytes)
+    res["bound_ms"] = res["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    res["plan_bytes"] = plan_bytes
+    del calls["plain"]
+    return res, calls
 
 
-def launch_host_us(x: torch.Tensor) -> Dict[str, float]:
-    """Host µs of one ``probe_scale2`` call and of each of its steps, beside
-    ``torch.mul``'s whole call and the steps of the launch path the port
-    took before (a ``torch.cuda.device`` block and a ``Stream`` object)."""
-    index = x.get_device()
-    fn = probe.load_library().d3_probe_scale2
-    out = torch.empty_like(x)
-    args = (x.data_ptr(), out.data_ptr(), x.numel())
-    stream = launch.current_stream(index)
-
-    def device_block():
-        with torch.cuda.device(index):
-            pass
-
-    return {
-        "probe_scale2": host_us(lambda: probe.probe_scale2(x)),
-        "torch.mul": host_us(lambda: torch.mul(x, 2.0)),
-        "checks": host_us(lambda: probe._on_card("probe_scale2", x)),
-        "empty_like": host_us(lambda: torch.empty_like(x)),
-        "data_ptr_x2": host_us(lambda: (x.data_ptr(), out.data_ptr())),
-        "current_device": host_us(launch._current_device),
-        "raw_stream": host_us(lambda: launch.current_stream(index)),
-        "ctypes_call": host_us(lambda: fn(*args, stream)),
-        "launch_helper": host_us(lambda: launch.launch(
-            "probe_scale2", fn, index, *args)),
-        "old_device_block": host_us(device_block),
-        "old_stream_object": host_us(
-            lambda: torch.cuda.current_stream(index).cuda_stream),
-    }
-
-
-def probe_smoke(dev: torch.device) -> Dict[str, object]:
+def probe_smoke(dev: torch.device):
     x = torch.ones((256, 128), dtype=torch.bfloat16, device=dev)
     out = probe.probe_scale2(x)
     if not bool((out == 2.0).all()):
@@ -226,21 +198,50 @@ def probe_smoke(dev: torch.device) -> Dict[str, object]:
     res: Dict[str, object] = {
         "probe": "smoke", "ok": True,
         "max_abs_err": check_exact("smoke", out, probe.probe_scale2_plain(x))}
-    if dev.type == "cuda":
-        def kernel():
-            return probe.probe_scale2(x)
+    if dev.type != "cuda":
+        return res, {}
+    calls = {"kernel": lambda: probe.probe_scale2(x),
+             "torch.mul": lambda: torch.mul(x, 2.0),
+             "plain": lambda: probe.probe_scale2_plain(x)}
+    res["ms"] = time_ms(calls)
+    res["bound_bytes"] = 2 * x.numel() * x.element_size()
+    del calls["plain"]
+    return res, calls
 
-        def library():
-            return torch.mul(x, 2.0)
 
-        res["ms"] = time_ms(kernel)
-        res["device_ms"] = device_ms(kernel)
-        res["library_ms"] = time_ms(library)
-        res["library_device_ms"] = device_ms(library)
-        res["plain_ms"] = time_ms(lambda: probe.probe_scale2_plain(x))
-        res["bound_bytes"] = 2 * x.numel() * x.element_size()
-        res["host_us"] = launch_host_us(x)
-    return res
+def probe_launch(dev: torch.device):
+    """Host µs of one ``probe_scale2`` call beside ``torch.mul``'s, and of
+    each step of the wrapper's launch: its checks, ``empty_like``, the
+    device and stream reads, the C call itself (straight through ctypes, so
+    not counted in ``probe_scale2.launches``), and the two paths of
+    ``kernels/launch.py`` that this card does not take: the device switch
+    and the public stream read."""
+    res: Dict[str, object] = {"probe": "launch"}
+    if dev.type != "cuda":
+        return res, {}
+    x = torch.ones((256, 128), dtype=torch.bfloat16, device=dev)
+    index = x.get_device()
+    fn = probe.load_library().d3_probe_scale2
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), out.data_ptr(), x.numel(),
+            launch.current_stream(index))
+
+    def device_switch():
+        with torch.cuda.device(index):
+            pass
+
+    res["host_us"] = host_us({
+        "probe_scale2": lambda: probe.probe_scale2(x),
+        "torch.mul": lambda: torch.mul(x, 2.0),
+        "checks": lambda: probe._on_card("probe_scale2", x),
+        "empty_like": lambda: torch.empty_like(x),
+        "current_device": launch._current_device,
+        "raw_stream": lambda: launch.current_stream(index),
+        "c_call": lambda: fn(*args),
+        "device_switch": device_switch,
+        "public_stream": lambda: torch.cuda.current_stream(index).cuda_stream,
+    })
+    return res, {}
 
 
 def band_case(n: int, c: int, ch: int):
@@ -257,34 +258,19 @@ def band_case(n: int, c: int, ch: int):
     return src, idx
 
 
-def probe_band(dev: torch.device, n: int, c: int,
-               ch: int) -> Dict[str, object]:
+def probe_band(dev: torch.device, n: int, c: int, ch: int):
     src_np, idx_np = band_case(n, c, ch)
     src, idx = _bf16(src_np, dev), torch.from_numpy(idx_np).to(dev)
     b = src.element_size()
-    res = _gathers("band", lambda: probe.window3_gather(src, idx, ch),
-                   lambda: probe.window3_gather_plain(src, idx, ch),
-                   src, idx, 4 * n, 3 * n * c * b + n * c * b + 4 * n)
+    res, calls = _gathers("band", lambda: probe.window3_gather(src, idx, ch),
+                          lambda: probe.window3_gather_plain(src, idx, ch),
+                          src, idx, 4 * n, 3 * n * c * b + n * c * b + 4 * n)
     if dev.type == "cuda":
-        sms = probe._sm_count(src.get_device())
-        plan = probe.window3_ring_plan(n, ch, c * b, sms)
+        plan = probe.window3_ring_plan(n, ch, c * b,
+                                       probe._sm_count(src.get_device()))
         res["plan"] = plan._asdict()
         res["moved_bytes"] = plan.moved_bytes
-        # the same gather with runs of half and twice the plan's length
-        want = probe.window3_gather_plain(src, idx, ch)
-        runs = {}
-        for run in (max(plan.run_chunks // 2, 1), plan.run_chunks,
-                    2 * plan.run_chunks):
-            p = probe.window3_ring_plan(n, ch, c * b, sms, run_chunks=run)
-
-            def ring():
-                return probe.window3_gather(src, idx, ch, p)
-
-            check_exact(f"band L={run}", ring(), want)
-            runs[run] = {"blocks": p.blocks, "moved_bytes": p.moved_bytes,
-                         "ms": time_ms(ring), "device_ms": device_ms(ring)}
-        res["ring_runs"] = runs
-    return res
+    return res, calls
 
 
 def prefetch_case(n: int, c: int, ch: int, wblk: int, nwin: int):
@@ -306,7 +292,7 @@ def prefetch_case(n: int, c: int, ch: int, wblk: int, nwin: int):
 
 
 def probe_prefetch(dev: torch.device, n: int, c: int, ch: int,
-                   wblk: int = 128, nwin: int = 6) -> Dict[str, object]:
+                   wblk: int = 128, nwin: int = 6):
     src_np, idx_np, bases_np, rel_np = prefetch_case(n, c, ch, wblk, nwin)
     src = _bf16(src_np, dev)
     idx = torch.from_numpy(idx_np).to(dev)
@@ -324,7 +310,7 @@ def probe_prefetch(dev: torch.device, n: int, c: int, ch: int,
                     src, idx, index_bytes, plan)
 
 
-def probe_gather(dev: torch.device, n: int, c: int) -> Dict[str, object]:
+def probe_gather(dev: torch.device, n: int, c: int):
     """``gather_rows`` and ``index_select`` on banded and random indices."""
     rng = np.random.default_rng(0)
     src = _bf16(rng.standard_normal((n, c)), dev)
@@ -337,37 +323,46 @@ def probe_gather(dev: torch.device, n: int, c: int) -> Dict[str, object]:
         check_exact(f"gather {name}", got, gather.gather_rows_plain(src, idx))
         if dev.type == "cuda":
             idx_l = idx.long()
-            ms = {"gather_rows": time_ms(lambda: gather.gather_rows(src, idx)),
-                  "index_select": time_ms(
-                      lambda: torch.index_select(src, 0, idx_l))}
+            ms = time_ms({"gather_rows": lambda: gather.gather_rows(src, idx),
+                          "index_select": lambda: torch.index_select(
+                              src, 0, idx_l)})
             res[name] = {
                 "ms": ms, "ns_per_row": {k: v * 1e6 / n for k, v in ms.items()},
                 "bound_ms": gather_bytes(src, idx, 4 * n)
                 / HBM_BYTES_PER_S * 1e3}
-    return res
+    return res, {}
 
 
-PROBES = ("smoke", "band", "prefetch", "gather")
+PROBES = ("smoke", "band", "prefetch", "gather")   # the default run
+EXTRA = ("launch",)                                # asked for by name
 
 
-def run(what, dev: torch.device, n: int, c: int, ch: int):
-    """Run the named probes in order; yields one result dict each."""
+def run(what, dev: torch.device, n: int, c: int,
+        ch: int) -> List[Dict[str, object]]:
+    """Run the named probes in order; one result dict each. On the card
+    every per-call and host time of the run is taken first and the device
+    times (``device_ms``) after them all, so that no ``torch.profiler``
+    session runs before a timed call."""
+    probes = {"smoke": lambda: probe_smoke(dev),
+              "band": lambda: probe_band(dev, n, c, ch),
+              "prefetch": lambda: probe_prefetch(dev, n, c, ch),
+              "gather": lambda: probe_gather(dev, n, c),
+              "launch": lambda: probe_launch(dev)}
     for w in what:
-        if w == "smoke":
-            yield probe_smoke(dev)
-        elif w == "band":
-            yield probe_band(dev, n, c, ch)
-        elif w == "prefetch":
-            yield probe_prefetch(dev, n, c, ch)
-        elif w == "gather":
-            yield probe_gather(dev, n, c)
-        else:
-            raise ValueError(f"unknown probe {w!r}; choose from {PROBES}")
+        if w not in probes:
+            raise ValueError(f"unknown probe {w!r}; choose from "
+                             f"{PROBES + EXTRA}")
+    done = [probes[w]() for w in what]
+    for res, profiled in done:
+        if profiled:
+            res["device_ms"] = {k: device_ms(fn) for k, fn in profiled.items()}
+    return [res for res, _ in done]
 
 
 def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--what", default=",".join(PROBES))
+    ap.add_argument("--what", default=",".join(PROBES),
+                    help=f"comma-separated, of {PROBES + EXTRA}")
     ap.add_argument("--n", type=int, default=262144)
     ap.add_argument("--c", type=int, default=128)
     ap.add_argument("--ch", type=int, default=512)

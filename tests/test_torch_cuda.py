@@ -109,7 +109,8 @@ def test_window3_gather_matches_plain(card, dtype, c):
 @pytest.mark.parametrize("ch", [128, 512])
 def test_window3_gather_run_edges(card, dtype, c, ch):
     """nchunk in {1, 2, 3, L-1, L, L+1, 2L+1}, L the plan's run length at
-    the probe's size, with the card's plan and with runs of L chunks."""
+    the probe's size, with the card's plan and with every plan that a card
+    of fewer SMs gets (longer runs, so other run edges)."""
     g = torch.Generator(device="cuda").manual_seed(c + ch)
     row = c * torch.empty((), dtype=dtype).element_size()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -121,8 +122,10 @@ def test_window3_gather_run_edges(card, dtype, c, ch):
         idx = torch.randint(-ch - 3, n + ch + 3, (n,), generator=g,
                             device="cuda", dtype=torch.int32)
         want = probe.window3_gather_plain(src, idx, ch)
-        for plan in (None, probe.window3_ring_plan(n, ch, row, sms,
-                                                   run_chunks=run)):
+        assert torch.equal(probe.window3_gather(src, idx, ch), want), nchunk
+        plans = {p.run_chunks: p for p in (
+            probe.window3_ring_plan(n, ch, row, s) for s in range(1, sms))}
+        for plan in plans.values():
             assert torch.equal(probe.window3_gather(src, idx, ch, plan),
                                want), (nchunk, plan)
 

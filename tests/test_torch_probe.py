@@ -79,12 +79,12 @@ def test_window3_matches_band_gather_pallas(tpu_probe, dtype, nchunk):
     (512 * 7, 512, 1024), (128, 128, 128), (128 * 300, 128, 512),
     (300 * 7, 300, 256), (257 * 3, 257, 48), (5, 1, 16), (3000 * 2, 3000, 16),
 ])
-@pytest.mark.parametrize("run_chunks", [None, 4])
-def test_window3_ring_plan(n, ch, row_bytes, run_chunks):
+@pytest.mark.parametrize("sms", [132, 3])
+def test_window3_ring_plan(n, ch, row_bytes, sms):
     """Four slots of a chunk in one block's shared memory, S a 16-byte
     multiple (a power of two) that divides the row, every chunk in exactly
-    one run, the blocks in one wave unless a run was forced."""
-    plan = probe.window3_ring_plan(n, ch, row_bytes, run_chunks=run_chunks)
+    one run, the blocks in one wave of ``sms`` SMs."""
+    plan = probe.window3_ring_plan(n, ch, row_bytes, sms)
     s, run, nchunk = plan.slice_bytes, plan.run_chunks, n // ch
     assert probe.RING_SLOTS == 4
     assert s in (16, 32, 64, 128, 256) and row_bytes % s == 0
@@ -98,10 +98,7 @@ def test_window3_ring_plan(n, ch, row_bytes, run_chunks):
     assert chunks == list(range(nchunk))          # each chunk once, in order
     assert (plan.runs - 1) * run < nchunk         # no empty run
     assert plan.blocks == plan.slices * plan.runs
-    if run_chunks is None:
-        assert plan.blocks <= max(132 * plan.blocks_per_sm, plan.slices)
-    else:
-        assert run == run_chunks
+    assert plan.blocks <= max(sms * plan.blocks_per_sm, plan.slices)
     # each run reads its chunks and one neighbour on each side, at most
     out = n * row_bytes
     assert out * 2 <= plan.moved_bytes - plan.slices * 4 * n
@@ -189,8 +186,8 @@ def test_launch_passes_the_stream_last_and_raises_on_an_error(monkeypatch):
 
 def test_probe_band_and_prefetch_on_cpu():
     dev = torch.device("cpu")
-    for res in probe_cli.run(["band", "prefetch", "gather"], dev, n=4096,
-                             c=16, ch=512):
+    for res in probe_cli.run(["band", "prefetch", "gather", "launch"], dev,
+                             n=4096, c=16, ch=512):
         assert res.get("max_abs_err", 0.0) == 0.0 and "ms" not in res
 
 
