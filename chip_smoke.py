@@ -13,11 +13,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               out-of-range indices, and the JAX band_gather test plans.
 4. probe    — the three probe kernels (``kernels/probe.py``) bit-exact
               against their plain versions on random cases (edge chunks,
-              out-of-window rel, f32/bf16, C in 64/128/256, and the ring's
-              run edges: nchunk in {1, 2, 3, L-1, L, L+1, 2L+1} at rows of
-              128-1024 bytes, with every plan that a card of 1 to all of
-              this card's SMs gets), the ring's plan at the probe's size
-              (line ``probe_plan``), then the probe entry point
+              out-of-window rel, f32/bf16, C in 64/128/256, and both
+              rings' run edges: nchunk in {1, 2, 3, L-1, L, L+1, 2L+1} at
+              rows of 128-1024 bytes, with every plan that a card of 1 to
+              all of this card's SMs gets; ``prefetch_window_gather`` also
+              on every bases pattern of ``probe.prefetch_patterns``), the
+              two rings' plans at the probe's size (line ``probe_plan``),
+              then the probe entry point
               (``d3net_tpu_torch.probe``) at its own size (n=262144, c=128
               bf16, ch=512, wblk=128, nwin=6), its launches counted (counts
               set to 0 just before), with per-call ``ms`` of each kernel
@@ -68,7 +70,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
 version's and the library call's time (``library_ms``,
-``library_device_ms``) and the bound. The last two lines are
+``library_device_ms``) and the bound; the two rings add the bytes their
+blocks move (``moved_bytes``). The last two lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, the script exits non-zero
 and prints no result. It imports nothing of JAX or of the JAX package.
@@ -231,6 +234,29 @@ def phase_probe():
             probe.window3_gather_plain(src, idx, ch)))
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def prefetch_case(dtype, c, n_src, n, bases, chunk, wblk, nwin, what):
+        """Random rel (a margin outside the window too), with every plan
+        that a card of 1 to `sms` SMs gets; returns the number of plans."""
+        src = torch.randn(n_src, c, generator=g, device="cuda").to(dtype)
+        rel = torch.randint(-20, nwin * wblk + 20, (n,), generator=g,
+                            device="cuda", dtype=torch.int32)
+        bases = torch.from_numpy(bases).cuda()
+        kw = dict(chunk=chunk, wblk=wblk, nwin=nwin)
+        want = probe.prefetch_window_gather_plain(src, rel, bases, **kw)
+        row = c * src.element_size()
+        plans = {p.run_chunks: p for p in (
+            probe.prefetch_ring_plan(n, chunk, wblk, nwin, row, s)
+            for s in range(1, sms + 1))}
+        for plan in plans.values():
+            err["prefetch_window_gather"] = max(
+                err["prefetch_window_gather"], check_exact(
+                    f"prefetch_window_gather {dtype} C={c} n={n} chunk={chunk}"
+                    f" wblk={wblk} nwin={nwin} {what} plan={plan}",
+                    probe.prefetch_window_gather(src, rel, bases, plan=plan,
+                                                 **kw), want))
+        return len(plans)
+
     for dtype in probe.DTYPES:
         for c in (64, 128, 256):
             for ch, nchunk in ((512, 6), (128, 1), (128, 5)):
@@ -251,27 +277,40 @@ def phase_probe():
                     for plan in plans.values():
                         window3_case(dtype, c, ch, nchunk, plan)
                         cases += 1
-            n_src, chunk, wblk, nwin = 4096, 512, 128, 6
-            n = 5 * chunk + 37                  # a ragged last chunk
-            src = torch.randn(n_src, c, generator=g, device="cuda").to(dtype)
-            # some windows run past the source end (those rows read zeros)
-            bases = torch.randint(0, n_src // wblk - nwin + 3, (6,),
-                                  generator=g, device="cuda",
-                                  dtype=torch.int32)
-            rel = torch.randint(-20, nwin * wblk + 20, (n,), generator=g,
-                                device="cuda", dtype=torch.int32)
-            kw = dict(chunk=chunk, wblk=wblk, nwin=nwin)
-            err["prefetch_window_gather"] = max(
-                err["prefetch_window_gather"], check_exact(
-                    f"prefetch_window_gather {dtype} C={c}",
-                    probe.prefetch_window_gather(src, rel, bases, **kw),
-                    probe.prefetch_window_gather_plain(src, rel, bases, **kw)))
-            cases += 1
+            # prefetch_window_gather's ring: its run edges (nchunk in {1, 2,
+            # 3, L-1, L, L+1, 2L+1}, whole and ragged) on banded bases at the
+            # probe's geometry, then every bases pattern of
+            # probe_cli.prefetch_patterns at three block geometries
+            # (100-row blocks: the division path; 384-row blocks: two TMA
+            # boxes a slot), a ragged last chunk and a partial last block
+            run = probe.prefetch_ring_plan(262144, 512, 128, 6, row,
+                                           sms).run_chunks
+            for nchunk in sorted({1, 2, 3, max(run - 1, 1), run, run + 1,
+                                  2 * run + 1}):
+                n_src = nchunk * 512 + 3 * 128 - 37
+                bases = probe_cli.prefetch_patterns(nchunk, 512, 128, 6,
+                                                    n_src)["banded"]
+                for n in (nchunk * 512, nchunk * 512 - 37):
+                    cases += prefetch_case(dtype, c, n_src, n, bases, 512,
+                                           128, 6, "banded")
+            for chunk, wblk, nwin in ((512, 128, 6), (200, 100, 3),
+                                      (300, 384, 2)):
+                nchunk, step = 13, -(-chunk // wblk)
+                n_src = ((nchunk - 1) * (step + 1) + nwin + 1) * wblk - 37
+                for what, bases in probe_cli.prefetch_patterns(
+                        nchunk, chunk, wblk, nwin, n_src).items():
+                    cases += prefetch_case(dtype, c, n_src,
+                                           nchunk * chunk - 37, bases, chunk,
+                                           wblk, nwin, what)
     torch.cuda.synchronize()
 
-    plan = probe.window3_ring_plan(262144, 512, 128 * 2, sms)
-    emit({"phase": "probe_plan", "kernel": "window3_gather", "n": 262144,
-          "ch": 512, "row_bytes": 256, "sms": sms, **plan._asdict()})
+    emit({"phase": "probe_plan", "n": 262144, "row_bytes": 256, "sms": sms,
+          "window3_gather": {"ch": 512, **probe.window3_ring_plan(
+              262144, 512, 256, sms)._asdict()},
+          "prefetch_window_gather": {
+              "chunk": 512, "wblk": 128, "nwin": 6,
+              **probe.prefetch_ring_plan(262144, 512, 128, 6, 256,
+                                         sms)._asdict()}})
 
     # the probe path, counted: counts set to 0 just before, read after
     kernels = (probe.probe_scale2, probe.window3_gather,
@@ -318,6 +357,7 @@ def phase_probe():
             "library_ms": r["ms"]["index_select"],
             "library_device_ms": r["device_ms"]["index_select"]})
     entries[1]["moved_bytes"] = res["band"]["moved_bytes"]
+    entries[2]["moved_bytes"] = res["prefetch"]["moved_bytes"]
     return entries
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -37,6 +37,7 @@ SM_COUNT = 132             # H100 SXM
 RING_SLOTS = 4             # csrc/probe_kernels.cu kRingSlots
 RING_THREADS = 512         # csrc/probe_kernels.cu kRingThreads
 TMA_BOX_ROWS = 256         # the most rows one TMA box may hold
+INT32_MAX = 2**31 - 1      # TMA row coordinates are int32
 
 _lib: Optional[ctypes.CDLL] = None
 _P, _L = ctypes.c_void_p, ctypes.c_longlong
@@ -52,7 +53,7 @@ def load_library() -> ctypes.CDLL:
                 ("d3_window3_gather",
                  [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _P]),
                 ("d3_prefetch_window_gather",
-                 [_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _P])):
+                 [_P, _P, _P, _P] + [_L] * 11 + [_P])):
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = args
         _lib = lib
@@ -106,6 +107,14 @@ def _check_window(name, src, index):
     return row
 
 
+def _box(rows: int):
+    """The TMA boxes ``(box_rows, nbox)`` of a ring slot of ``rows`` rows:
+    at most 256 rows each and a multiple of 8, so that a box of 16-byte
+    columns stays 128-byte aligned in shared memory."""
+    nbox = -(-rows // TMA_BOX_ROWS)
+    return -(-(-(-rows // nbox)) // 8) * 8, nbox
+
+
 # -- #3: the probe's band kernel ---------------------------------------------
 class RingPlan(NamedTuple):
     """How the ring kernel of ``window3_gather`` cuts its work
@@ -142,8 +151,7 @@ def window3_ring_plan(n: int, ch: int, row_bytes: int,
         raise ValueError(f"window3_ring_plan: {row_bytes}-byte rows are not "
                          f"16-byte vectors")
     nchunk = n // ch
-    nbox = -(-ch // TMA_BOX_ROWS)
-    box_rows = -(-(-(-ch // nbox)) // 8) * 8
+    box_rows, nbox = _box(ch)
     slot_rows = nbox * box_rows
     fixed = 2 * 4 * ch + 8 * RING_SLOTS
     fits = [s for s in (16, 32, 64, 128, 256)
@@ -218,6 +226,109 @@ window3_gather.launches = 0
 
 
 # -- #4: the prefetch kernel -------------------------------------------------
+class PrefetchPlan(NamedTuple):
+    """How the ring kernel of ``prefetch_window_gather`` cuts its work
+    (``csrc/probe_kernels.cu``)."""
+
+    slice_bytes: int    # S: the column slice of every row that a block owns
+    run_chunks: int     # L: consecutive output chunks that a block gathers
+    slots: int          # R = nwin + ceil(chunk / wblk) window-block slots
+    box_rows: int       # rows of one TMA box: a multiple of 8, at most 256
+    nbox: int           # boxes per slot, nbox * box_rows >= wblk
+    slices: int         # row_bytes // S
+    runs: int           # ceil(nchunk / L)
+    blocks: int         # slices * runs
+    blocks_per_sm: int  # resident at once on one SM at this shared memory
+    smem_bytes: int     # per block: slots, slot state, maps, rel buffers
+
+
+@functools.lru_cache(maxsize=64)
+def prefetch_ring_plan(n: int, chunk: int, wblk: int, nwin: int,
+                       row_bytes: int, sms: int = SM_COUNT) -> PrefetchPlan:
+    """The ring kernel's plan for ``n`` output rows of ``row_bytes`` bytes
+    in chunks of ``chunk`` rows, each reading a window of ``nwin`` blocks
+    of ``wblk`` source rows, on a card of ``sms`` SMs.
+
+    ``R = nwin + ceil(chunk / wblk)`` slots: the window plus the blocks a
+    banded window gains per chunk. ``S`` is the widest of 16, 32, 64, 128
+    and 256 bytes that divides the row and keeps ``R`` slots, their state,
+    two window maps and two rel buffers inside a block's shared memory.
+    ``L`` is the fewest chunks per run that keep every block in one wave,
+    and every chunk lies in exactly one run. Raises ValueError when no
+    slice fits."""
+    if min(n, chunk, wblk, nwin) <= 0:
+        raise ValueError(f"prefetch_ring_plan: n={n}, chunk={chunk}, "
+                         f"wblk={wblk}, nwin={nwin} must be positive")
+    if row_bytes <= 0 or row_bytes % 16:
+        raise ValueError(f"prefetch_ring_plan: {row_bytes}-byte rows are not "
+                         f"16-byte vectors")
+    nchunk = -(-n // chunk)
+    slots = nwin + -(-chunk // wblk)
+    box_rows, nbox = _box(wblk)
+    fixed = slots * 24 + 2 * 4 * nwin + 2 * 4 * chunk
+    fits = [s for s in (16, 32, 64, 128, 256)
+            if row_bytes % s == 0 and row_bytes // s <= 65535
+            and slots * nbox * box_rows * s + fixed <= SMEM_MAX]
+    if not fits:
+        raise ValueError(f"prefetch_window_gather: {slots} slots of "
+                         f"{wblk}-row blocks do not fit {SMEM_MAX} bytes of "
+                         f"shared memory")
+    s = fits[-1]
+    smem = slots * nbox * box_rows * s + fixed
+    per_sm = max(1, min(SMEM_PER_SM // (smem + 1024),
+                        THREADS_PER_SM // RING_THREADS))
+    slices = row_bytes // s
+    run_chunks = -(-nchunk // max(1, sms * per_sm // slices))
+    runs = -(-nchunk // run_chunks)
+    return PrefetchPlan(s, run_chunks, slots, box_rows, nbox, slices, runs,
+                        slices * runs, per_sm, smem)
+
+
+def prefetch_ring_loads(bases: Sequence[int], plan: PrefetchPlan, n_src: int,
+                        wblk: int, nwin: int) -> List[List[tuple]]:
+    """The ring kernel's slot schedule (warp 0's ``assign`` in
+    ``csrc/probe_kernels.cu``), replayed on the host for ``bases``: per
+    chunk, one ``(block, slot, fill, when)`` per window block, ``when``
+    being ``"held"`` (a slot already holds the block), ``"now"`` (copied
+    while the chunk before is gathered), ``"deferred"`` (copied once the
+    chunk before is done, which still reads that slot) or ``"zeros"`` (the
+    block lies wholly outside the source: no slot, no copy). Each run
+    starts with empty slots."""
+    r, out = plan.slots, []
+    for j0 in range(0, len(bases), plan.run_chunks):
+        tag, last, fills = [None] * r, [-2] * r, [0] * r
+        for t, base in enumerate(bases[j0:j0 + plan.run_chunks]):
+            window = []
+            for b in range(int(base), int(base) + nwin):
+                if b * wblk + wblk <= 0 or b * wblk >= n_src:
+                    window.append((b, -1, 0, "zeros"))
+                    continue
+                s, when = b % r, "held"
+                if tag[s] != b:
+                    when = "deferred" if last[s] >= t - 1 else "now"
+                    tag[s] = b
+                    fills[s] += 1
+                last[s] = t
+                window.append((b, s, fills[s] - 1, when))
+            out.append(window)
+    return out
+
+
+def prefetch_ring_moved_bytes(bases: Sequence[int], plan: PrefetchPlan,
+                              n: int, n_src: int, wblk: int, nwin: int,
+                              row_bytes: int) -> int:
+    """Bytes the ring kernel moves for ``bases``: the source rows of every
+    copy (TMA reads only the rows inside the source), summed over the
+    slices into whole rows; the output written; rel and bases read once
+    per slice."""
+    rows = plan.nbox * plan.box_rows
+    read = sum(max(0, min(b * wblk + rows, n_src) - max(b * wblk, 0))
+               for window in prefetch_ring_loads(bases, plan, n_src, wblk,
+                                                 nwin)
+               for b, _, _, when in window if when in ("now", "deferred"))
+    return (read + n) * row_bytes + plan.slices * 4 * (n + len(bases))
+
+
 def prefetch_window_gather_plain(src, rel, bases, *, chunk: int, wblk: int,
                                  nwin: int) -> torch.Tensor:
     j = torch.arange(rel.shape[0], device=src.device) // chunk
@@ -230,26 +341,44 @@ def prefetch_window_gather_plain(src, rel, bases, *, chunk: int, wblk: int,
 
 def prefetch_window_gather(src: torch.Tensor, rel: torch.Tensor,
                            bases: torch.Tensor, *, chunk: int, wblk: int,
-                           nwin: int) -> torch.Tensor:
+                           nwin: int, plan: Optional[PrefetchPlan] = None
+                           ) -> torch.Tensor:
     """``src (n_src, C)``, ``rel (n,)`` int32, ``bases (ceil(n / chunk),)``
-    int32 -> ``(n, C)``."""
+    int32 -> ``(n, C)``.
+
+    On the card the ring kernel runs with ``prefetch_ring_plan``'s plan for
+    this card, which raises ValueError for a window that does not fit (on
+    the CPU too, so both take the same inputs). ``plan`` is the card
+    checks' hook: a plan made for fewer SMs puts the run edges elsewhere."""
     row = _check_window("prefetch_window_gather", src, rel)
-    if nwin * wblk * 16 > SMEM_MAX:
-        raise ValueError(f"prefetch_window_gather: a {nwin * wblk}-row "
-                         f"window does not fit 16-byte slices in shared "
-                         f"memory")
-    n = rel.shape[0]
+    n, n_src = rel.shape[0], src.shape[0]
+    if min(chunk, wblk, nwin) <= 0:
+        raise ValueError(f"prefetch_window_gather: chunk={chunk}, "
+                         f"wblk={wblk}, nwin={nwin} must be positive")
     if bases.dtype != torch.int32 or bases.shape != (-(-n // chunk),):
         raise ValueError(f"prefetch_window_gather: bases {tuple(bases.shape)}"
                          f" {bases.dtype}, want ({-(-n // chunk)},) int32")
+    if n_src > INT32_MAX:
+        raise ValueError(f"prefetch_window_gather: {n_src} source rows, at "
+                         f"most {INT32_MAX}")
+    if n == 0:
+        return src.new_empty((0, src.shape[1]))
     if not _on_card("prefetch_window_gather", src, rel, bases):
+        prefetch_ring_plan(n, chunk, wblk, nwin, row)   # the same refusal
         return prefetch_window_gather_plain(src, rel, bases, chunk=chunk,
                                             wblk=wblk, nwin=nwin)
+    if n_src == 0:
+        raise ValueError("prefetch_window_gather: an empty source has no "
+                         "tensor map")
+    if plan is None:
+        plan = prefetch_ring_plan(n, chunk, wblk, nwin, row,
+                                  _sm_count(src.get_device()))
     out = torch.empty((n, src.shape[1]), dtype=src.dtype, device=src.device)
     launch("prefetch_window_gather",
            load_library().d3_prefetch_window_gather, src.get_device(),
            src.data_ptr(), rel.data_ptr(), bases.data_ptr(), out.data_ptr(),
-           n, src.shape[0], chunk, wblk, nwin, row)
+           n, n_src, chunk, wblk, nwin, row, plan.slice_bytes,
+           plan.run_chunks, plan.slots, plan.box_rows, plan.nbox)
     prefetch_window_gather.launches += 1
     return out
 

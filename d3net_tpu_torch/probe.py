@@ -20,7 +20,9 @@ read after every ``ms`` of the run):
   in-band indices, with the ring's plan (``window3_ring_plan``) and the
   bytes its blocks move (``moved_bytes``);
 - ``prefetch``: ``prefetch_window_gather`` (``nwin * wblk``-row window
-  from a per-chunk base) on indices that fit their window;
+  from a per-chunk base, the ring kernel) on indices that fit their
+  window, with the ring's plan (``prefetch_ring_plan``) and the bytes its
+  blocks move for these bases (``moved_bytes``);
 - ``gather``:   ``gather_rows`` and ``torch.index_select`` on banded and on
   random indices (the TPU probe's "XLA take" baseline);
 - ``launch`` (only when named): the host µs of one ``probe_scale2`` call,
@@ -291,6 +293,32 @@ def prefetch_case(n: int, c: int, ch: int, wblk: int, nwin: int):
     return src, idx, bases, rel
 
 
+def prefetch_patterns(nchunk: int, chunk: int, wblk: int, nwin: int,
+                      n_src: int) -> Dict[str, np.ndarray]:
+    """Window bases (wblk units) of ``nchunk`` chunks that put the ring
+    kernel of ``prefetch_window_gather`` through each of its cases:
+    ``banded`` (about ``chunk / wblk`` blocks a chunk, as the probe's
+    data), ``constant``, an advance of exactly ``R - nwin`` blocks a chunk
+    (``advance_max``, the most that needs no deferred copy) and of one more
+    (``advance_over``), ``backward``, ``negative`` (windows wholly and
+    partly below row 0), ``past_end`` (wholly and partly past ``n_src``)
+    and ``random`` jumps both ways (numpy seed 0); ``R`` as
+    ``prefetch_ring_plan`` makes it."""
+    step = -(-chunk // wblk)
+    top = -(-n_src // wblk)                 # source blocks, the last partial
+    j = np.arange(nchunk)
+    rng = np.random.default_rng(0)
+    pats = {"banded": np.maximum(j * step - 1, 0),
+            "constant": np.full(nchunk, top // 2),
+            "advance_max": j * step,
+            "advance_over": j * (step + 1),
+            "backward": (nchunk - 1 - j) * step,
+            "negative": j % (nwin + 3) - nwin - 1,
+            "past_end": top - nwin + j % (nwin + 2),
+            "random": rng.integers(-nwin - 2, top + 2, nchunk)}
+    return {k: v.astype(np.int32) for k, v in pats.items()}
+
+
 def probe_prefetch(dev: torch.device, n: int, c: int, ch: int,
                    wblk: int = 128, nwin: int = 6):
     src_np, idx_np, bases_np, rel_np = prefetch_case(n, c, ch, wblk, nwin)
@@ -302,12 +330,19 @@ def probe_prefetch(dev: torch.device, n: int, c: int, ch: int,
     b = src.element_size()
     nchunk = n // ch
     index_bytes = 4 * n + 4 * nchunk
-    plan = nchunk * nwin * wblk * c * b + n * c * b + index_bytes
-    return _gathers("prefetch",
-                    lambda: probe.prefetch_window_gather(src, rel, bases, **kw),
-                    lambda: probe.prefetch_window_gather_plain(src, rel, bases,
-                                                               **kw),
-                    src, idx, index_bytes, plan)
+    plan_bytes = nchunk * nwin * wblk * c * b + n * c * b + index_bytes
+    res, calls = _gathers(
+        "prefetch",
+        lambda: probe.prefetch_window_gather(src, rel, bases, **kw),
+        lambda: probe.prefetch_window_gather_plain(src, rel, bases, **kw),
+        src, idx, index_bytes, plan_bytes)
+    if dev.type == "cuda":
+        plan = probe.prefetch_ring_plan(n, ch, wblk, nwin, c * b,
+                                        probe._sm_count(src.get_device()))
+        res["plan"] = plan._asdict()
+        res["moved_bytes"] = probe.prefetch_ring_moved_bytes(
+            bases_np, plan, n, n, wblk, nwin, c * b)
+    return res, calls
 
 
 def probe_gather(dev: torch.device, n: int, c: int):

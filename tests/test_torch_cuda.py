@@ -1,6 +1,8 @@
 """Card-only checks of the port (marker ``cuda``): each kernel against its
-plain version (the ring kernel of ``window3_gather`` at its run edges
-too), the launch path on PyTorch's current stream, the detector on cuda
+plain version (the two ring kernels at their run edges too, and
+``prefetch_window_gather``'s on every bases pattern of
+``probe.prefetch_patterns``), the launch path on PyTorch's current stream
+for every kernel, the detector on cuda
 against the detector on cpu, and the sparse conv's backward on cuda
 against the same on cpu.
 
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from d3net_tpu_torch import device, params
+from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
 from d3net_tpu_torch.data.synthetic import make_scene
 from d3net_tpu_torch.kernels import gather, probe
@@ -139,6 +142,11 @@ def test_launch_honours_the_current_stream(card):
     y = torch.randn(4096, 64, generator=g, device="cuda")
     idx = torch.randint(-600, 4096 + 600, (4096,), generator=g,
                         device="cuda", dtype=torch.int32)
+    rel = torch.randint(-20, 6 * 128 + 20, (4096,), generator=g,
+                        device="cuda", dtype=torch.int32)
+    bases = torch.tensor([0, 3, 7, 26, 20, 27, 1, 4], device="cuda",
+                         dtype=torch.int32)
+    kw = dict(chunk=512, wblk=128, nwin=6)
     x = torch.zeros_like(y)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -146,11 +154,14 @@ def test_launch_honours_the_current_stream(card):
         torch.cuda._sleep(200_000_000)        # ~0.1 s of device cycles
         x.copy_(y)
         got = (gather.gather_rows(x, idx), probe.window3_gather(x, idx, 512),
-               probe.probe_scale2(x.bfloat16()))
+               probe.probe_scale2(x.bfloat16()),
+               probe.prefetch_window_gather(x, rel, bases, **kw))
     torch.cuda.synchronize()
     assert torch.equal(got[0], gather.gather_rows_plain(y, idx))
     assert torch.equal(got[1], probe.window3_gather_plain(y, idx, 512))
     assert torch.equal(got[2], probe.probe_scale2_plain(y.bfloat16()))
+    assert torch.equal(got[3], probe.prefetch_window_gather_plain(
+        y, rel, bases, **kw))
 
 
 @pytest.mark.cuda
@@ -171,6 +182,71 @@ def test_prefetch_window_gather_matches_plain(card, dtype, c):
     assert probe.prefetch_window_gather.launches == before + 1
     assert torch.equal(got, probe.prefetch_window_gather_plain(src, rel,
                                                                bases, **kw))
+
+
+def _prefetch_every_plan(g, src, bases, n, chunk, wblk, nwin, what):
+    """``prefetch_window_gather`` on random rel (a margin outside the
+    window too) with the card's plan and every plan that a card of fewer
+    SMs gets (longer runs, so other run edges), each bit-exact."""
+    rel = torch.randint(-20, nwin * wblk + 20, (n,), generator=g,
+                        device="cuda", dtype=torch.int32)
+    bases = torch.from_numpy(bases).cuda()
+    kw = dict(chunk=chunk, wblk=wblk, nwin=nwin)
+    want = probe.prefetch_window_gather_plain(src, rel, bases, **kw)
+    assert torch.equal(probe.prefetch_window_gather(src, rel, bases, **kw),
+                       want), what
+    row = src.shape[1] * src.element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {p.run_chunks: p for p in (
+        probe.prefetch_ring_plan(n, chunk, wblk, nwin, row, s)
+        for s in range(1, sms))}
+    for plan in plans.values():
+        assert torch.equal(probe.prefetch_window_gather(
+            src, rel, bases, plan=plan, **kw), want), (what, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", probe.DTYPES)
+@pytest.mark.parametrize("c", [64, 128, 256])
+def test_prefetch_window_gather_run_edges(card, dtype, c):
+    """nchunk in {1, 2, 3, L-1, L, L+1, 2L+1}, L the plan's run length at
+    the probe's size, whole and with a ragged last chunk, banded bases."""
+    g = torch.Generator(device="cuda").manual_seed(c + 7)
+    chunk, wblk, nwin = 512, 128, 6
+    row = c * torch.empty((), dtype=dtype).element_size()
+    run = probe.prefetch_ring_plan(262144, chunk, wblk, nwin, row).run_chunks
+    for nchunk in sorted({1, 2, 3, max(run - 1, 1), run, run + 1,
+                          2 * run + 1}):
+        n_src = nchunk * chunk + 3 * wblk - 37
+        src = torch.randn(n_src, c, generator=g, device="cuda").to(dtype)
+        bases = probe_cli.prefetch_patterns(nchunk, chunk, wblk, nwin,
+                                            n_src)["banded"]
+        for n in (nchunk * chunk, nchunk * chunk - 37):
+            _prefetch_every_plan(g, src, bases, n, chunk, wblk, nwin,
+                                 (nchunk, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", probe.DTYPES)
+@pytest.mark.parametrize("c", [64, 128, 256])
+@pytest.mark.parametrize("chunk,wblk,nwin", [(512, 128, 6), (200, 100, 3),
+                                             (300, 384, 2)])
+def test_prefetch_window_gather_bases_patterns(card, dtype, c, chunk, wblk,
+                                               nwin):
+    """Every bases pattern of ``probe.prefetch_patterns`` (banded, constant,
+    the largest advance without a deferred copy and one more, backward,
+    negative, past the source end, random jumps), a ragged last chunk, a
+    source whose last block is partial; 100-row blocks take the division
+    path and boxes of 104 rows, 384-row blocks two boxes of 192 rows."""
+    g = torch.Generator(device="cuda").manual_seed(c + chunk)
+    nchunk = 13
+    n = nchunk * chunk - 37
+    step = -(-chunk // wblk)
+    n_src = ((nchunk - 1) * (step + 1) + nwin + 1) * wblk - 37
+    src = torch.randn(n_src, c, generator=g, device="cuda").to(dtype)
+    for name, bases in probe_cli.prefetch_patterns(nchunk, chunk, wblk, nwin,
+                                                   n_src).items():
+        _prefetch_every_plan(g, src, bases, n, chunk, wblk, nwin, name)
 
 
 @pytest.mark.cuda
