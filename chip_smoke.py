@@ -6,8 +6,8 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device   — the card's name and ``nvidia-smi`` name/power limit.
-2. build    — nvcc builds every kernel source of ``csrc/`` (one nvcc per
-              source, all started together).
+2. build    — nvcc builds every kernel source of ``csrc/`` and g++ the
+              host library (one compiler per source, all started together).
 3. kernel   — each kernel against its plain PyTorch version on the card,
               bit-exact: random f32/bf16/int32 rows with pad sentinels and
               out-of-range indices, and the JAX band_gather test plans.
@@ -67,11 +67,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               path's bound), and one profiled step (train_profile, which
               gives the train path's ``gather_rows`` device time).
 
+11. host_lib — the C++ host library (``csrc/host_voxelize.cc``, built by
+              g++ in ``build``) against the numpy plain versions on the
+              flagship batch's four scenes: the whole collated batch byte-
+              identical both ways, ``host_collate_s`` of each (C++ twice,
+              numpy once) and each table's seconds on scene 0's level 0.
+12. run     — ``run_detector_training`` on conf/pointgroup.yaml at its
+              published widths (m 16, 7 levels, caps 131072..2048, 250000
+              points, 128 instances, B=4, 134 input channels, 8 collate
+              workers, elastic on, bf16) in a temporary run dir, cut as its
+              ``reduced`` list says; per step the wall time with the host,
+              the time blocked on the batch iterator, the host-to-device
+              copy and the ``gather_rows`` launches (each must equal the
+              ``train`` phase's), peak memory, finite losses and the
+              ``metrics.jsonl`` keys. Then a fresh state restored from the
+              run dir must equal the run's final state bit for bit
+              (parameters, BN statistics, optimizer, scheduler, step), and
+              a second call with a larger ``max_steps`` resumes there and
+              trains on (line ``resume``).
+13. eval    — ``python -m d3net_tpu_torch.scripts.eval --task detection``
+              on that run dir (in-process): ``eval_detection.json`` with
+              finite mAP and AR at IoU 0.25 and 0.5, stamped with its
+              checkpoint, and its ``gather_rows`` launches.
+
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
 version's and the library call's time (``library_ms``,
 ``library_device_ms``) and the bound; the two rings add the bytes their
-blocks move (``moved_bytes``). The last two lines are
+blocks move (``moved_bytes``), and ``gather_rows`` its launches per step
+of the ``run`` phase. The last two lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, the script exits non-zero
 and prints no result. It imports nothing of JAX or of the JAX package.
@@ -81,9 +105,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -94,15 +121,22 @@ import torch.nn.functional as F
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
+from d3net_tpu_torch.data import collate
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
 from d3net_tpu_torch.data.synthetic import make_scene
 from d3net_tpu_torch.kernels import gather, probe
 from d3net_tpu_torch.models.blocks import SubmConv, fold_tables
 from d3net_tpu_torch.models.pointgroup import PointGroup
-from d3net_tpu_torch.ops import segment, sparse_conv
+from d3net_tpu_torch.ops import native, segment, sparse_conv
+from d3net_tpu_torch.ops import voxelize as vox
 from d3net_tpu_torch.params import (
     flagship_config, flatten, init_flax_variables, load_detector,
     state_dict_to_flax,
+)
+from d3net_tpu_torch.scripts import eval as eval_cli
+from d3net_tpu_torch.scripts.train import load_task_config
+from d3net_tpu_torch.train.loop import (
+    Checkpointer, detector_from_cfg, init_detector, run_detector_training,
 )
 from d3net_tpu_torch.train.trainer import (
     create_train_state, detector_train_step,
@@ -115,6 +149,11 @@ KINK_NOISE = 1e-5     # largest ReLU input, relative, that may change side
 FWD_REPS = 7
 KERNEL_REPS = 5
 TRAIN_WARMUP, TRAIN_REPS = 2, 5
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+RUN_CONFIG = os.path.join(ROOT, "conf", "pointgroup.yaml")
+RUN_TRAIN_SCENES, RUN_VAL_SCENES = 24, 2     # of the config's 64 (+8 val)
+RUN_STEPS, RUN_RESUME_STEPS = 6, 3
 
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
@@ -152,13 +191,14 @@ def randomize(tree, rng):
 
 # --------------------------------------------------------------------------
 def phase_build():
-    """Each kernel module's ``load_library`` (nvcc at first use), all
-    started together."""
+    """Each kernel module's ``load_library`` (nvcc at first use) and the
+    host library (g++), all started together."""
     t0 = time.time()
-    modules = (gather, probe)
-    with ThreadPoolExecutor(len(modules)) as pool:
-        list(pool.map(lambda m: m.load_library(), modules))
-    emit({"phase": "build", "sources": [m.SOURCE for m in modules],
+    builds = {gather.SOURCE: gather.load_library,
+              probe.SOURCE: probe.load_library, native.SOURCE: native.get_lib}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda f: f(), builds.values()))
+    emit({"phase": "build", "sources": list(builds),
           "seconds": round(time.time() - t0, 3)})
 
 
@@ -817,9 +857,293 @@ def phase_train(variables, batch):
           "steps": history})
     prof = phase_profile("train_profile", step)
     return {"train_launches": launches,
+            "step_ms": statistics.median(ev_ms),
             "train_bound_ms": rec.bytes_needed / HBM_BYTES_PER_S * 1e3,
             "train_device_ms": sum(r[1] for r in prof
                                    if "gather_rows_kernel" in r[0])}
+
+
+@contextlib.contextmanager
+def numpy_tables():
+    """The collate's voxelization and tables on the numpy plain versions
+    (``ops/voxelize.py`` ``*_plain``) instead of the C++ host library."""
+    names = ("voxelize", "submanifold_table", "downsample_level",
+             "upsample_table")
+    saved = {n: getattr(vox, n) for n in names}
+    saved_collate = collate.voxelize
+    for n in names:
+        setattr(vox, n, getattr(vox, f"{n}_plain"))
+    collate.voxelize = vox.voxelize_plain
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(vox, n, f)
+        collate.voxelize = saved_collate
+
+
+def assert_same_arrays(got, want, where="batch") -> int:
+    """Every array of two collated batches equal in dtype, shape and bytes;
+    returns how many were compared."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{where}: keys differ")
+        return sum(assert_same_arrays(got[k], want[k], f"{where}.{k}")
+                   for k in want)
+    if isinstance(want, list):
+        return sum(assert_same_arrays(g, w, f"{where}[{i}]")
+                   for i, (g, w) in enumerate(zip(got, want)))
+    if (got.dtype != want.dtype or got.shape != want.shape
+            or not np.array_equal(got, want)):
+        raise AssertionError(f"{where}: C++ and numpy tables differ")
+    return 1
+
+
+def phase_host_lib():
+    """The C++ host library against the numpy plain versions on the
+    flagship batch's four scenes."""
+    flag = flagship_config()
+    scenes = [make_scene(seed=i, **flag.scene_kwargs)
+              for i in range(flag.batch_size)]
+    seconds = {"cpp": [], "numpy": []}
+    batches = {}
+    for kind in ("cpp", "numpy", "cpp"):
+        with numpy_tables() if kind == "numpy" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            batches[kind] = build_batch(scenes, flag.spec)
+            seconds[kind].append(time.perf_counter() - t0)
+    arrays = assert_same_arrays(batches["cpp"], batches["numpy"])
+
+    # each table on scene 0's level 0, both ways (C++ and numpy in turns)
+    xyz = scenes[0].xyz[:flag.spec.max_points]
+    coords = np.floor((xyz - xyz.min(0)) * flag.spec.scale).astype(np.int32)
+    vc = vox.voxelize_plain(coords)[0]
+    coarse = vox.downsample_level_plain(vc)[0]
+    tables = {}
+    for name, args in (("voxelize", (coords,)), ("submanifold_table", (vc,)),
+                       ("downsample_level", (vc,)),
+                       ("upsample_table", (vc, coarse))):
+        row = {}
+        for kind, fn in (("cpp", getattr(native, name)),
+                         ("numpy", getattr(vox, f"{name}_plain"))):
+            t0 = time.perf_counter()
+            fn(*args)
+            row[kind] = time.perf_counter() - t0
+        tables[name] = row
+    emit({"phase": "host_lib", "scenes": len(scenes),
+          "points": [len(sc.xyz) for sc in scenes],
+          "voxels_l0": [int(x) for x in
+                        batches["cpp"]["tables"][0]["mask"].sum(1)],
+          "identical_arrays": arrays, "host_collate_s": seconds,
+          "level0_table_s": tables})
+
+
+def run_config(root):
+    """conf/pointgroup.yaml (over conf/path.yaml) as the ``run`` phase cuts
+    it: fewer synthetic scenes, a log line every step, into ``root``."""
+    cfg = load_task_config(RUN_CONFIG)
+    cfg.general.output_root = root
+    cfg.data.synthetic.num_scenes = RUN_TRAIN_SCENES
+    cfg.data.synthetic.num_val_scenes = RUN_VAL_SCENES
+    cfg.train.log_every_n_steps = 1
+    return cfg
+
+
+def _metrics(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _state_copy(state):
+    """The model state_dict, optimizer and scheduler state and step, copied."""
+    def copy(v):
+        if torch.is_tensor(v):
+            return v.detach().clone()
+        if isinstance(v, dict):
+            return {k: copy(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [copy(x) for x in v]
+        return v
+    return {"model": copy(state.model.state_dict()),
+            "optimizer": copy(state.optimizer.state_dict()),
+            "scheduler": copy(state.scheduler.state_dict()),
+            "step": state.step}
+
+
+def _first_difference(got, want, where=""):
+    if torch.is_tensor(want):
+        return None if (torch.is_tensor(got) and got.dtype == want.dtype
+                        and got.device == want.device
+                        and torch.equal(got, want)) else where
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return f"{where} keys"
+        for k in want:
+            d = _first_difference(got[k], want[k], f"{where}.{k}")
+            if d:
+                return d
+        return None
+    if isinstance(want, list):
+        if len(got) != len(want):
+            return f"{where} length"
+        for i, (g, w) in enumerate(zip(got, want)):
+            d = _first_difference(g, w, f"{where}[{i}]")
+            if d:
+                return d
+        return None
+    return None if got == want else where
+
+
+def _train_run(cfg, run_dir, max_steps):
+    """``run_detector_training`` with every step's timings and
+    ``gather_rows`` launches recorded; returns (state, steps, launches)."""
+    steps = []
+    seen = [0]
+
+    def on_step(rec):
+        rec["gather_launches"] = gather.gather_rows.launches - seen[0]
+        seen[0] = gather.gather_rows.launches
+        steps.append(rec)
+
+    gather.gather_rows.launches = 0      # the main path, counted from here
+    state = run_detector_training(cfg, run_dir, max_steps=max_steps,
+                                  on_step=on_step)
+    torch.cuda.synchronize()
+    return state, steps, gather.gather_rows.launches
+
+
+def _median(recs, key, scale=1e3):
+    return statistics.median(r[key] for r in recs) * scale
+
+
+def phase_run(root, per_step, per_forward, train_step_ms):
+    """The detector's run loop on conf/pointgroup.yaml, then the resume."""
+    cfg = run_config(root)
+    published = load_task_config(RUN_CONFIG).data.synthetic
+    run_dir = os.path.join(root, cfg.general.experiment)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state, steps, launches = _train_run(cfg, run_dir, RUN_STEPS)
+    run_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    recs = _metrics(run_dir)
+    train = [r for r in recs if "train/total_loss" in r]
+    val = [r for r in recs if "val/total_loss" in r]
+    bad = [(r["step"], k) for r in recs for k, v in r.items()
+           if not math.isfinite(v)]
+    val_batches = -(-RUN_VAL_SCENES // cfg.data.batch_size)
+    per = [r["gather_launches"] for r in steps]
+    if len(steps) != RUN_STEPS or [r["step"] for r in train] != list(
+            range(1, RUN_STEPS + 1)) or len(val) != 1:
+        raise AssertionError(f"run: {len(steps)} steps, metrics steps "
+                             f"{[r['step'] for r in recs]}")
+    if bad:
+        raise AssertionError(f"run: non-finite metrics {bad}")
+    if any(n != per_step for n in per) or launches != (
+            sum(per) + val_batches * per_forward):
+        raise AssertionError(
+            f"run: gather_rows launches per step {per} (train phase: "
+            f"{per_step}), {launches} in all")
+    emit({"phase": "run", "config": "conf/pointgroup.yaml",
+          "widths": {"m": cfg.model.m, "levels": len(cfg.model.blocks),
+                     "voxel_caps": list(cfg.tpu.voxel_caps),
+                     "max_num_point": cfg.data.max_num_point,
+                     "max_num_instance": cfg.data.max_num_instance,
+                     "batch_size": cfg.data.batch_size,
+                     "in_channels": state.model.input_conv.kernel.shape[1],
+                     "num_workers": cfg.data.get("num_workers"),
+                     "elastic": cfg.data.get("elastic"),
+                     "activation_dtype": cfg.tpu.get("activation_dtype")},
+          "reduced": [f"{RUN_TRAIN_SCENES} train + {RUN_VAL_SCENES} val "
+                      f"synthetic scenes instead of {published.num_scenes}"
+                      f" + {max(2, published.num_scenes // 8)}",
+                      f"one epoch cut by max_steps {RUN_STEPS} (of "
+                      f"{cfg.train.epochs} epochs), then a resume to "
+                      f"{RUN_STEPS + RUN_RESUME_STEPS}",
+                      f"log_every_n_steps 1 (the config's "
+                      f"{load_task_config(RUN_CONFIG).train.log_every_n_steps})"],
+          "run_step_ms": _median(steps, "wall_s"),
+          "data_wait_ms": _median(steps, "data_wait_s"),
+          "h2d_ms": _median(steps, "h2d_s"),
+          "h2d_bytes": steps[0]["h2d_bytes"],
+          "h2d_gb_per_s": statistics.median(r["h2d_bytes"] / r["h2d_s"]
+                                            for r in steps) / 1e9,
+          "step_ms": _median(steps, "step_s"),
+          "train_phase_step_ms": train_step_ms,
+          "steps": [{(k[:-2] + "_ms" if k.endswith("_s") else k):
+                     (round(v * 1e3, 3) if k.endswith("_s") else v)
+                     for k, v in r.items()} for r in steps],
+          "max_memory_allocated": peak, "run_s": round(run_s, 3),
+          "gather_launches": launches, "gather_launches_per_step": per_step,
+          "val_batches": val_batches, "losses_finite": True,
+          "train_losses": [r["train/total_loss"] for r in train],
+          "val_total_loss": val[0]["val/total_loss"],
+          "metrics_keys": sorted({k for r in recs for k in r}),
+          "run_dir": sorted(os.listdir(run_dir))})
+    saved = _state_copy(state)
+    del state
+    torch.cuda.empty_cache()
+
+    # a fresh state restored from the run dir equals the run's final state
+    fresh = create_train_state(
+        init_detector(detector_from_cfg(cfg), 0).cuda(),
+        lr=cfg.train.optim.lr, optim=cfg.train.optim.classname,
+        weight_decay=cfg.train.optim.weight_decay,
+        step_epoch=cfg.train.step_epoch, multiplier=cfg.train.multiplier)
+    ckpt = Checkpointer(run_dir, "total_loss")
+    if ckpt.restore_last(fresh) is None:
+        raise AssertionError("resume: no checkpoint in the run dir")
+    diff = _first_difference(_state_copy(fresh), saved)
+    if diff is not None:
+        raise AssertionError(f"resume: restored state differs at {diff}")
+    del fresh
+    state, steps2, _ = _train_run(cfg, run_dir, RUN_STEPS + RUN_RESUME_STEPS)
+    resumed = [r["step"] for r in steps2]
+    train2 = [r["step"] for r in _metrics(run_dir) if "train/total_loss" in r]
+    want = list(range(RUN_STEPS + 1, RUN_STEPS + RUN_RESUME_STEPS + 1))
+    if resumed != want or train2 != list(range(1, RUN_STEPS + 1)) + want:
+        raise AssertionError(f"resume: stepped {resumed}, metrics {train2}")
+    emit({"phase": "resume", "restored_step": saved["step"],
+          "restored_bit_exact": ["model", "optimizer", "scheduler", "step"],
+          "tensors_compared": sum(1 for _ in _tensors(saved)),
+          "resumed_steps": resumed, "final_step": state.step,
+          "checkpoints": sorted(os.listdir(os.path.join(run_dir, "ckpt")))})
+    del state
+    torch.cuda.empty_cache()
+    return run_dir, val_batches
+
+
+def _tensors(tree):
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def phase_eval(run_dir, val_batches, per_forward):
+    """The detection eval CLI on the run dir."""
+    gather.gather_rows.launches = 0
+    t0 = time.time()
+    eval_cli.main(["--folder", run_dir, "--task", "detection"])
+    torch.cuda.synchronize()
+    launches = gather.gather_rows.launches
+    with open(os.path.join(run_dir, "eval_detection.json")) as f:
+        res = json.load(f)
+    keys = ("mAP@0.25", "mAP@0.5", "AR@0.25", "AR@0.5")
+    if not all(math.isfinite(res[k]) for k in keys):
+        raise AssertionError(f"eval: non-finite {[res[k] for k in keys]}")
+    if res["checkpoint"].get("kind") not in ("best", "last"):
+        raise AssertionError(f"eval: checkpoint {res['checkpoint']}")
+    if launches != val_batches * per_forward:
+        raise AssertionError(f"eval: {launches} gather_rows launches")
+    emit({"phase": "eval", **{k: res[k] for k in keys},
+          "checkpoint": res["checkpoint"], "gather_launches": launches,
+          "seconds": round(time.time() - t0, 3)})
 
 
 def main() -> int:
@@ -851,7 +1175,16 @@ def main() -> int:
     del model
     kernels = phase_kernels(calls, launches)
     del calls
-    kernels[0].update(phase_train(variables, batch))
+    train = phase_train(variables, batch)
+    kernels[0].update({k: v for k, v in train.items() if k != "step_ms"})
+    del batch, variables
+    torch.cuda.empty_cache()
+    phase_host_lib()
+    with tempfile.TemporaryDirectory(prefix="d3net_run_") as root:
+        run_dir, val_batches = phase_run(root, train["train_launches"],
+                                         launches, train["step_ms"])
+        phase_eval(run_dir, val_batches, launches)
+    kernels[0]["run_launches_per_step"] = train["train_launches"]
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

@@ -4,13 +4,18 @@ The JAX package ``d3net_tpu`` is the reference this package is held against;
 this package never imports it (nor JAX). Module layout and names follow the
 JAX package so each counterpart is easy to find:
 
-- ``data``     — numpy host pipeline: synthetic scenes, static-shape collate.
-- ``ops``      — voxelization tables, segment reductions, sparse conv,
-                 on-device clustering.
+- ``data``     — numpy host pipeline: synthetic scenes, static-shape
+                 collate, augmentation and the threaded ``BatchIterator``.
+- ``ops``      — voxelization tables (the C++ host library), segment
+                 reductions, sparse conv, on-device clustering.
 - ``kernels``  — hand-written CUDA kernels (``csrc/``) with their plain
                  PyTorch versions and ctypes bindings.
 - ``models``   — sparse U-Net blocks, dense ScoreNet, PointGroup detector.
-- ``utils``    — box geometry and nearest-neighbour assignment.
+- ``train``    — losses, train/eval steps, the run loop and checkpoints.
+- ``eval``     — detection mAP/AR.
+- ``scripts``  — the train and eval entry points (``python -m``).
+- ``utils``    — box geometry, NMS, transforms, nearest-neighbour assignment.
+- ``config``   — YAML configs (its own reader), merge, interpolation.
 - ``params``   — Flax variable tree -> ``state_dict`` converter and the
                  ``load_detector`` entry point.
 """

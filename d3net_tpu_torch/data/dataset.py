@@ -1,0 +1,233 @@
+"""Scene datasets and the host-side batch iterator (the input pipeline).
+
+Counterpart of ``d3net_tpu/data/dataset.py``: sources provide scenes, the
+iterator applies augmentation (jitter/flip/rotz/elastic and the box
+transform), crops, assembles static-shape batches with
+:mod:`d3net_tpu_torch.data.collate` and builds them ahead of the consumer:
+one prefetch thread, or ``workers`` threads (the hot collate work, numpy
+and the C++ host library, releases the GIL). Each batch draws from its own
+generator seeded by ``(seed, epoch, batch)``, so batches do not depend on
+the worker count and equal the JAX package's byte for byte.
+
+``MultiviewAttached`` and ``NpzScenes``' HDF5 multiview option (h5py) are
+not ported.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import replace
+from typing import Iterator, Sequence
+
+import numpy as np
+
+from d3net_tpu_torch.data.collate import BatchSpec, build_batch
+from d3net_tpu_torch.data.synthetic import Scene, make_scene
+from d3net_tpu_torch.utils import transform as T
+
+
+class SyntheticScenes:
+    """Deterministic synthetic scene list (no ScanNet on disk)."""
+
+    def __init__(self, num_scenes: int = 64, split: str = "train", **scene_kw):
+        base = 0 if split == "train" else 10_000
+        self.scenes = [make_scene(seed=base + i, **scene_kw)
+                       for i in range(num_scenes)]
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def __getitem__(self, i) -> Scene:
+        return self.scenes[i]
+
+
+class NpzScenes:
+    """ScanNet scenes preprocessed by ``scripts/prepare_scannet.py`` (one
+    npz file each); multiview features only from the npz itself."""
+
+    def __init__(self, paths: Sequence[str]):
+        self.paths = list(paths)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i) -> Scene:
+        d = np.load(self.paths[i], allow_pickle=False)
+        return Scene(
+            xyz=d["xyz"],
+            rgb=d["rgb"],
+            normal=d["normal"],
+            multiview=d["multiview"] if "multiview" in d else None,
+            sem_labels=d["sem_labels"],
+            instance_ids=d["instance_ids"],
+            instance_bboxes=d["instance_bboxes"],
+            scene_id=str(d.get("scene_id", "scan")),
+        )
+
+
+def augment_scene(scene: Scene, rng: np.random.Generator, *, jitter=True,
+                  flip=True, rot=True, elastic=False, scale=50.0) -> Scene:
+    m = np.eye(3)
+    if jitter:
+        m = m @ T.jitter_matrix(rng)
+    if flip:
+        m = m @ T.flip_matrix(rng, 0, random=True)
+    if rot:
+        m = m @ T.random_rotz_matrix(rng)
+    xyz = (scene.xyz @ m.T).astype(np.float32)
+    if elastic:
+        s = xyz * scale
+        s = T.elastic(s, 6 * 1, 40 * 0.1, rng)
+        s = T.elastic(s, 20 * 1, 160 * 0.4, rng)
+        xyz = (s / scale).astype(np.float32)
+    normal = (scene.normal @ np.linalg.inv(m).T).astype(np.float32)
+    bboxes = scene.instance_bboxes
+    if bboxes is not None and len(bboxes):
+        # boxes ride the same linear map: the center maps exactly, the AABB
+        # of a linearly mapped box has extents |m| @ d (the elastic warp
+        # after it is not applied to boxes)
+        bboxes = bboxes.copy()
+        bboxes[:, :3] = (bboxes[:, :3] @ m.T).astype(np.float32)
+        bboxes[:, 3:6] = (bboxes[:, 3:6] @ np.abs(m).T).astype(np.float32)
+    return replace(scene, xyz=xyz, normal=normal, instance_bboxes=bboxes)
+
+
+def subset_scene(scene: Scene, keep: np.ndarray) -> Scene:
+    """Point-wise subset of a scene (boolean mask or index array)."""
+    return replace(
+        scene,
+        xyz=scene.xyz[keep],
+        rgb=scene.rgb[keep] if scene.rgb is not None else None,
+        normal=scene.normal[keep] if scene.normal is not None else None,
+        multiview=scene.multiview[keep] if scene.multiview is not None else None,
+        sem_labels=scene.sem_labels[keep],
+        instance_ids=scene.instance_ids[keep],
+    )
+
+
+def crop_scene(scene: Scene, max_points: int, scale: float, full_scale: float,
+               rng: np.random.Generator) -> Scene:
+    """Random spatial crop to at most ``max_points`` points: a window of
+    scaled coords at a random offset, shrunk until the points fit."""
+    scaled = (scene.xyz - scene.xyz.min(0)) * scale
+    _, keep = T.crop(scaled, max_points, full_scale, rng)
+    if keep.all():
+        return scene
+    return subset_scene(scene, keep)
+
+
+class BatchIterator:
+    """Shuffled, augmented, prefetched static-shape batches (numpy)."""
+
+    def __init__(
+        self,
+        scenes,
+        spec: BatchSpec,
+        batch_size: int,
+        *,
+        shuffle: bool = True,
+        augment: bool = True,
+        elastic: bool = False,
+        seed: int = 0,
+        prefetch: int = 2,
+        workers: int = 1,
+        drop_last: bool = True,
+        return_scenes: bool = False,
+    ):
+        self.scenes = scenes
+        self.spec = spec
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.augment = augment
+        self.elastic = elastic
+        self.seed = seed
+        self.prefetch = prefetch
+        self.workers = max(1, int(workers))
+        self.drop_last = drop_last
+        self.return_scenes = return_scenes
+        self.epoch = 0
+
+    def __len__(self):
+        n = len(self.scenes)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _build_one(self, order: np.ndarray, b: int):
+        """Batch ``b`` of the epoch, from its own generator (so builds in any
+        order and on any worker give the same batch)."""
+        rng = np.random.default_rng(
+            (self.seed + 1) * 1_000_003 + self.epoch * 131_071 + b
+        )
+        idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+        scenes = []
+        for i in idx:
+            s = self.scenes[int(i)]
+            if self.augment:
+                s = augment_scene(s, rng, elastic=self.elastic,
+                                  scale=self.spec.scale)
+                if len(s.xyz) > self.spec.max_points:
+                    s = crop_scene(s, self.spec.max_points, self.spec.scale,
+                                   self.spec.full_scale, rng)
+            scenes.append(s)
+        batch = build_batch(scenes, self.spec)
+        return (batch, scenes) if self.return_scenes else batch
+
+    def _order(self) -> np.ndarray:
+        rng = np.random.default_rng(self.seed + self.epoch)
+        order = np.arange(len(self.scenes))
+        if self.shuffle:
+            rng.shuffle(order)
+        return order
+
+    def _epoch_batches(self) -> Iterator[dict]:
+        order = self._order()
+        for b in range(len(self)):
+            yield self._build_one(order, b)
+
+    def _epoch_batches_parallel(self) -> Iterator[dict]:
+        """``workers`` threads, ``workers + prefetch`` batches in flight,
+        yielded in batch order."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        order = self._order()
+        nb = len(self)
+        inflight = self.workers + max(1, self.prefetch)
+        with ThreadPoolExecutor(max_workers=self.workers) as ex:
+            futs = {b: ex.submit(self._build_one, order, b)
+                    for b in range(min(inflight, nb))}
+            nxt = len(futs)
+            for b in range(nb):
+                yield futs.pop(b).result()
+                if nxt < nb:
+                    futs[nxt] = ex.submit(self._build_one, order, nxt)
+                    nxt += 1
+
+    def __iter__(self) -> Iterator[dict]:
+        if self.workers > 1:
+            yield from self._epoch_batches_parallel()
+        elif self.prefetch <= 0:
+            yield from self._epoch_batches()
+        else:
+            q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+            done = object()
+            failed = []
+
+            def worker():
+                try:
+                    for item in self._epoch_batches():
+                        q.put(item)
+                except BaseException as e:   # re-raised by the consumer
+                    failed.append(e)
+                finally:
+                    q.put(done)
+
+            t = threading.Thread(target=worker, daemon=True)
+            t.start()
+            while True:
+                item = q.get()
+                if item is done:
+                    if failed:
+                        raise failed[0]
+                    break
+                yield item
+        self.epoch += 1

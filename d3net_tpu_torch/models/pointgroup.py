@@ -23,10 +23,15 @@ the top-K proposal slots (``proposal_perm``); both come from an explicit
 ``torch.Generator`` or are passed in as tensors. Clustering is not
 differentiable: its coordinates and weights are detached, as the JAX
 module wraps them in ``stop_gradient``.
+
+``pred_bbox=True`` adds the VoteNet-style box head on every cluster slot
+(``bbox_fc1/bn1/fc2/bn2/bbox_out``; ``pred_center``, heading and size
+scores and residuals, ``sem_cls_scores``), supervised by ``bbox_loss``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -84,12 +89,11 @@ class PointGroup(nn.Module):
         requires_gt_mask: bool = False,
         compute_dtype: Optional[str] = None,
         pred_bbox: bool = False,
+        num_heading_bin: int = 1,
+        num_size_cluster: int = 18,
+        num_bbox_class: int = 18,
     ):
         super().__init__()
-        if pred_bbox:
-            raise NotImplementedError(
-                "pred_bbox: the bbox regression head and bbox_loss are not "
-                "ported yet (every conf/ config sets it off)")
         del cluster_ring
         self.m = m
         self.classes = classes
@@ -117,6 +121,20 @@ class PointGroup(nn.Module):
         self.offset_fc2 = nn.Linear(m, 3)
         self.score_net = ScoreNet(m, tuple(m * c for c in cluster_blocks),
                                   block_reps)
+        self.pred_bbox = pred_bbox
+        self.num_heading_bin = num_heading_bin
+        self.num_size_cluster = num_size_cluster
+        if pred_bbox:
+            # VoteNet-parameterised box regression on the pooled cluster
+            # features: center residual, heading bins and residuals, size
+            # clusters and residuals, box class
+            pooled = m * cluster_blocks[0]
+            self.bbox_fc1 = nn.Linear(pooled, m, bias=False)
+            self.bbox_bn1 = MaskedBatchNorm(m)
+            self.bbox_fc2 = nn.Linear(m, m, bias=False)
+            self.bbox_bn2 = MaskedBatchNorm(m)
+            self.bbox_out = nn.Linear(m, 3 + num_heading_bin * 2
+                                      + num_size_cluster * 4 + num_bbox_class)
 
     # ------------------------------------------------------------------
     def backbone(self, voxel_feats, tables, train: bool):
@@ -239,6 +257,26 @@ class PointGroup(nn.Module):
         votes = seg.segment_count_batched(ids * self.classes + cls,
                                           p_total * self.classes, ok)
         return votes.reshape(b, p_total, self.classes).argmax(-1).to(torch.int32)
+
+    def _bbox_head(self, pooled, cluster_mask, center, train: bool):
+        """Box regression on every cluster slot (B, P), decoded."""
+        h = F.relu(self.bbox_bn1(self.bbox_fc1(pooled.float()), cluster_mask,
+                                 train))
+        h = F.relu(self.bbox_bn2(self.bbox_fc2(h), cluster_mask, train))
+        enc = self.bbox_out(h)                               # (B, P, D)
+        nh, ns = self.num_heading_bin, self.num_size_cluster
+        hr = enc[..., 3 + nh:3 + 2 * nh]
+        return {
+            "pred_center": center + enc[..., :3],
+            "heading_scores": enc[..., 3:3 + nh],
+            "heading_residuals_normalized": hr,
+            "heading_residuals": hr * (math.pi / nh),
+            "size_scores": enc[..., 3 + 2 * nh:3 + 2 * nh + ns],
+            "size_residuals_normalized": enc[
+                ..., 3 + 2 * nh + ns:3 + 2 * nh + 4 * ns].reshape(
+                    enc.shape[:-1] + (ns, 3)),
+            "sem_cls_scores": enc[..., 3 + 2 * nh + 4 * ns:],
+        }
 
     # ------------------------------------------------------------------
     def forward(self, batch: Dict[str, Any], train: bool = False,
@@ -370,6 +408,9 @@ class PointGroup(nn.Module):
             proposal_mask, _take(cluster_sem, top_idx),
             torch.zeros_like(top_idx))
         out["proposal_scores_batched"] = _take(objness, top_idx) * proposal_mask
+        if self.pred_bbox:
+            out.update(self._bbox_head(pooled, cluster_mask, stats["center"],
+                                       train))
 
         # GT object assignment (training/eval bookkeeping)
         if "center_label" in batch:

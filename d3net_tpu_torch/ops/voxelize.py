@@ -1,7 +1,11 @@
 """Host-side voxelization and sparse-conv kernel maps (gather mode).
 
-The numpy subset of ``d3net_tpu/ops/voxelize.py`` that the gather-mode
-collate needs; outputs are byte-identical to the JAX package's host path.
+The gather-mode subset of ``d3net_tpu/ops/voxelize.py``. ``voxelize``,
+``submanifold_table``, ``downsample_level`` and ``upsample_table`` run the
+C++ host library (``ops/native.py``) on every path; the numpy functions
+beside them (``*_plain``) are the plain versions the tests hold the
+library against, byte for byte, and nothing on the main path calls them.
+Outputs are byte-identical to the JAX package's host path.
 
 - ``p2v``   (N,)      point -> voxel index
 - ``coords``(M, 3)    unique voxel integer coords
@@ -22,6 +26,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from d3net_tpu_torch.ops import native
+
 _KEY_BOUND = 1 << 20  # per-axis headroom inside int64
 _KEY_BIAS = 1 << 10
 
@@ -32,7 +38,7 @@ def pack_keys(coords: np.ndarray) -> np.ndarray:
     return (c[:, 0] * _KEY_BOUND + c[:, 1]) * _KEY_BOUND + c[:, 2]
 
 
-def voxelize(coords: np.ndarray):
+def voxelize_plain(coords: np.ndarray):
     """Deduplicate (N, 3) integer point coords into voxels.
 
     Returns voxel_coords (M, 3) int32 (sorted by key, first occurrence's
@@ -72,7 +78,7 @@ def _query(base: np.ndarray, o: np.ndarray) -> np.ndarray:
         * _KEY_BOUND + (base[:, 2] + o[2])
 
 
-def submanifold_table(coords: np.ndarray) -> np.ndarray:
+def submanifold_table_plain(coords: np.ndarray) -> np.ndarray:
     """(M, 3) voxel coords -> (M, 27) stride-1 neighbor table (INVALID = M)."""
     m = len(coords)
     keys = pack_keys(coords)
@@ -86,7 +92,7 @@ def submanifold_table(coords: np.ndarray) -> np.ndarray:
     return out
 
 
-def downsample_level(coords: np.ndarray):
+def downsample_level_plain(coords: np.ndarray):
     """Stride-2 kernel-2 conv: coarse coords (M2, 3) and down table (M2, 8).
 
     ``down[p, k]`` is the fine voxel at ``2p + k`` or INVALID (= M_fine).
@@ -104,8 +110,8 @@ def downsample_level(coords: np.ndarray):
     return coarse_coords, down
 
 
-def upsample_table(fine_coords: np.ndarray,
-                   coarse_coords: np.ndarray) -> np.ndarray:
+def upsample_table_plain(fine_coords: np.ndarray,
+                         coarse_coords: np.ndarray) -> np.ndarray:
     """(M_fine, 8) transposed-conv table: one valid parent per row, at the
     child's offset ``f mod 2``; INVALID = M_coarse elsewhere."""
     mc = len(coarse_coords)
@@ -122,6 +128,14 @@ def upsample_table(fine_coords: np.ndarray,
     up = np.full((len(fine_coords), 8), mc, dtype=np.int32)
     up[np.arange(len(fine_coords)), off_id] = parent
     return up
+
+
+# the main path: the C++ host library, same signatures and outputs as the
+# plain versions above
+voxelize = native.voxelize
+submanifold_table = native.submanifold_table
+downsample_level = native.downsample_level
+upsample_table = native.upsample_table
 
 
 @dataclass

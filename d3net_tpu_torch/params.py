@@ -87,6 +87,8 @@ def _leaf_modules(model: nn.Module):
     for name, mod in model.named_modules():
         spec = _LEAVES.get(type(mod))
         if spec is not None:
+            # a Dense without bias (the box head's) has no bias leaf
+            spec = [s for s in spec if getattr(mod, s[2]) is not None]
             yield (f"{name}." if name else ""), mod, spec
 
 

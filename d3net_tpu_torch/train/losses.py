@@ -4,14 +4,15 @@ Counterpart of ``d3net_tpu/train/losses.py``: semantic cross-entropy with
 an ignore label, the offset L1-norm and cosine-direction losses over
 instance points, and the proposal score BCE against piecewise-linear
 "segmented" IoU targets, where the proposal-vs-GT point-set IoU matrix is
-one fixed-shape segment count per batch. Key names are the JAX package's.
-The ``pred_bbox`` head's ``bbox_loss`` is not ported.
+one fixed-shape segment count per batch, and the ``pred_bbox`` head's
+VoteNet-style ``bbox_loss``. Key names are the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch.nn import functional as F
 
@@ -97,15 +98,105 @@ def score_loss(scores_logits, member_pt, instance_ids, point_mask,
     return (bce * w).sum() / w.sum().clamp(min=1.0), gt_iou
 
 
+def _huber(x, delta: float = 1.0):
+    ax = x.abs()
+    q = torch.minimum(ax, torch.full_like(ax, delta))
+    return 0.5 * q * q + delta * (ax - q)
+
+
+def _masked_ce(logits, labels, mask):
+    """Per-scene mean CE over the masked entries."""
+    nll = -F.log_softmax(logits, dim=-1).gather(
+        -1, labels.long()[..., None])[..., 0]
+    m = mask.to(logits.dtype)
+    return (nll * m).sum(-1) / m.sum(-1).clamp(min=1.0)
+
+
+def bbox_loss(out: Dict, batch: Dict,
+              mean_size_arr: Optional[np.ndarray] = None) -> Dict:
+    """VoteNet-style box loss of the ``pred_bbox`` head, fixed-shape: a
+    masked (B, P, I) chamfer between predicted centers of the occupied
+    slots and GT centers, then per-slot heading (one degenerate bin, label
+    0: ScanNet boxes are axis-aligned), size class (= the assigned GT's
+    semantic class), size residual (against ``mean_size_arr``, ones when
+    not given) and box-class terms.
+
+    ``bbox_loss = center + 0.1 heading_cls + heading_reg + 0.1 size_cls +
+    size_reg``; ``bbox_sem_cls_loss`` is reported beside it, not in it.
+    """
+    pc = out["pred_center"]                          # (B, P, 3)
+    pmask = out["cluster_mask_all"] > 0              # (B, P)
+    gtc = batch["center_label"]                      # (B, I, 3)
+    gts = batch["size_label"]                        # (B, I, 3)
+    gcls = batch["sem_cls_label"].long()             # (B, I)
+    gmask = batch["gt_box_mask"] > 0                 # (B, I)
+    ns = out["size_scores"].shape[-1]
+    if mean_size_arr is None:
+        mean_size = torch.ones((ns, 3), dtype=pc.dtype, device=pc.device)
+    else:
+        mean_size = torch.as_tensor(np.asarray(mean_size_arr), dtype=pc.dtype,
+                                    device=pc.device)
+
+    big = torch.tensor(1e9, dtype=pc.dtype, device=pc.device)
+    d = ((pc[:, :, None, :] - gtc[:, None, :, :]) ** 2).sum(-1)   # (B,P,I)
+    d_gt = torch.where(gmask[:, None, :], d, big)
+    d1 = d_gt.amin(-1)                               # (B, P) pred -> gt
+    assign = d_gt.argmin(-1)                         # (B, P), first on ties
+    d2 = torch.where(pmask[:, :, None], d, big).amin(1)   # (B, I) gt -> pred
+    pn = pmask.sum(-1).to(pc.dtype).clamp(min=1e-6)
+    gn = gmask.sum(-1).to(pc.dtype).clamp(min=1e-6)
+    ok1 = pmask & gmask.any(-1)[:, None]
+    ok2 = gmask & pmask.any(-1)[:, None]
+    zero = torch.zeros((), dtype=pc.dtype, device=pc.device)
+    center_per = (torch.where(ok1, d1, zero).sum(-1) / pn
+                  + torch.where(ok2, d2, zero).sum(-1) / gn)
+
+    cls_at = gcls.gather(1, assign)                  # (B, P)
+    valid_p = ok1   # a slot is supervised only where its scene has a GT
+
+    h_cls_per = _masked_ce(out["heading_scores"], torch.zeros_like(assign),
+                           valid_p)
+    h_reg_per = torch.where(
+        valid_p, _huber(out["heading_residuals_normalized"][..., 0]),
+        zero).sum(-1) / pn
+
+    s_cls_per = _masked_ce(out["size_scores"], cls_at, valid_p)
+    srn = out["size_residuals_normalized"]           # (B, P, ns, 3)
+    pred_res = srn.gather(
+        2, cls_at[:, :, None, None].expand(-1, -1, 1, 3))[:, :, 0, :]
+    mean_at = mean_size[cls_at]                      # (B, P, 3)
+    gt_size_at = gts.gather(1, assign[:, :, None].expand(-1, -1, 3))
+    res_label = (gt_size_at - mean_at) / mean_at.clamp(min=1e-6)
+    s_reg_per = torch.where(
+        valid_p, _huber(pred_res - res_label).mean(-1), zero).sum(-1) / pn
+
+    sem_per = _masked_ce(out["sem_cls_scores"], cls_at, valid_p)
+
+    losses = {
+        "center_loss": center_per.mean(),
+        "heading_cls_loss": h_cls_per.mean(),
+        "heading_reg_loss": h_reg_per.mean(),
+        "size_cls_loss": s_cls_per.mean(),
+        "size_reg_loss": s_reg_per.mean(),
+        "bbox_sem_cls_loss": sem_per.mean(),
+    }
+    losses["bbox_loss"] = (
+        losses["center_loss"] + 0.1 * losses["heading_cls_loss"]
+        + losses["heading_reg_loss"] + 0.1 * losses["size_cls_loss"]
+        + losses["size_reg_loss"])
+    return losses
+
+
 def detector_loss(out: Dict, batch: Dict, *,
                   loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
                   fg_thresh: float = 0.75, bg_thresh: float = 0.25,
-                  ignore_label: int = -1, with_score: bool = True) -> Dict:
+                  ignore_label: int = -1, with_score: bool = True,
+                  mean_size_arr: Optional[np.ndarray] = None) -> Dict:
     """The detector loss dict: ``semantic_loss``, ``offset_norm_loss``,
     ``offset_dir_loss``, with ``with_score`` also ``score_loss`` and
-    ``gt_iou_mean``, and the weighted ``total_loss``."""
-    if "pred_center" in out:
-        raise NotImplementedError("bbox_loss (pred_bbox head) is not ported")
+    ``gt_iou_mean``, with the ``pred_bbox`` head's outputs the
+    ``bbox_loss`` terms (weight ``loss_weight[4]``, 1 when absent), and the
+    weighted ``total_loss``."""
     losses: Dict[str, torch.Tensor] = {}
     losses["semantic_loss"] = cross_entropy_ignore(
         out["semantic_scores"], batch["sem_labels"], ignore_label,
@@ -128,5 +219,10 @@ def detector_loss(out: Dict, batch: Dict, *,
         losses["gt_iou_mean"] = (gt_iou * cmask).sum() / cmask.sum().clamp(
             min=1.0)
         total = total + loss_weight[3] * s_loss
+    if "pred_center" in out:
+        bb = bbox_loss(out, batch, mean_size_arr=mean_size_arr)
+        losses.update(bb)
+        w_bb = loss_weight[4] if len(loss_weight) > 4 else 1.0
+        total = total + w_bb * bb["bbox_loss"]
     losses["total_loss"] = total
     return losses

@@ -3,14 +3,17 @@ plain version (the two ring kernels at their run edges too, and
 ``prefetch_window_gather``'s on every bases pattern of
 ``probe.prefetch_patterns``), the launch path on PyTorch's current stream
 for every kernel, the detector on cuda
-against the detector on cpu, and the sparse conv's backward on cuda
-against the same on cpu.
+against the detector on cpu, the sparse conv's backward on cuda
+against the same on cpu, and the run loop on cuda against the run loop on
+cpu, with a checkpoint round trip on the card.
 
 This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
 (``--noconftest`` skips the JAX setup of tests/conftest.py). Without a
 card every test skips.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from d3net_tpu_torch.kernels import gather, probe
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.ops.sparse_conv import sparse_conv_t
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2), clusters_per_pass=16,
            max_num_proposal=8, cluster_npoint_thre=30, test_npoint_thresh=30,
            test_score_thresh=0.0, cluster_ring=1, cluster_cell_size=0.03,
@@ -276,3 +280,70 @@ def test_sparse_conv_backward_cuda_matches_cpu(card, dtype):
         scale = float(want.abs().max())
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=tol,
                                    atol=tol * scale)
+
+
+def _tiny_run_cfg(root):
+    from d3net_tpu_torch import config
+
+    cfg = config.load(os.path.join(ROOT, "conf", "debug",
+                                   "tiny_pointgroup.yaml"))
+    cfg.general.output_root = str(root)
+    cfg.cluster.prepare_epochs = 10        # no clustering: no random draw
+    cfg.train.optim.classname = "SGD"      # see tests/test_torch_loop.py
+    return cfg
+
+
+@pytest.mark.cuda
+def test_run_loop_cuda_matches_cpu(card, tmp_path):
+    """Two steps and a validation of the run loop on cuda against the same
+    on cpu: train and val losses within the step tolerance (rtol 1e-4),
+    and every step launches ``gather_rows`` on cuda."""
+    import json
+
+    from d3net_tpu_torch.train.loop import run_detector_training
+
+    recs, launches = {}, []
+    for dev in ("cpu", "cuda"):
+        run = str(tmp_path / dev)
+        before = gather.gather_rows.launches
+        run_detector_training(
+            _tiny_run_cfg(tmp_path), run, max_steps=2, device=dev,
+            on_step=lambda r: launches.append(gather.gather_rows.launches))
+        if dev == "cpu":
+            assert gather.gather_rows.launches == before
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            recs[dev] = [json.loads(line) for line in f if line.strip()]
+    assert len(launches) == 4 and launches[2] > 0 and launches[3] > launches[2]
+    for c, g in zip(recs["cpu"], recs["cuda"]):
+        assert set(c) == set(g) and c["step"] == g["step"]
+        for k, v in c.items():
+            if k.endswith(("_loss", "grad_norm")):
+                np.testing.assert_allclose(g[k], v, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_cuda_is_bit_exact(card, tmp_path):
+    """A cuda train state saved by ``Checkpointer`` and restored into a
+    fresh cuda state equals it bit for bit, on the card."""
+    from d3net_tpu_torch.train.loop import (
+        Checkpointer, detector_from_cfg, init_detector,
+        run_detector_training,
+    )
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    cfg = _tiny_run_cfg(tmp_path)
+    cfg.train.optim.classname = "AdamW"    # moments and step counts
+    state = run_detector_training(cfg, str(tmp_path / "r"), max_steps=2)
+    fresh = create_train_state(init_detector(detector_from_cfg(cfg), 1).cuda(),
+                               optim="AdamW")
+    assert Checkpointer(str(tmp_path / "r"), "total_loss").restore_last(
+        fresh) is fresh and fresh.step == state.step == 2
+    for (k, a), b in zip(state.model.state_dict().items(),
+                         fresh.model.state_dict().values()):
+        assert a.is_cuda and b.is_cuda and torch.equal(a, b), k
+    want, got = state.optimizer.state_dict(), fresh.optimizer.state_dict()
+    assert want["state"] and want["param_groups"] == got["param_groups"]
+    for i, s in want["state"].items():
+        for k, v in s.items():
+            g = got["state"][i][k]
+            assert g.device == v.device and torch.equal(v, g), (i, k)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of d3net_tpu_torch, nor chip_smoke.py,
 imports JAX, Flax, optax, the JAX package or the repo's scripts (the probe
-keeps its own copy of what it needs from scripts/pallas_probe.py); entry
+keeps its own copy of what it needs from scripts/pallas_probe.py), nor
+PyYAML, orbax, TensorFlow or h5py, which the card's machine lacks; entry
 points refuse to fall back to the CPU quietly."""
 
 import os
@@ -24,7 +25,8 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "d3net_tpu", "scripts", "pallas_probe"))
+                                    "d3net_tpu", "scripts", "pallas_probe",
+                                    "yaml", "orbax", "tensorflow", "h5py"))
 print(json.dumps({{"modules": names, "bad": bad}}))
 """
 
@@ -47,7 +49,12 @@ def test_port_imports_no_jax_flax_or_reference():
                 "d3net_tpu_torch.kernels.gather", "d3net_tpu_torch.params",
                 "d3net_tpu_torch.kernels.probe", "d3net_tpu_torch.probe",
                 "d3net_tpu_torch.train.losses",
-                "d3net_tpu_torch.train.trainer"):
+                "d3net_tpu_torch.train.trainer", "d3net_tpu_torch.train.loop",
+                "d3net_tpu_torch.config", "d3net_tpu_torch.ops.native",
+                "d3net_tpu_torch.data.dataset",
+                "d3net_tpu_torch.eval.detection",
+                "d3net_tpu_torch.scripts.train",
+                "d3net_tpu_torch.scripts.eval"):
         assert mod in res["modules"]
     assert os.path.exists(os.path.join(ROOT, "d3net_tpu_torch", "train",
                                        "__init__.py"))
