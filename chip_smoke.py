@@ -75,16 +75,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 12. run     — ``run_detector_training`` on conf/pointgroup.yaml at its
               published widths (m 16, 7 levels, caps 131072..2048, 250000
               points, 128 instances, B=4, 134 input channels, 8 collate
-              workers, elastic on, bf16) in a temporary run dir, cut as its
-              ``reduced`` list says; per step the wall time with the host,
-              the time blocked on the batch iterator, the host-to-device
-              copy and the ``gather_rows`` launches (each must equal the
-              ``train`` phase's), peak memory, finite losses and the
-              ``metrics.jsonl`` keys. Then a fresh state restored from the
-              run dir must equal the run's final state bit for bit
-              (parameters, BN statistics, optimizer, scheduler, step), and
-              a second call with a larger ``max_steps`` resumes there and
-              trains on (line ``resume``).
+              workers, elastic on, bf16; 64 + 8 scenes) in a temporary run
+              dir for one epoch of 16 steps, the loop waiting for the card
+              around each part of a step; per step the wall time with the
+              host, the time blocked on the batch iterator, the
+              host-to-device copy, the step, the ``gather_rows`` launches
+              (each must equal the ``train`` phase's) and how many batch
+              builds ran on average during its copy and its step (the
+              steps with a build against those without), peak memory,
+              finite losses and the ``metrics.jsonl`` keys. Then a fresh
+              state restored from the run dir must equal the run's final
+              state bit for bit (parameters, BN statistics, optimizer,
+              scheduler, step), and a second call with a larger
+              ``max_steps`` resumes there and trains one more epoch as
+              users run it, with no waits for the card and the config's
+              log cadence: its wall time per step over steps 2..15 of that
+              epoch taken as one window (line ``resume``).
 13. eval    — ``python -m d3net_tpu_torch.scripts.eval --task detection``
               on that run dir (in-process): ``eval_detection.json`` with
               finite mAP and AR at IoU 0.25 and 0.5, stamped with its
@@ -123,6 +129,7 @@ from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
 from d3net_tpu_torch.data import collate
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
+from d3net_tpu_torch.data.dataset import BatchIterator
 from d3net_tpu_torch.data.synthetic import make_scene
 from d3net_tpu_torch.kernels import gather, probe
 from d3net_tpu_torch.models.blocks import SubmConv, fold_tables
@@ -152,8 +159,10 @@ TRAIN_WARMUP, TRAIN_REPS = 2, 5
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_CONFIG = os.path.join(ROOT, "conf", "pointgroup.yaml")
-RUN_TRAIN_SCENES, RUN_VAL_SCENES = 24, 2     # of the config's 64 (+8 val)
-RUN_STEPS, RUN_RESUME_STEPS = 6, 3
+RUN_STEPS = 16          # one epoch: the config's 64 train scenes at B=4
+RUN_RESUME_STEPS = 16   # one more epoch after the resume
+COLLATE_BUSY = 0.5      # batch builds in flight, on average, that make a
+                        # step one "with collate"
 
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
@@ -939,14 +948,37 @@ def phase_host_lib():
 
 
 def run_config(root):
-    """conf/pointgroup.yaml (over conf/path.yaml) as the ``run`` phase cuts
-    it: fewer synthetic scenes, a log line every step, into ``root``."""
+    """conf/pointgroup.yaml (over conf/path.yaml) into ``root``."""
     cfg = load_task_config(RUN_CONFIG)
     cfg.general.output_root = root
-    cfg.data.synthetic.num_scenes = RUN_TRAIN_SCENES
-    cfg.data.synthetic.num_val_scenes = RUN_VAL_SCENES
-    cfg.train.log_every_n_steps = 1
     return cfg
+
+
+@contextlib.contextmanager
+def build_spans():
+    """Every batch build of ``BatchIterator`` (train and val) while open,
+    as (start, end) on the host's clock."""
+    spans = []
+    build = BatchIterator._build_one
+
+    def timed(self, order, b):
+        t0 = time.perf_counter()
+        try:
+            return build(self, order, b)
+        finally:
+            spans.append((t0, time.perf_counter()))
+
+    BatchIterator._build_one = timed
+    try:
+        yield spans
+    finally:
+        BatchIterator._build_one = build
+
+
+def builds_during(spans, t0, t1):
+    """How many batch builds ran on average over [t0, t1]."""
+    busy = sum(max(0.0, min(e, t1) - max(s, t0)) for s, e in spans)
+    return busy / (t1 - t0) if t1 > t0 else 0.0
 
 
 def _metrics(run_dir):
@@ -994,9 +1026,10 @@ def _first_difference(got, want, where=""):
     return None if got == want else where
 
 
-def _train_run(cfg, run_dir, max_steps):
+def _train_run(cfg, run_dir, max_steps, sync_steps=True):
     """``run_detector_training`` with every step's timings and
-    ``gather_rows`` launches recorded; returns (state, steps, launches)."""
+    ``gather_rows`` launches recorded; returns (state, steps, launches,
+    batch build spans)."""
     steps = []
     seen = [0]
 
@@ -1005,26 +1038,57 @@ def _train_run(cfg, run_dir, max_steps):
         seen[0] = gather.gather_rows.launches
         steps.append(rec)
 
-    gather.gather_rows.launches = 0      # the main path, counted from here
-    state = run_detector_training(cfg, run_dir, max_steps=max_steps,
-                                  on_step=on_step)
-    torch.cuda.synchronize()
-    return state, steps, gather.gather_rows.launches
+    with build_spans() as spans:
+        gather.gather_rows.launches = 0      # the main path, counted from here
+        state = run_detector_training(cfg, run_dir, max_steps=max_steps,
+                                      on_step=on_step, sync_steps=sync_steps)
+        torch.cuda.synchronize()
+    return state, steps, gather.gather_rows.launches, spans
 
 
 def _median(recs, key, scale=1e3):
     return statistics.median(r[key] for r in recs) * scale
 
 
+def _by_collate(recs, keys):
+    """Records split by whether batch builds ran during them (``builds``
+    at least COLLATE_BUSY on average) or not: each part's steps and the
+    median of each key, in ms."""
+    out = {}
+    for name, part in (
+            ("with_collate", [r for r in recs if r["builds"] >= COLLATE_BUSY]),
+            ("without_collate", [r for r in recs if r["builds"] < COLLATE_BUSY])):
+        out[name] = {"steps": [r["step"] for r in part],
+                     **{k[:-2] + "_ms": _median(part, k) for k in keys
+                        if part}}
+    return out
+
+
+def _check_launches(where, steps, launches, per_step, val_launches):
+    per = [r["gather_launches"] for r in steps]
+    if any(n != per_step for n in per) or launches != sum(per) + val_launches:
+        raise AssertionError(
+            f"{where}: gather_rows launches per step {per} (train phase: "
+            f"{per_step}), {launches} in all")
+    return per[0]
+
+
 def phase_run(root, per_step, per_forward, train_step_ms):
-    """The detector's run loop on conf/pointgroup.yaml, then the resume."""
+    """The detector's run loop on conf/pointgroup.yaml for one epoch, the
+    loop waiting for the card around each part of a step; then the resume
+    and one more epoch with no such waits."""
     cfg = run_config(root)
-    published = load_task_config(RUN_CONFIG).data.synthetic
+    log_every = cfg.train.log_every_n_steps
+    cfg.train.log_every_n_steps = 1
+    syn = cfg.data.synthetic
+    # the loop's default: an eighth of the train scenes, at least 2
+    val_scenes = max(2, syn.num_scenes // 8)
+    val_batches = -(-val_scenes // cfg.data.batch_size)
     run_dir = os.path.join(root, cfg.general.experiment)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    state, steps, launches = _train_run(cfg, run_dir, RUN_STEPS)
+    state, steps, launches, spans = _train_run(cfg, run_dir, RUN_STEPS)
     run_s = time.time() - t0
     peak = torch.cuda.max_memory_allocated()
     recs = _metrics(run_dir)
@@ -1032,19 +1096,20 @@ def phase_run(root, per_step, per_forward, train_step_ms):
     val = [r for r in recs if "val/total_loss" in r]
     bad = [(r["step"], k) for r in recs for k, v in r.items()
            if not math.isfinite(v)]
-    val_batches = -(-RUN_VAL_SCENES // cfg.data.batch_size)
-    per = [r["gather_launches"] for r in steps]
     if len(steps) != RUN_STEPS or [r["step"] for r in train] != list(
             range(1, RUN_STEPS + 1)) or len(val) != 1:
         raise AssertionError(f"run: {len(steps)} steps, metrics steps "
                              f"{[r['step'] for r in recs]}")
     if bad:
         raise AssertionError(f"run: non-finite metrics {bad}")
-    if any(n != per_step for n in per) or launches != (
-            sum(per) + val_batches * per_forward):
-        raise AssertionError(
-            f"run: gather_rows launches per step {per} (train phase: "
-            f"{per_step}), {launches} in all")
+    run_per_step = _check_launches("run", steps, launches, per_step,
+                                   val_batches * per_forward)
+    for r in steps:
+        t_copy = r["t_start"] + r["data_wait_s"]
+        t_step = t_copy + r["h2d_s"]
+        r["builds_in_copy"] = builds_during(spans, t_copy, t_step)
+        r["builds"] = builds_during(spans, t_step, t_step + r["step_s"])
+    timed = ("wall_s", "data_wait_s", "h2d_s", "step_s")
     emit({"phase": "run", "config": "conf/pointgroup.yaml",
           "widths": {"m": cfg.model.m, "levels": len(cfg.model.blocks),
                      "voxel_caps": list(cfg.tpu.voxel_caps),
@@ -1055,14 +1120,13 @@ def phase_run(root, per_step, per_forward, train_step_ms):
                      "num_workers": cfg.data.get("num_workers"),
                      "elastic": cfg.data.get("elastic"),
                      "activation_dtype": cfg.tpu.get("activation_dtype")},
-          "reduced": [f"{RUN_TRAIN_SCENES} train + {RUN_VAL_SCENES} val "
-                      f"synthetic scenes instead of {published.num_scenes}"
-                      f" + {max(2, published.num_scenes // 8)}",
-                      f"one epoch cut by max_steps {RUN_STEPS} (of "
-                      f"{cfg.train.epochs} epochs), then a resume to "
-                      f"{RUN_STEPS + RUN_RESUME_STEPS}",
-                      f"log_every_n_steps 1 (the config's "
-                      f"{load_task_config(RUN_CONFIG).train.log_every_n_steps})"],
+          "scenes": {"train": syn.num_scenes, "val": val_scenes},
+          "reduced": [f"one epoch of {RUN_STEPS} steps (max_steps "
+                      f"{RUN_STEPS}) of the config's {cfg.train.epochs}, "
+                      f"then a resume for {RUN_RESUME_STEPS} more",
+                      f"log_every_n_steps 1 in the first epoch (the "
+                      f"config's {log_every} after the resume)"],
+          "timing": "the loop waits for the card around each part of a step",
           "run_step_ms": _median(steps, "wall_s"),
           "data_wait_ms": _median(steps, "data_wait_s"),
           "h2d_ms": _median(steps, "h2d_s"),
@@ -1071,9 +1135,13 @@ def phase_run(root, per_step, per_forward, train_step_ms):
                                             for r in steps) / 1e9,
           "step_ms": _median(steps, "step_s"),
           "train_phase_step_ms": train_step_ms,
+          # steps 2.. with a batch build running during the step, or not
+          "later_steps": _by_collate(steps[1:], timed),
           "steps": [{(k[:-2] + "_ms" if k.endswith("_s") else k):
-                     (round(v * 1e3, 3) if k.endswith("_s") else v)
-                     for k, v in r.items()} for r in steps],
+                     (round(v * 1e3, 3) if k.endswith("_s")
+                      else round(v, 3) if isinstance(v, float) else v)
+                     for k, v in r.items() if k != "t_start"}
+                    for r in steps],
           "max_memory_allocated": peak, "run_s": round(run_s, 3),
           "gather_launches": launches, "gather_launches_per_step": per_step,
           "val_batches": val_batches, "losses_finite": True,
@@ -1098,20 +1166,48 @@ def phase_run(root, per_step, per_forward, train_step_ms):
     if diff is not None:
         raise AssertionError(f"resume: restored state differs at {diff}")
     del fresh
-    state, steps2, _ = _train_run(cfg, run_dir, RUN_STEPS + RUN_RESUME_STEPS)
+
+    # one more epoch as users run it: no waits for the card, the config's
+    # log cadence
+    cfg.train.log_every_n_steps = log_every
+    state, steps2, launches2, spans2 = _train_run(
+        cfg, run_dir, RUN_STEPS + RUN_RESUME_STEPS, sync_steps=False)
     resumed = [r["step"] for r in steps2]
     train2 = [r["step"] for r in _metrics(run_dir) if "train/total_loss" in r]
     want = list(range(RUN_STEPS + 1, RUN_STEPS + RUN_RESUME_STEPS + 1))
-    if resumed != want or train2 != list(range(1, RUN_STEPS + 1)) + want:
+    if resumed != want or train2 != list(range(1, RUN_STEPS + 1)) + [
+            s for s in want if s % log_every == 0]:
         raise AssertionError(f"resume: stepped {resumed}, metrics {train2}")
+    _check_launches("resume", steps2, launches2, per_step,
+                    val_batches * per_forward)
+    # steps 2..N-1 of the epoch: each from asking for its batch to asking
+    # for the next (a pageable copy waits for the card's earlier work)
+    starts = [r["t_start"] for r in steps2]
+    window = [{"step": r["step"], "wall_s": b - a,
+               "data_wait_s": r["data_wait_s"],
+               "builds": builds_during(spans2, a, b)}
+              for r, a, b in zip(steps2[1:-1], starts[1:-1], starts[2:])]
     emit({"phase": "resume", "restored_step": saved["step"],
           "restored_bit_exact": ["model", "optimizer", "scheduler", "step"],
           "tensors_compared": sum(1 for _ in _tensors(saved)),
           "resumed_steps": resumed, "final_step": state.step,
+          "timing": "no waits for the card; log_every_n_steps "
+                    f"{log_every}",
+          "window_steps": [window[0]["step"], window[-1]["step"]],
+          "run_window_ms_per_step":
+              (starts[-1] - starts[1]) / len(window) * 1e3,
+          "window_steps_by_collate": _by_collate(
+              window, ("wall_s", "data_wait_s")),
+          "window": [{"step": r["step"],
+                      "wall_ms": round(r["wall_s"] * 1e3, 3),
+                      "data_wait_ms": round(r["data_wait_s"] * 1e3, 3),
+                      "builds": round(r["builds"], 3)} for r in window],
+          "first_step_data_wait_ms": steps2[0]["data_wait_s"] * 1e3,
+          "gather_launches": launches2,
           "checkpoints": sorted(os.listdir(os.path.join(run_dir, "ckpt")))})
     del state
     torch.cuda.empty_cache()
-    return run_dir, val_batches
+    return run_dir, val_batches, run_per_step
 
 
 def _tensors(tree):
@@ -1181,10 +1277,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_host_lib()
     with tempfile.TemporaryDirectory(prefix="d3net_run_") as root:
-        run_dir, val_batches = phase_run(root, train["train_launches"],
-                                         launches, train["step_ms"])
+        run_dir, val_batches, run_per_step = phase_run(
+            root, train["train_launches"], launches, train["step_ms"])
         phase_eval(run_dir, val_batches, launches)
-    kernels[0]["run_launches_per_step"] = train["train_launches"]
+    kernels[0]["run_launches_per_step"] = run_per_step
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

@@ -4,16 +4,18 @@ attribute access and round-trip save.
 Counterpart of ``d3net_tpu/config.py`` (``Config``, ``load``, ``merge``,
 ``save``) with its own YAML reader and writer, so the port needs no
 PyYAML. The reader covers the subset that ``conf/**/*.yaml`` uses and
-resolves plain scalars as ``yaml.safe_load`` does (YAML 1.1: ``True``,
-``null``, ``5.0e-5`` is a float and ``1e-5`` a string):
+resolves its plain scalars as ``yaml.safe_load`` does (YAML 1.1: ``True``,
+``null``, decimal ints, ``5.0e-5`` is a float and ``1e-5`` a string):
 
 - block mappings and block sequences (items indented under their key or
   level with it), a sequence item holding a mapping;
 - flow mappings and sequences on one line (``{a: 1, b: [2, 3]}``);
 - plain, single- and double-quoted scalars; comments; empty values.
 
-Anchors, aliases, tags, block scalars (``|``, ``>``) and multi-line flow
-collections raise ``ValueError``; a date stays a string. The writer emits block style in the key
+Anchors, aliases, tags, block scalars (``|``, ``>``), multi-line flow
+collections and the scalar forms conf/ does not use (``yes``/``no``/``on``/
+``off``, octal, hex and binary ints, ``.inf``, ``.nan``) raise
+``ValueError``; a date stays a string. The writer emits block style in the key
 order given, and its output reads back equal through both readers.
 """
 
@@ -129,43 +131,31 @@ def save(cfg: Config, path: str) -> None:
 # ---------------------------------------------------------------------------
 # YAML reader (the subset above)
 
-# PyYAML's implicit resolvers for plain scalars (YAML 1.1), decimal forms
-_BOOL = {"yes": True, "no": False, "true": True, "false": False,
-         "on": True, "off": False}
-_BOOL_FORMS = {f for w in _BOOL for f in (w, w.capitalize(), w.upper())}
+# PyYAML's implicit resolvers (YAML 1.1) for the plain scalars conf/ uses:
+# true/false, null, decimal ints and floats; its other forms raise
+_BOOL = {f: w == "true" for w in ("true", "false")
+         for f in (w, w.capitalize(), w.upper())}
 _NULL = {"", "~", "null", "Null", "NULL"}
 _INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
-_INT_BASE = ((re.compile(r"([-+]?)0b([0-1_]+)"), 2),
-             (re.compile(r"([-+]?)0x([0-9a-fA-F_]+)"), 16),
-             (re.compile(r"([-+]?)0([0-7_]+)"), 8))
 _FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
                     r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?")
-_INF = re.compile(r"([-+]?)\.(?:inf|Inf|INF)")
-_NAN = re.compile(r"\.(?:nan|NaN|NAN)")
-_UNSUPPORTED = ("&", "*", "!", "|", ">", "%", "@", "`")
+_OTHER = re.compile(r"yes|Yes|YES|no|No|NO|on|On|ON|off|Off|OFF"
+                    r"|[-+]?0[0-9bx_].*|[-+]?\.(?:inf|Inf|INF|nan|NaN|NAN)"
+                    r"|[&*!|>%@`].*")
 
 
 def _plain(text: str):
     """A plain scalar as ``yaml.safe_load`` resolves it."""
     if text in _NULL:
         return None
-    if text in _BOOL_FORMS:
-        return _BOOL[text.lower()]
+    if text in _BOOL:
+        return _BOOL[text]
     if _INT.fullmatch(text):
         return int(text.replace("_", ""))
-    for pattern, base in _INT_BASE:
-        m = pattern.fullmatch(text)
-        if m:
-            return int(m.group(1) + m.group(2).replace("_", ""), base)
     if _FLOAT.fullmatch(text):
         return float(text.replace("_", ""))
-    m = _INF.fullmatch(text)
-    if m:
-        return -math.inf if m.group(1) == "-" else math.inf
-    if _NAN.fullmatch(text):
-        return math.nan
-    if text[0] in _UNSUPPORTED:
-        raise ValueError(f"unsupported YAML construct: {text!r}")
+    if _OTHER.fullmatch(text):
+        raise ValueError(f"YAML form outside the supported subset: {text!r}")
     return text
 
 
@@ -394,7 +384,8 @@ def _sequence(lines, i: int, indent: int):
 
 
 # ---------------------------------------------------------------------------
-# YAML writer
+# YAML writer: block style (JSON is no substitute: it writes 5e-05, which
+# YAML 1.1 reads as a string)
 
 _SAFE_PLAIN = re.compile(r"[A-Za-z_/.$][A-Za-z0-9_./${}+-]*")
 
@@ -407,18 +398,18 @@ def _scalar(v) -> str:
     if isinstance(v, int):
         return str(v)
     if isinstance(v, float):
-        if math.isnan(v):
-            return ".nan"
-        if math.isinf(v):
-            return ".inf" if v > 0 else "-.inf"
+        if not math.isfinite(v):
+            raise ValueError(f"cannot write {v} in the supported YAML subset")
         r = repr(v)
         if "." not in r:          # 1e-05 reads as a string in YAML 1.1
             r = r.replace("e", ".0e") if "e" in r else r + ".0"
         return r
     if isinstance(v, str):
-        if _SAFE_PLAIN.fullmatch(v) and _plain(v) == v:
-            return v
-        return json.dumps(v, ensure_ascii=False)
+        try:
+            plain = bool(_SAFE_PLAIN.fullmatch(v)) and _plain(v) == v
+        except ValueError:          # a YAML 1.1 form the reader refuses
+            plain = False
+        return v if plain else json.dumps(v, ensure_ascii=False)
     raise TypeError(f"cannot write {type(v).__name__} as YAML: {v!r}")
 
 

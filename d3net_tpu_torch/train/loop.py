@@ -382,16 +382,20 @@ def run_detector_training(cfg: Config, run_dir: str,
                           max_steps: Optional[int] = None,
                           device: DeviceLike = None,
                           on_step: Optional[Callable[[Dict], None]] = None,
+                          sync_steps: bool = True,
                           ) -> TrainState:
     """Train the detector of ``cfg`` into ``run_dir``, resuming from its
     last checkpoint; returns the train state.
 
     Runs on CUDA unless ``device`` says otherwise. ``on_step``, if given,
-    is called after every train step with its timings (the loop then waits
-    for the device at the end of each step and around each copy):
-    ``data_wait_s`` blocked on the batch iterator, ``h2d_s`` copying the
-    batch to the device (``h2d_bytes``), ``step_s`` in the step,
-    ``wall_s`` all three.
+    is called after every train step with its timings on the host's clock:
+    ``t_start`` when the loop asked for the batch, ``data_wait_s`` blocked
+    on the batch iterator, ``h2d_s`` copying the batch to the device
+    (``h2d_bytes``), ``step_s`` in the step, ``wall_s`` all three. With
+    ``sync_steps`` the loop waits for the device around each copy and at
+    the end of each step, so each part's time includes its device work;
+    without, the steps run as they do without ``on_step`` and each time
+    ends when the host got past that part.
     """
     dev = resolve_device(device)
     os.makedirs(run_dir, exist_ok=True)
@@ -468,7 +472,7 @@ def run_detector_training(cfg: Config, run_dir: str,
                     variant_epochs[-1].append(batch)
             else:
                 batch = item
-            if on_step is not None:
+            if on_step is not None and sync_steps:
                 _sync(dev)
             t0 = time.perf_counter()
             state, metrics = detector_train_step(
@@ -476,9 +480,10 @@ def run_detector_training(cfg: Config, run_dir: str,
                 loss_weight=lw, do_clustering=not in_prepare)
             step += 1
             if on_step is not None:
-                _sync(dev)
+                if sync_steps:
+                    _sync(dev)
                 t1 = time.perf_counter()
-                on_step({"step": step, "epoch": epoch,
+                on_step({"step": step, "epoch": epoch, "t_start": t_wait,
                          "data_wait_s": t_copy - t_wait, "h2d_s": t0 - t_copy,
                          "h2d_bytes": h2d_bytes, "step_s": t1 - t0,
                          "wall_s": t1 - t_wait})

@@ -40,6 +40,17 @@ LOSS_KEYS = ("center_loss", "heading_cls_loss", "heading_reg_loss",
              "size_cls_loss", "size_reg_loss", "bbox_sem_cls_loss",
              "bbox_loss")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores, and
+    torch's thread pools, oversubscribed, slow these steps up to tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2), clusters_per_pass=16,
            max_num_proposal=8, cluster_npoint_thre=30, test_npoint_thresh=30,
            test_score_thresh=0.0, cluster_ring=1, cluster_cell_size=0.03,

@@ -26,6 +26,7 @@ TINY = "conf/debug/tiny_pointgroup.yaml"
 def _run(*args, gpu_hidden=False):
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
+    env["OMP_NUM_THREADS"] = "1"     # the test workers share the cores
     if gpu_hidden:
         env["CUDA_VISIBLE_DEVICES"] = ""
     return subprocess.run([sys.executable, "-m", *args], capture_output=True,

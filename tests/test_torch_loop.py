@@ -39,6 +39,16 @@ TINY = os.path.join(ROOT, "conf", "debug", "tiny_pointgroup.yaml")
 LOSS_RTOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores, and
+    torch's thread pools, oversubscribed, slow these steps up to tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _records(run_dir):
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f if line.strip()]
@@ -199,6 +209,24 @@ def test_cached_variants_cycle_and_prepare_epochs(tmp_path, monkeypatch):
                                     for r in train)
     assert ["train/score_loss" in r for r in train] == [False] * 4 + [True] * 8
     assert tloop.StepDir(str(tmp_path / "ckpt"), 3).all_steps() == [4, 8, 12]
+
+
+@pytest.mark.parametrize("sync_steps", [True, False])
+def test_on_step_timings(tmp_path, sync_steps):
+    """``on_step`` gets each train step's host-clock timings, with or
+    without the loop waiting for the device around each part."""
+    cfg = tcfg.load(TINY)
+    cfg.cluster.prepare_epochs = 10
+    recs = []
+    tloop.run_detector_training(cfg, str(tmp_path), max_steps=2, device="cpu",
+                                on_step=recs.append, sync_steps=sync_steps)
+    assert [r["step"] for r in recs] == [1, 2]
+    assert recs[0]["t_start"] + recs[0]["wall_s"] <= recs[1]["t_start"]
+    for r in recs:
+        assert r["h2d_bytes"] > 0 and min(
+            r["data_wait_s"], r["h2d_s"], r["step_s"]) >= 0
+        assert r["wall_s"] == pytest.approx(
+            r["data_wait_s"] + r["h2d_s"] + r["step_s"])
 
 
 # ---------------------------------------------------------------------------
