@@ -95,13 +95,51 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               on that run dir (in-process): ``eval_detection.json`` with
               finite mAP and AR at IoU 0.25 and 0.5, stamped with its
               checkpoint, and its ``gather_rows`` launches.
+14. caption_parity — the speaker at conf/debug/tiny_captioning.yaml's
+              widths (orientation on, random weights with nonzero biases)
+              on seeded fake proposals, on ``cuda`` against ``cpu`` inside
+              ``device.parity_precision()``: ``adjacent_mat``,
+              ``local_ids``, ``local_mask`` equal; ``bbox_feature``,
+              ``edge_feature``, ``edge_orientations`` within rtol 1e-4 /
+              atol 1e-5; the greedy ids equal; each device's logits,
+              teacher-forced on the cpu's ids, within the same tolerance;
+              for a row whose ids differ, the cpu's top-2 logit margin at
+              its first difference (``checks.speaker_cuda_vs_cpu``, which
+              the card test of the speaker also runs).
+15. caption — the mode-1 eval forward (``run_detector`` then
+              ``run_speaker(mode="eval")``) of a B=4 batch of
+              conf/pointgroup_captioning.yaml's own val scenes at its
+              widths (f32, 128 proposals, 512 decoded rows of 31 steps),
+              at PyTorch's default settings, with the ``run`` phase's
+              detector and a seeded random speaker: ``caption_fwd_ms``
+              (median of 5 after 2 warm-up, CUDA events) split into
+              ``detector_ms`` and ``speaker_ms``, ``graph_ms`` and
+              ``decode_ms`` timed alone, the decode run once under CUDA's
+              sync debug mode "error" (no host sync in its loop), peak
+              memory, the ``gather_rows`` launches of one batch (75), each
+              of those gathers (f32 rows at this config, and one of int32
+              pairs) held bit-exact against
+              ``gather_rows_plain`` on its own tensors as it runs, with the
+              largest error and the rows by dtype and width, and
+              two profiles (the forward:
+              busy, idle, top ops, launches; the decode: launches a step).
+16. caption_eval — ``python -m d3net_tpu_torch.scripts.eval --task
+              captioning`` (in-process) on a run dir the phase writes: the
+              config above, one checkpoint of a ``PipelineNet`` whose
+              detector is the ``run`` phase's and whose speaker is seeded
+              random; one val batch of 4 scenes (``D3NET_VAL_SCENES``).
+              Finite BLEU-4, CIDEr, ROUGE-L and METEOR (0.0: the card's
+              machine has no nltk), a best or last checkpoint, and 75
+              ``gather_rows`` launches per val batch.
 
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
 version's and the library call's time (``library_ms``,
 ``library_device_ms``) and the bound; the two rings add the bytes their
 blocks move (``moved_bytes``), and ``gather_rows`` its launches per step
-of the ``run`` phase. The last two lines are
+of the ``run`` phase and per batch of the ``caption`` phase (its
+``max_abs_err`` covers the caption forward's gathers too). The last two
+lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, the script exits non-zero
 and prints no result. It imports nothing of JAX or of the JAX package.
@@ -126,6 +164,8 @@ import torch.nn.functional as F
 
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
+from d3net_tpu_torch.checks import speaker_cuda_vs_cpu
+from d3net_tpu_torch.config import save as save_cfg
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
 from d3net_tpu_torch.data import collate
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
@@ -138,16 +178,19 @@ from d3net_tpu_torch.ops import native, segment, sparse_conv
 from d3net_tpu_torch.ops import voxelize as vox
 from d3net_tpu_torch.params import (
     flagship_config, flatten, init_flax_variables, load_detector,
-    state_dict_to_flax,
+    load_pipeline, state_dict_to_flax,
 )
 from d3net_tpu_torch.scripts import eval as eval_cli
 from d3net_tpu_torch.scripts.train import load_task_config
+from d3net_tpu_torch.train import pipeline
 from d3net_tpu_torch.train.loop import (
-    Checkpointer, detector_from_cfg, init_detector, run_detector_training,
+    Checkpointer, detector_from_cfg, init_detector, make_val_loader,
+    run_detector_training, spec_from_cfg,
 )
 from d3net_tpu_torch.train.trainer import (
     create_train_state, detector_train_step,
 )
+from d3net_tpu_torch.utils.bbox import box_corners
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
@@ -163,6 +206,10 @@ RUN_STEPS = 16          # one epoch: the config's 64 train scenes at B=4
 RUN_RESUME_STEPS = 16   # one more epoch after the resume
 COLLATE_BUSY = 0.5      # batch builds in flight, on average, that make a
                         # step one "with collate"
+CAPTION_CONFIG = os.path.join(ROOT, "conf", "pointgroup_captioning.yaml")
+TINY_CAPTION_CONFIG = os.path.join(ROOT, "conf", "debug",
+                                   "tiny_captioning.yaml")
+CAPTION_WARMUP, CAPTION_REPS = 2, 5
 
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
@@ -571,15 +618,19 @@ class GatherRecorder:
     real wrapper (and its launch count) still runs every call. It keeps
     each call's tensors for the kernel replay, or with ``check`` holds each
     call's output against the plain version on the same tensors as the
-    call happens (in the backward too) and keeps only a count and the bytes
-    the calls need (``probe.gather_bytes``: distinct source rows reached,
-    output, index)."""
+    call happens (in the backward too) and keeps only a count, the largest
+    error, the rows gathered by dtype and width, and the bytes the calls
+    need (``probe.gather_bytes``: distinct source rows reached, output,
+    index)."""
 
-    def __init__(self, real, check=False):
+    def __init__(self, real, check=False, where="the train step"):
         self.real = real
         self.check = check
+        self.where = where
         self.calls = []
         self.checked = 0
+        self.max_abs_err = 0.0
+        self.rows_by_dtype_width = {}
         self.bytes_needed = 0
 
     def gather_rows(self, src, idx):
@@ -589,12 +640,18 @@ class GatherRecorder:
             return out
         with torch.no_grad():
             want = self.real.gather_rows_plain(src.detach(), idx)
+            if out.numel():
+                self.max_abs_err = max(self.max_abs_err, float(
+                    (out.float() - want.float()).abs().max()))
         if not torch.equal(out, want):
             raise AssertionError(
-                f"gather {self.checked} of the train step ({src.dtype}, width "
+                f"gather {self.checked} of {self.where} ({src.dtype}, width "
                 f"{src.shape[1]}, {idx.numel()} rows): kernel disagrees with "
                 f"the plain version")
         self.checked += 1
+        key = f"{src.dtype}".replace("torch.", "") + f"x{src.shape[1]}"
+        self.rows_by_dtype_width[key] = (
+            self.rows_by_dtype_width.get(key, 0) + idx.numel())
         self.bytes_needed += probe_cli.gather_bytes(src, idx, 4 * idx.numel())
         return out
 
@@ -1242,6 +1299,237 @@ def phase_eval(run_dir, val_batches, per_forward):
           "seconds": round(time.time() - t0, 3)})
 
 
+# --------------------------------------------------------------------------
+def fake_proposals(rng, b, p, width):
+    """Seeded proposals: random boxes and features, 3 invalid slots a
+    scene (zeroed, as the detector leaves them)."""
+    centers = rng.uniform(0, 4, (b, p, 3)).astype(np.float32)
+    sizes = rng.uniform(0.2, 1.0, (b, p, 3)).astype(np.float32)
+    mask = np.ones((b, p), np.float32)
+    mask[:, -3:] = 0
+    feats = rng.normal(size=(b, p, width)).astype(np.float32)
+    return {"proposal_feats_batched": feats * mask[..., None],
+            "proposal_batch_mask": mask,
+            "proposal_bbox_batched": box_corners(centers, sizes)
+            * mask[..., None, None]}
+
+
+def phase_caption_parity():
+    """The speaker at the tiny captioning widths: cuda vs cpu."""
+    t0 = time.time()
+    cfg = load_task_config(TINY_CAPTION_CONFIG)
+    cfg.model.use_orientation = True
+    vocab, emb = pipeline.build_vocab(cfg)
+    variables = randomize(init_flax_variables(
+        pipeline.pipeline_from_cfg(cfg, vocab), seed=0),
+        np.random.default_rng(4))
+    data_np = fake_proposals(np.random.default_rng(5), 4,
+                             cfg.model.max_num_proposal,
+                             cfg.model.m * cfg.model.cluster_blocks[0])
+    data_np["glove_embeddings"] = emb
+    report = speaker_cuda_vs_cpu(variables, cfg, vocab, data_np,
+                                 rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    emit({"phase": "caption_parity", "config": "conf/debug/tiny_captioning"
+          ".yaml (use_orientation on), fake proposals", **report,
+          "seconds": round(time.time() - t0, 3)})
+    if not report["ok"]:
+        raise AssertionError(
+            f"speaker cuda vs cpu: integers {report['integers_equal']}, "
+            f"outside tolerance {report['outside_tolerance']}, "
+            f"{report['rows_differing']} rows of ids differ")
+
+
+def run_detector_weights(run_dir):
+    """The detector state_dict of the run dir's best checkpoint, else its
+    last."""
+    ck = Checkpointer(run_dir, "total_loss")
+    mgr = ck.best_mgr if ck.best_mgr.latest_step() is not None else ck.mgr
+    return mgr.restore(mgr.latest_step())["model"]
+
+
+def caption_model(cfg, vocab, det_weights):
+    """The config's pipeline on the card: ``det_weights`` in the detector,
+    a speaker of seeded random weights."""
+    model = load_pipeline(init_flax_variables(
+        pipeline.pipeline_from_cfg(cfg, vocab), seed=0), cfg, vocab)
+    model.detector.load_state_dict(det_weights)
+    return model
+
+
+def phase_caption(det_weights, per_forward):
+    """The mode-1 eval forward of a B=4 batch of the captioning config's
+    val scenes: times, peak, gather launches, profiles."""
+    t_phase = time.time()
+    cfg = load_task_config(CAPTION_CONFIG)
+    vocab, emb = pipeline.build_vocab(cfg)
+    spec = spec_from_cfg(cfg)
+    val_it = make_val_loader(cfg, spec)
+    t0 = time.time()
+    batch_np = build_batch([val_it.scenes[i]
+                            for i in range(cfg.data.batch_size)], spec)
+    collate_s = time.time() - t0
+    batch = batch_to_torch(batch_np, "cuda")
+    model = caption_model(cfg, vocab, det_weights)
+    speaker, emb_t = model.speaker, torch.from_numpy(emb).cuda()
+
+    def forward(marks=None):
+        det = model.run_detector(batch)
+        if marks:
+            marks[1].record()
+        return det, model.run_speaker({**det, "glove_embeddings": emb_t},
+                                      mode="eval")
+
+    with torch.no_grad():
+        for _ in range(CAPTION_WARMUP):
+            forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(CAPTION_REPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            det, out = forward(ev)
+            ev[2].record()
+            torch.cuda.synchronize()
+            runs.append((ev[0].elapsed_time(ev[2]), ev[0].elapsed_time(ev[1]),
+                         ev[1].elapsed_time(ev[2])))
+        peak = torch.cuda.max_memory_allocated()
+
+        # the main path, counted: counts set to 0 just before, read after;
+        # each gather's output held bit-exact against the plain version on
+        # the same tensors as it happens (the plain calls launch no kernel)
+        rec = GatherRecorder(gather, check=True, where="the caption forward")
+        sparse_conv.gather, segment.gather = rec, rec
+        try:
+            gather.gather_rows.launches = 0
+            forward()
+            torch.cuda.synchronize()
+            launches = gather.gather_rows.launches
+        finally:
+            sparse_conv.gather, segment.gather = gather, gather
+
+        # the speaker's parts alone, on the last run's inputs
+        data = {**det, "glove_embeddings": emb_t}
+        inputs = speaker.caption.eval_inputs(speaker.graph(data))
+        parts = time_ms({
+            "speaker": lambda: model.run_speaker(data, mode="eval"),
+            "graph": lambda: speaker.graph(data),
+            "caption_inputs": lambda: speaker.caption.eval_inputs(
+                speaker.graph(data)),
+            "decode": lambda: speaker.caption.greedy_decode(emb_t, *inputs)},
+            CAPTION_REPS, inner=1)
+        # the decode loop never waits for the card: any synchronising
+        # call inside it raises in this mode
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            speaker.caption.greedy_decode(emb_t, *inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        fwd_kernels = phase_profile("caption_profile", forward)
+        dec_kernels = phase_profile(
+            "caption_decode_profile",
+            lambda: speaker.caption.greedy_decode(emb_t, *inputs))
+
+    ids = out["lang_cap"]
+    b, k = cfg.data.batch_size, cfg.model.max_num_proposal
+    steps = cfg.data.max_spk_len + 1
+    if tuple(ids.shape) != (b, k, steps) or ids.dtype != torch.int32 or not (
+            (ids >= 0) & (ids < len(vocab))).all():
+        raise AssertionError(f"lang_cap {tuple(ids.shape)} {ids.dtype}")
+    for key in ("bbox_feature", "edge_feature", "edge_orientations"):
+        if not bool(torch.isfinite(out[key]).all()):
+            raise AssertionError(f"{key} has non-finite values")
+    if launches != per_forward or rec.checked != launches:
+        raise AssertionError(f"caption: {launches} gather_rows launches a "
+                             f"batch ({rec.checked} checked), expected "
+                             f"{per_forward}")
+    med = [statistics.median(r[i] for r in runs) for i in range(3)]
+    dec_launches = sum(r[2] for r in dec_kernels)
+    emit({"phase": "caption", "config": "conf/pointgroup_captioning.yaml",
+          "widths": {"batch": b, "max_num_point": cfg.data.max_num_point,
+                     "max_num_instance": cfg.data.max_num_instance,
+                     "m": cfg.model.m, "levels": len(cfg.model.blocks),
+                     "proposals": k, "graph_steps": cfg.model.num_graph_steps,
+                     "num_locals": cfg.model.num_locals,
+                     "decode_rows": b * k, "decode_steps": steps,
+                     "vocab": len(vocab),
+                     "activation_dtype": cfg.tpu.get("activation_dtype")},
+          "weights": "the run phase's detector, a seeded random speaker",
+          "host_collate_s": round(collate_s, 3),
+          "caption_fwd_ms": med[0], "detector_ms": med[1],
+          "speaker_ms": med[2], "caption_fwd_ms_all": [r[0] for r in runs],
+          "detector_ms_all": [r[1] for r in runs],
+          "speaker_ms_all": [r[2] for r in runs],
+          "speaker_alone_ms": parts["speaker"], "graph_ms": parts["graph"],
+          "caption_inputs_ms": parts["caption_inputs"] - parts["graph"],
+          "decode_ms": parts["decode"],
+          "speaker_share": med[2] / med[0],
+          "max_memory_allocated": peak,
+          "gather_launches_per_batch": launches,
+          "gathers_checked_exact": rec.checked,
+          "gather_max_abs_err": rec.max_abs_err,
+          "gather_rows_by_dtype_width": rec.rows_by_dtype_width,
+          "kernel_launches_per_batch": sum(r[2] for r in fwd_kernels),
+          "decode_launches": dec_launches,
+          "decode_launches_per_step": dec_launches / steps,
+          "decode_host_syncs": 0,
+          "proposals_valid": int(det["proposal_batch_mask"].sum()),
+          "distinct_words": int(torch.unique(ids).numel()),
+          "seconds": round(time.time() - t_phase, 3)})
+    del model, batch, out, det, data, inputs
+    torch.cuda.empty_cache()
+    return launches, rec.max_abs_err
+
+
+def phase_caption_eval(root, det_weights, per_forward):
+    """The captioning eval CLI on a run dir holding one pipeline
+    checkpoint (the run phase's detector, a seeded random speaker)."""
+    t0 = time.time()
+    cfg = load_task_config(CAPTION_CONFIG)
+    run_dir = os.path.join(root, cfg.general.experiment)
+    os.makedirs(run_dir)
+    cfg.general.output_root = root
+    save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
+    vocab, _ = pipeline.build_vocab(cfg)
+    model = caption_model(cfg, vocab, det_weights)
+    Checkpointer(run_dir, "cider", "max").save(
+        RUN_STEPS, create_train_state(model), {"cider": 0.0})
+    del model
+    torch.cuda.empty_cache()
+    setup_s = time.time() - t0
+    # one val batch of the config's scenes (the loader's D3NET_VAL_SCENES)
+    val_batches = 1
+    saved = os.environ.get("D3NET_VAL_SCENES")
+    os.environ["D3NET_VAL_SCENES"] = str(cfg.data.batch_size)
+    t1 = time.time()
+    try:
+        gather.gather_rows.launches = 0
+        eval_cli.main(["--folder", run_dir, "--task", "captioning"])
+        torch.cuda.synchronize()
+        launches = gather.gather_rows.launches
+    finally:
+        if saved is None:
+            del os.environ["D3NET_VAL_SCENES"]
+        else:
+            os.environ["D3NET_VAL_SCENES"] = saved
+    cli_s = time.time() - t1
+    with open(os.path.join(run_dir, "eval_captioning.json")) as f:
+        res = json.load(f)
+    keys = ("bleu4", "cider", "rouge", "meteor")
+    if not all(math.isfinite(res[k]) for k in keys):
+        raise AssertionError(f"caption_eval: non-finite {res}")
+    if res["checkpoint"].get("kind") not in ("best", "last"):
+        raise AssertionError(f"caption_eval: checkpoint {res['checkpoint']}")
+    if launches != val_batches * per_forward:
+        raise AssertionError(f"caption_eval: {launches} gather_rows launches")
+    emit({"phase": "caption_eval", **res,
+          "reduced": [f"{cfg.data.batch_size} val scenes, one batch, of "
+                      f"the config's {max(2, cfg.data.synthetic.num_scenes // 8)}"],
+          "val_batches": val_batches, "gather_launches": launches,
+          "setup_s": round(setup_s, 3), "cli_s": round(cli_s, 3),
+          "seconds": round(time.time() - t0, 3)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1280,7 +1568,15 @@ def main() -> int:
         run_dir, val_batches, run_per_step = phase_run(
             root, train["train_launches"], launches, train["step_ms"])
         phase_eval(run_dir, val_batches, launches)
+        phase_caption_parity()
+        det_weights = run_detector_weights(run_dir)
+        caption_launches, caption_err = phase_caption(det_weights, launches)
+        phase_caption_eval(os.path.join(root, "captioning"), det_weights,
+                           launches)
     kernels[0]["run_launches_per_step"] = run_per_step
+    kernels[0]["caption_launches_per_batch"] = caption_launches
+    kernels[0]["caption_max_abs_err"] = caption_err
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], caption_err)
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

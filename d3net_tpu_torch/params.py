@@ -14,9 +14,15 @@ to a ``state_dict`` key by joining with dots. Layout changes:
   adjoint of a correlation, which flips it)
 - sparse-conv ``kernel (K, Cin, Cout)`` and ``MaskedBatchNorm``
   ``scale/bias`` (params) and ``mean/var`` (batch_stats) stay as they are.
+- ``nn.GRUCell``'s six Dense layers -> the port's ``GRUCell``: the kernels
+  of ``ir/iz/in`` and of ``hr/hz/hn`` transposed and stacked into
+  ``weight_ih``/``weight_hh`` (3H, ·), the biases of ``ir/iz/in`` into
+  ``bias_ih``, ``hn``'s bias into ``bias_hn``.
 
 The conversion fails if any Flax leaf is left unused or any port
-parameter or buffer is left unset. ``state_dict_to_flax`` is its inverse
+parameter or buffer is left unset. It covers the detector alone
+(``load_detector``) and the pipeline's whole ``{detector, speaker}`` tree
+(``load_pipeline``). ``state_dict_to_flax`` is its inverse
 (also for a mapping of gradients), and ``optax_adam_state_to_torch``
 carries optax's ``mu``/``nu``/``count`` into ``exp_avg``/``exp_avg_sq``/
 ``step``, so a run can move between the frameworks in either direction.
@@ -34,6 +40,7 @@ from torch import nn
 from d3net_tpu_torch.data.collate import BatchSpec
 from d3net_tpu_torch.device import DeviceLike, resolve_device
 from d3net_tpu_torch.models.blocks import MaskedBatchNorm, SubmConv
+from d3net_tpu_torch.models.caption import GRUCell
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.models.scorenet import Conv, ConvTranspose
 
@@ -61,13 +68,19 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
-# per module kind: (collection, flax leaf, torch key, flax->torch, torch->flax)
+# per module kind: (collection, flax leaf, torch key, flax->torch,
+# torch->flax); a tuple of flax leaves maps to one torch entry, its
+# functions taking the list of leaves and giving it back
 _T = lambda a: a.T                                          # noqa: E731
 _CONV = lambda a: a.transpose(4, 3, 0, 1, 2)                # noqa: E731
 _CONV_INV = lambda a: a.transpose(2, 3, 4, 1, 0)            # noqa: E731
 _CONVT = lambda a: a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)    # noqa: E731
 _CONVT_INV = lambda a: a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]  # noqa: E731
 _SAME = lambda a: a                                         # noqa: E731
+_STACK_T = lambda arrs: np.concatenate([a.T for a in arrs])  # noqa: E731
+_SPLIT_T = lambda a: [p.T for p in np.split(a, 3)]          # noqa: E731
+_GATES_I = tuple(f"{g}.kernel" for g in ("ir", "iz", "in"))
+_GATES_H = tuple(f"{g}.kernel" for g in ("hr", "hz", "hn"))
 
 _LEAVES = {
     nn.Linear: [("params", "kernel", "weight", _T, _T),
@@ -79,17 +92,32 @@ _LEAVES = {
                       ("params", "bias", "bias", _SAME, _SAME),
                       ("batch_stats", "mean", "mean", _SAME, _SAME),
                       ("batch_stats", "var", "var", _SAME, _SAME)],
+    GRUCell: [("params", _GATES_I, "weight_ih", _STACK_T, _SPLIT_T),
+              ("params", ("ir.bias", "iz.bias", "in.bias"), "bias_ih",
+               np.concatenate, lambda a: np.split(a, 3)),
+              ("params", _GATES_H, "weight_hh", _STACK_T, _SPLIT_T),
+              ("params", "hn.bias", "bias_hn", _SAME, _SAME)],
 }
 
 
 def _leaf_modules(model: nn.Module):
-    """(dotted prefix, module, leaf spec) of every module holding leaves."""
+    """(dotted prefix, module, leaf spec) of every module holding leaves;
+    each spec's flax leaves as a tuple, its functions over lists."""
     for name, mod in model.named_modules():
         spec = _LEAVES.get(type(mod))
         if spec is not None:
-            # a Dense without bias (the box head's) has no bias leaf
-            spec = [s for s in spec if getattr(mod, s[2]) is not None]
-            yield (f"{name}." if name else ""), mod, spec
+            out = []
+            for coll, leaf, key, fwd, inv in spec:
+                # a Dense without bias (the box head's) has no bias leaf
+                if getattr(mod, key) is None:
+                    continue
+                if isinstance(leaf, str):
+                    out.append((coll, (leaf,), key,
+                                lambda arrs, f=fwd: f(arrs[0]),
+                                lambda a, f=inv: [f(a)]))
+                else:
+                    out.append((coll, leaf, key, fwd, inv))
+            yield (f"{name}." if name else ""), mod, out
 
 
 def flax_to_state_dict(variables: Mapping[str, Any],
@@ -105,18 +133,19 @@ def flax_to_state_dict(variables: Mapping[str, Any],
     used = {c: set() for c in flat}
     sd: Dict[str, torch.Tensor] = {}
     for name, mod, spec in _leaf_modules(model):
-        for coll, leaf, key, fwd, _ in spec:
-            path = f"{name}{leaf}"
-            if path not in flat[coll]:
-                raise ValueError(f"Flax {coll} has no {path} for {key}")
-            if path in used[coll]:
-                raise ValueError(f"Flax {coll} leaf {path} consumed twice")
-            used[coll].add(path)
+        for coll, leaves, key, fwd, _ in spec:
+            paths = [f"{name}{leaf}" for leaf in leaves]
+            for path in paths:
+                if path not in flat[coll]:
+                    raise ValueError(f"Flax {coll} has no {path} for {key}")
+                if path in used[coll]:
+                    raise ValueError(f"Flax {coll} leaf {path} consumed twice")
+                used[coll].add(path)
             target = getattr(mod, key)
-            value = np.ascontiguousarray(fwd(flat[coll][path]))
+            value = np.ascontiguousarray(fwd([flat[coll][p] for p in paths]))
             if tuple(value.shape) != tuple(target.shape):
                 raise ValueError(
-                    f"{path}: converted shape {value.shape} != port "
+                    f"{paths}: converted shape {value.shape} != port "
                     f"{tuple(target.shape)}")
             sd[f"{name}{key}"] = torch.from_numpy(value).to(target.dtype)
     for coll in flat:
@@ -143,7 +172,7 @@ def state_dict_to_flax(model: nn.Module,
     flat: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
     used = set()
     for name, _, spec in _leaf_modules(model):
-        for coll, leaf, key, _, inv in spec:
+        for coll, leaves, key, _, inv in spec:
             k = f"{name}{key}"
             if k not in tensors:
                 if full:
@@ -151,7 +180,8 @@ def state_dict_to_flax(model: nn.Module,
                 continue
             used.add(k)
             value = tensors[k].detach().to("cpu", torch.float32).numpy()
-            flat[coll][f"{name}{leaf}"] = np.ascontiguousarray(inv(value))
+            for leaf, part in zip(leaves, inv(value)):
+                flat[coll][f"{name}{leaf}"] = np.ascontiguousarray(part)
     left = set(tensors) - used
     if left:
         raise ValueError(f"entries with no Flax leaf: {sorted(left)}")
@@ -165,9 +195,10 @@ def _params_to_tensors(tree: Mapping[str, Any],
     flat = flatten(tree)
     out: Dict[str, torch.Tensor] = {}
     for name, _, spec in _leaf_modules(model):
-        for coll, leaf, key, fwd, _ in spec:
+        for coll, leaves, key, fwd, _ in spec:
             if coll == "params":
-                v = np.ascontiguousarray(fwd(flat.pop(f"{name}{leaf}")))
+                v = np.ascontiguousarray(fwd(
+                    [flat.pop(f"{name}{leaf}") for leaf in leaves]))
                 out[f"{name}{key}"] = torch.from_numpy(v.astype(np.float32))
     if flat:
         raise ValueError(f"unused leaves: {sorted(flat)}")
@@ -199,25 +230,32 @@ def optax_adam_state_to_torch(opt_state: Any, model: nn.Module,
 def init_flax_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
     """Random Flax-layout variables for ``model``, made with numpy.
 
-    Kernels are He-normal for the sparse and dense convs and LeCun-normal
-    for the Dense layers (Flax's initializers, untruncated); biases and BN
-    shifts 0, BN scales 1, running mean 0 and var 1 — what ``model.init``
-    gives. Feed the result through :func:`flax_to_state_dict`.
+    Kernels are He-normal for the sparse and dense convs, LeCun-normal for
+    the Dense layers and a GRU's input gates, orthogonal for its recurrent
+    gates (Flax's initializers, untruncated); biases and BN shifts 0, BN
+    scales 1, running mean 0 and var 1 — what ``model.init`` gives. Feed
+    the result through :func:`flax_to_state_dict`.
     """
     rng = np.random.default_rng(seed)
     flat: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
     for name, mod, spec in _leaf_modules(model):
-        for coll, leaf, key, _, inv in spec:
-            shape = inv(np.empty(tuple(getattr(mod, key).shape))).shape
-            if leaf == "kernel":
-                fan_in = math.prod(shape[:-1])
-                gain = 1.0 if isinstance(mod, nn.Linear) else 2.0
-                v = rng.normal(0.0, math.sqrt(gain / fan_in), shape)
-            elif leaf in ("scale", "var"):
-                v = np.ones(shape)
-            else:
-                v = np.zeros(shape)
-            flat[coll][f"{name}{leaf}"] = v.astype(np.float32)
+        for coll, leaves, key, _, inv in spec:
+            parts = inv(np.empty(tuple(getattr(mod, key).shape)))
+            for leaf, part in zip(leaves, parts):
+                shape = part.shape
+                if isinstance(mod, GRUCell) and leaf in _GATES_H:
+                    q, r = np.linalg.qr(rng.normal(0.0, 1.0, shape))
+                    v = q * np.sign(np.diag(r))
+                elif leaf.endswith("kernel"):
+                    fan_in = math.prod(shape[:-1])
+                    gain = 1.0 if isinstance(mod, (nn.Linear, GRUCell)) \
+                        else 2.0
+                    v = rng.normal(0.0, math.sqrt(gain / fan_in), shape)
+                elif leaf in ("scale", "var"):
+                    v = np.ones(shape)
+                else:
+                    v = np.zeros(shape)
+                flat[coll][f"{name}{leaf}"] = v.astype(np.float32)
     return {c: _unflatten(f) for c, f in flat.items()}
 
 
@@ -231,6 +269,20 @@ def load_detector(variables: Mapping[str, Any], cfg: Mapping[str, Any],
     dev = resolve_device(device)
     in_channels = int(np.shape(variables["params"]["input_conv"]["kernel"])[1])
     model = PointGroup(in_channels, **cfg)
+    model.load_state_dict(flax_to_state_dict(variables, model))
+    return model.to(dev).eval()
+
+
+def load_pipeline(variables: Mapping[str, Any], cfg, vocab,
+                  device: DeviceLike = None) -> nn.Module:
+    """The config's ``PipelineNet`` (``train.pipeline.pipeline_from_cfg``)
+    with Flax ``variables`` of the whole ``{detector, speaker}`` tree
+    loaded, in eval mode. Runs on CUDA unless ``device`` says otherwise;
+    raises without a GPU when no device is given."""
+    from d3net_tpu_torch.train.pipeline import pipeline_from_cfg
+
+    dev = resolve_device(device)
+    model = pipeline_from_cfg(cfg, vocab)
     model.load_state_dict(flax_to_state_dict(variables, model))
     return model.to(dev).eval()
 

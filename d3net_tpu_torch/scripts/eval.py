@@ -1,13 +1,21 @@
 """Eval entry point of the port (the JAX package's ``scripts/eval.py``).
 
     python -m d3net_tpu_torch.scripts.eval --folder <run_dir> \
-        --task detection [--set KEY=VALUE ...] [--cpu]
+        --task detection|captioning [--set KEY=VALUE ...] [--cpu]
 
 Reloads the run dir's ``config.yaml``, restores its best checkpoint (else
-its last), runs the detection protocol (mAP and AR at IoU 0.25 and 0.5
-over the val scenes) and writes ``eval_detection.json`` stamped with the
-checkpoint it used. Runs on CUDA unless ``--cpu`` is given; without a GPU
-and without ``--cpu`` it raises.
+its last; with none it warns and evaluates random weights) and runs the
+task's protocol over the val scenes:
+
+- ``detection``: mAP and AR at IoU 0.25 and 0.5 -> ``eval_detection.json``;
+- ``captioning``: the detector -> speaker pipeline captions every proposal
+  greedily, scored as CIDEr, BLEU-4, ROUGE-L and METEOR at
+  ``eval.min_iou_threshold`` (METEOR is 0.0 where nltk is absent) ->
+  ``eval_captioning.json``. Its checkpoint must hold the whole pipeline: a
+  detector-only one fails to load.
+
+Each file is stamped with the checkpoint it used. Runs on CUDA unless
+``--cpu`` is given; without a GPU and without ``--cpu`` it raises.
 """
 
 from __future__ import annotations
@@ -15,10 +23,38 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
+
+from torch import nn
 
 from d3net_tpu_torch import config as cfg_lib
 from d3net_tpu_torch.device import DeviceLike, resolve_device
+
+
+def restore_for_eval(model: nn.Module, cfg: cfg_lib.Config,
+                     run_dir: str) -> Tuple[object, Dict]:
+    """``model``'s train state with the run dir's best weights (else its
+    last) loaded strictly: (state, checkpoint stamp). With no checkpoint
+    it warns and keeps the model's weights."""
+    from d3net_tpu_torch.train.loop import Checkpointer
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    state = create_train_state(model, lr=cfg.train.optim.lr)
+    ckpt = Checkpointer(run_dir, "total_loss", "min")
+    if ckpt.restore_weights(state) is None:
+        print("WARNING: no checkpoint found, evaluating random weights")
+        return state, {"kind": "none", "step": -1}
+    info = dict(ckpt.restored_from or {})
+    print(f"evaluating {info.get('kind')} checkpoint (step {info.get('step')})")
+    return state, info
+
+
+def _write(run_dir: str, task: str, results: Dict, ckpt_info: Dict) -> None:
+    print(json.dumps(results, indent=2))
+    # the checkpoint that produced this eval is stamped into the file only,
+    # keeping the returned metric dict clean
+    with open(os.path.join(run_dir, f"eval_{task}.json"), "w") as f:
+        json.dump({**results, "checkpoint": ckpt_info}, f)
 
 
 def eval_detection(cfg: cfg_lib.Config, run_dir: str,
@@ -28,26 +64,15 @@ def eval_detection(cfg: cfg_lib.Config, run_dir: str,
         APCalculator, parse_groundtruths, parse_predictions,
     )
     from d3net_tpu_torch.train.loop import (
-        Checkpointer, detector_from_cfg, init_detector, make_dataloaders,
-        spec_from_cfg,
+        detector_from_cfg, init_detector, make_val_loader, spec_from_cfg,
     )
-    from d3net_tpu_torch.train.trainer import (
-        create_train_state, detector_eval_step,
-    )
+    from d3net_tpu_torch.train.trainer import detector_eval_step
 
     dev = resolve_device(device)
     spec = spec_from_cfg(cfg)
     model = init_detector(detector_from_cfg(cfg), 0).to(dev)
-    _, val_it = make_dataloaders(cfg, spec)
-    state = create_train_state(model, lr=cfg.train.optim.lr)
-    ckpt = Checkpointer(run_dir, "total_loss", "min")
-    if ckpt.restore_weights(state) is None:
-        print("WARNING: no checkpoint found, evaluating random weights")
-        ckpt_info = {"kind": "none", "step": -1}
-    else:
-        ckpt_info = dict(ckpt.restored_from or {})
-        print(f"evaluating {ckpt_info.get('kind')} checkpoint "
-              f"(step {ckpt_info.get('step')})")
+    val_it = make_val_loader(cfg, spec)
+    state, ckpt_info = restore_for_eval(model, cfg, run_dir)
 
     calcs = {t: APCalculator(t) for t in (0.25, 0.5)}
     for batch_np in val_it:
@@ -75,12 +100,31 @@ def eval_detection(cfg: cfg_lib.Config, run_dir: str,
         results[f"per_class@{t}"] = {
             k: v for k, v in m.items() if k.startswith(("AP_", "Recall_"))
         }
-    print(json.dumps(results, indent=2))
-    # the checkpoint that produced this eval is stamped into the file only,
-    # keeping the returned metric dict clean
-    with open(os.path.join(run_dir, "eval_detection.json"), "w") as f:
-        json.dump({**results, "checkpoint": ckpt_info}, f)
+    _write(run_dir, "detection", results, ckpt_info)
     return results
+
+
+def eval_captioning(cfg: cfg_lib.Config, run_dir: str,
+                    device: DeviceLike = None) -> Dict[str, float]:
+    """The JAX package's ``eval_captioning_cli``: mode-1 validation of the
+    run dir's pipeline."""
+    from d3net_tpu_torch.params import flax_to_state_dict, init_flax_variables
+    from d3net_tpu_torch.train.loop import make_val_loader, spec_from_cfg
+    from d3net_tpu_torch.train.pipeline import (
+        build_vocab, pipeline_from_cfg, run_pipeline_validation,
+    )
+
+    dev = resolve_device(device)
+    vocab, emb = build_vocab(cfg)
+    model = pipeline_from_cfg(cfg, vocab)
+    model.load_state_dict(flax_to_state_dict(init_flax_variables(model, 0),
+                                             model))
+    model.to(dev)
+    val_it = make_val_loader(cfg, spec_from_cfg(cfg), return_scenes=True)
+    _, ckpt_info = restore_for_eval(model, cfg, run_dir)
+    metrics = run_pipeline_validation(cfg, model, val_it, vocab, emb, mode=1)
+    _write(run_dir, "captioning", metrics, ckpt_info)
+    return metrics
 
 
 def apply_overrides(cfg: cfg_lib.Config, sets: Sequence[str]) -> None:
@@ -122,13 +166,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     cfg = cfg_lib.load(os.path.join(args.folder, "config.yaml"))
     apply_overrides(cfg, args.set)
-    if args.task != "detection":
-        item = {"captioning": "13 and 16", "grounding": "14 and 16",
-                "scannet": "16"}[args.task]
+    if args.task in ("grounding", "scannet"):
+        item = {"grounding": "14 and 16", "scannet": "16"}[args.task]
         raise NotImplementedError(
             f"--task {args.task} is not ported (ROADMAP.md, queue A item "
             f"{item})")
-    eval_detection(cfg, args.folder, device)
+    run = eval_captioning if args.task == "captioning" else eval_detection
+    run(cfg, args.folder, device)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,8 @@ with the same run-dir layout and semantics:
   a resume. A checkpoint is one ``torch.save`` of the model ``state_dict``
   (BN running statistics included), the optimizer and scheduler state and
   the step, read back with ``weights_only=True``.
+- ``log.profile_step: k`` traces the three train steps after the k-th
+  with ``torch.profiler`` into ``profile/trace.json`` (a Chrome trace).
 
 A step's cluster jitter and proposal shuffle come from a ``torch.Generator``
 seeded by ``(manual_seed + 1, step)`` (JAX folds the step into its key), so
@@ -278,13 +280,10 @@ def spec_from_cfg(cfg: Config) -> BatchSpec:
     )
 
 
-def detector_from_cfg(cfg: Config) -> PointGroup:
-    """``PointGroup`` of the config, randomly initialised (its input width
-    is the batch layout's feature width plus xyz)."""
-    in_channels = (spec_from_cfg(cfg).feat_dim()
-                   + 3 * bool(cfg.model.use_coords))
-    return PointGroup(
-        in_channels,
+def detector_cfg_dict(cfg: Config) -> Dict[str, Any]:
+    """``PointGroup`` keyword arguments of the config (the JAX package's
+    ``pipeline_loop.detector_cfg_dict``)."""
+    return dict(
         m=cfg.model.m,
         classes=cfg.data.classes,
         blocks=tuple(cfg.model.blocks),
@@ -307,6 +306,16 @@ def detector_from_cfg(cfg: Config) -> PointGroup:
     )
 
 
+def in_channels_from_cfg(cfg: Config) -> int:
+    """The detector's input width: the batch layout's features plus xyz."""
+    return spec_from_cfg(cfg).feat_dim() + 3 * bool(cfg.model.use_coords)
+
+
+def detector_from_cfg(cfg: Config) -> PointGroup:
+    """``PointGroup`` of the config, randomly initialised."""
+    return PointGroup(in_channels_from_cfg(cfg), **detector_cfg_dict(cfg))
+
+
 def init_detector(model: PointGroup, seed: int) -> PointGroup:
     """Random weights for ``model`` from ``seed`` (``params.
     init_flax_variables``: Flax's initializers, drawn with numpy)."""
@@ -315,13 +324,13 @@ def init_detector(model: PointGroup, seed: int) -> PointGroup:
     return model
 
 
-def make_dataloaders(cfg: Config, spec: BatchSpec, return_scenes: bool = False):
+def _scene_kw(cfg: Config) -> Dict[str, Any]:
     if cfg.data.get("multiview_hdf5"):
         raise NotImplementedError(
             "data.multiview_hdf5: MultiviewAttached (h5py) is not ported "
             "(ROADMAP.md, queue A item 16)")
     syn = cfg.data.synthetic
-    kw = dict(
+    return dict(
         num_instances=syn.num_instances,
         points_per_instance=syn.get("points_per_instance", 3000),
         floor_points=syn.floor_points,
@@ -330,28 +339,39 @@ def make_dataloaders(cfg: Config, spec: BatchSpec, return_scenes: bool = False):
         density=syn.get("density"),
         size_range=tuple(syn.get("size_range", (0.3, 1.2))),
     )
-    train_scenes = SyntheticScenes(syn.num_scenes, "train", **kw)
+
+
+def make_val_loader(cfg: Config, spec: BatchSpec,
+                    return_scenes: bool = False) -> BatchIterator:
+    """The val split's iterator alone (the evals need no train scenes,
+    which are made when their list is)."""
+    syn = cfg.data.synthetic
     n_val = int(
         os.environ.get("D3NET_VAL_SCENES", 0)
         or syn.get("num_val_scenes", 0)
         or max(2, syn.num_scenes // 8)
     )
-    val_scenes = SyntheticScenes(n_val, "val", **kw)
+    return BatchIterator(
+        SyntheticScenes(n_val, "val", **_scene_kw(cfg)), spec,
+        cfg.data.batch_size, shuffle=False, augment=False, seed=0,
+        drop_last=False, return_scenes=return_scenes,
+        workers=int(cfg.data.get("num_workers", 1) or 1),
+    )
+
+
+def make_dataloaders(cfg: Config, spec: BatchSpec, return_scenes: bool = False):
+    kw = _scene_kw(cfg)
     tr = cfg.data.transform
-    workers = int(cfg.data.get("num_workers", 1) or 1)
     train_it = BatchIterator(
-        train_scenes, spec, cfg.data.batch_size,
+        SyntheticScenes(cfg.data.synthetic.num_scenes, "train", **kw), spec,
+        cfg.data.batch_size,
         shuffle=True, augment=bool(tr.jitter or tr.flip or tr.rot),
         elastic=bool(cfg.data.get("elastic", False)),
         seed=cfg.general.manual_seed,
-        return_scenes=return_scenes, workers=workers,
+        return_scenes=return_scenes,
+        workers=int(cfg.data.get("num_workers", 1) or 1),
     )
-    val_it = BatchIterator(
-        val_scenes, spec, cfg.data.batch_size,
-        shuffle=False, augment=False, seed=0, drop_last=False,
-        return_scenes=return_scenes, workers=workers,
-    )
-    return train_it, val_it
+    return train_it, make_val_loader(cfg, spec, return_scenes)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -401,6 +421,9 @@ def run_detector_training(cfg: Config, run_dir: str,
     os.makedirs(run_dir, exist_ok=True)
     save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
     log_cfg = cfg.get("log")
+    profile_at = int((log_cfg.get("profile_step", 0) if log_cfg is not None
+                      else 0) or 0)
+    prof = None
     logger = MetricLogger(run_dir, tensorboard=bool(
         log_cfg is not None and log_cfg.get("tensorboard", False)))
     ckpt = Checkpointer(run_dir, cfg.general.monitor.replace("val_loss/", ""),
@@ -474,11 +497,15 @@ def run_detector_training(cfg: Config, run_dir: str,
                 batch = item
             if on_step is not None and sync_steps:
                 _sync(dev)
+            if profile_at and step == profile_at:
+                prof = _start_profile(dev)
             t0 = time.perf_counter()
             state, metrics = detector_train_step(
                 state, batch, step_generator(seed, step, dev),
                 loss_weight=lw, do_clustering=not in_prepare)
             step += 1
+            if prof is not None and step == profile_at + 3:
+                prof = _stop_profile(prof, dev, run_dir)
             if on_step is not None:
                 if sync_steps:
                     _sync(dev)
@@ -528,4 +555,26 @@ def run_detector_training(cfg: Config, run_dir: str,
         print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s")
         if max_steps and step >= max_steps:
             break
+    if prof is not None:               # the run ended inside the window
+        _stop_profile(prof, dev, run_dir)
     return state
+
+
+def _start_profile(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else []))
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, dev: torch.device, run_dir: str) -> None:
+    """Ends the ``log.profile_step`` trace and writes it as a Chrome trace
+    under ``run_dir/profile`` (the JAX loop's directory)."""
+    _sync(dev)
+    prof.stop()
+    out = os.path.join(run_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    print(f"profile written to {out}")

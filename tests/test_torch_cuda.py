@@ -5,7 +5,9 @@ plain version (the two ring kernels at their run edges too, and
 for every kernel, the detector on cuda
 against the detector on cpu, the sparse conv's backward on cuda
 against the same on cpu, and the run loop on cuda against the run loop on
-cpu, with a checkpoint round trip on the card.
+cpu, with a checkpoint round trip on the card; the speaker (graph and
+greedy decode) on cuda against cpu, and the captioning eval CLI on cuda
+against the same on cpu.
 
 This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -347,3 +349,87 @@ def test_checkpoint_round_trip_on_cuda_is_bit_exact(card, tmp_path):
         for k, v in s.items():
             g = got["state"][i][k]
             assert g.device == v.device and torch.equal(v, g), (i, k)
+
+
+def _tiny_caption_cfg(root=None):
+    from d3net_tpu_torch import config
+
+    cfg = config.load(os.path.join(ROOT, "conf", "debug",
+                                   "tiny_captioning.yaml"))
+    cfg.model.use_orientation = True
+    if root is not None:
+        cfg.general.output_root = str(root)
+    return cfg
+
+
+@pytest.mark.cuda
+def test_speaker_cuda_matches_cpu(card):
+    """The speaker at the tiny captioning widths on seeded proposals: the
+    graph's integers equal, its floats within rtol 1e-4, the greedy ids
+    equal and each device's logits, teacher-forced on the cpu's ids,
+    within rtol 1e-4; the cuda decode makes no host sync
+    (``checks.speaker_cuda_vs_cpu``, which chip_smoke.py also runs)."""
+    from d3net_tpu_torch.checks import speaker_cuda_vs_cpu
+    from d3net_tpu_torch.train import pipeline
+    from d3net_tpu_torch.utils.bbox import box_corners
+
+    cfg = _tiny_caption_cfg()
+    vocab, emb = pipeline.build_vocab(cfg)
+    variables = params.init_flax_variables(
+        pipeline.pipeline_from_cfg(cfg, vocab), seed=1)
+    rng = np.random.default_rng(0)
+    b, p = 3, cfg.model.max_num_proposal
+    mask = (rng.random((b, p)) < 0.8).astype(np.float32)
+    corners = box_corners(rng.uniform(0, 4, (b, p, 3)).astype(np.float32),
+                          rng.uniform(0.2, 1, (b, p, 3)).astype(np.float32))
+    data = {"proposal_feats_batched": rng.normal(size=(b, p, 8)).astype(
+                np.float32) * mask[..., None],
+            "proposal_batch_mask": mask,
+            "proposal_bbox_batched": corners * mask[..., None, None],
+            "glove_embeddings": emb}
+    report = speaker_cuda_vs_cpu(variables, cfg, vocab, data, rtol=1e-4,
+                                 atol=1e-5)
+    assert all(report["integers_equal"].values()), report
+    assert report["ids_equal"], report
+    assert report["outside_tolerance"] == [], report
+    assert report["ok"]
+
+
+@pytest.mark.cuda
+def test_caption_eval_cli_cuda_matches_cpu(card, tmp_path):
+    """``--task captioning`` on one run dir (a tiny pipeline checkpoint) on
+    cuda and on cpu: the same metrics, and ``gather_rows`` launched on
+    cuda only."""
+    import json
+
+    from d3net_tpu_torch import config
+    from d3net_tpu_torch.scripts import eval as eval_cli
+    from d3net_tpu_torch.train import pipeline
+    from d3net_tpu_torch.train.loop import Checkpointer
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    cfg = _tiny_caption_cfg(tmp_path)
+    cfg.eval.min_iou_threshold = 0.2
+    run = str(tmp_path / "run")
+    os.makedirs(run)
+    config.save(cfg, os.path.join(run, "config.yaml"))
+    vocab, _ = pipeline.build_vocab(cfg)
+    model = params.load_pipeline(params.init_flax_variables(
+        pipeline.pipeline_from_cfg(cfg, vocab), seed=2), cfg, vocab,
+        device="cpu")
+    Checkpointer(run, "cider", "max").save(3, create_train_state(model),
+                                           {"cider": 0.1})
+    res = {}
+    for dev in ("cpu", "cuda"):
+        before = gather.gather_rows.launches
+        eval_cli.main(["--folder", run, "--task", "captioning"]
+                      + (["--cpu"] if dev == "cpu" else []))
+        launched = gather.gather_rows.launches - before
+        assert (launched > 0) == (dev == "cuda")
+        with open(os.path.join(run, "eval_captioning.json")) as f:
+            res[dev] = json.load(f)
+    assert res["cuda"]["checkpoint"] == {"kind": "best", "step": 3}
+    assert set(res["cuda"]) == set(res["cpu"])
+    for k, v in res["cpu"].items():
+        if k != "checkpoint":
+            np.testing.assert_allclose(res["cuda"][k], v, rtol=1e-4, err_msg=k)

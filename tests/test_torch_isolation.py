@@ -54,7 +54,15 @@ def test_port_imports_no_jax_flax_or_reference():
                 "d3net_tpu_torch.data.dataset",
                 "d3net_tpu_torch.eval.detection",
                 "d3net_tpu_torch.scripts.train",
-                "d3net_tpu_torch.scripts.eval"):
+                "d3net_tpu_torch.scripts.eval",
+                "d3net_tpu_torch.data.vocab", "d3net_tpu_torch.data.language",
+                "d3net_tpu_torch.models.graph",
+                "d3net_tpu_torch.models.caption",
+                "d3net_tpu_torch.models.speaker",
+                "d3net_tpu_torch.models.pipeline",
+                "d3net_tpu_torch.eval.capeval",
+                "d3net_tpu_torch.eval.caption_eval",
+                "d3net_tpu_torch.train.pipeline", "d3net_tpu_torch.checks"):
         assert mod in res["modules"]
     assert os.path.exists(os.path.join(ROOT, "d3net_tpu_torch", "train",
                                        "__init__.py"))

@@ -211,6 +211,24 @@ def test_cached_variants_cycle_and_prepare_epochs(tmp_path, monkeypatch):
     assert tloop.StepDir(str(tmp_path / "ckpt"), 3).all_steps() == [4, 8, 12]
 
 
+def test_profile_step_writes_a_trace(tmp_path, capsys):
+    """``log.profile_step: 1`` traces the three steps after the first, as
+    the JAX loop does, into ``run_dir/profile``."""
+    cfg = tcfg.load(TINY)
+    cfg.cluster.prepare_epochs = 10
+    cfg.log = {"profile_step": 1}
+    tloop.run_detector_training(cfg, str(tmp_path), max_steps=4, device="cpu")
+    out = capsys.readouterr().out
+    assert f"profile written to {tmp_path}/profile" in out
+    # written once step 4 is done, before its log line (as in JAX)
+    assert out.index("step 3 ") < out.index("profile written") \
+        < out.index("step 4 ")
+    trace = tmp_path / "profile" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any("detector_loss" in e.get("name", "")
+               or "aten::" in e.get("name", "") for e in events)
+
+
 @pytest.mark.parametrize("sync_steps", [True, False])
 def test_on_step_timings(tmp_path, sync_steps):
     """``on_step`` gets each train step's host-clock timings, with or
