@@ -160,33 +160,40 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
-from d3net_tpu_torch.checks import speaker_cuda_vs_cpu
+from d3net_tpu_torch.checks import (
+    randomize, relu_sides, speaker_cuda_vs_cpu, speaker_step_case,
+    speaker_step_cuda_vs_cpu,
+)
 from d3net_tpu_torch.config import save as save_cfg
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
 from d3net_tpu_torch.data import collate
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
 from d3net_tpu_torch.data.dataset import BatchIterator
+from d3net_tpu_torch.data.language import build_lang_batch
 from d3net_tpu_torch.data.synthetic import make_scene
 from d3net_tpu_torch.kernels import gather, probe
 from d3net_tpu_torch.models.blocks import SubmConv, fold_tables
+from d3net_tpu_torch.models.speaker import expand_to_rows
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.ops import native, segment, sparse_conv
 from d3net_tpu_torch.ops import voxelize as vox
 from d3net_tpu_torch.params import (
-    flagship_config, flatten, init_flax_variables, load_detector,
-    load_pipeline, state_dict_to_flax,
+    flagship_config, flatten, flax_to_state_dict, init_flax_variables,
+    load_detector, load_pipeline, state_dict_to_flax,
 )
 from d3net_tpu_torch.scripts import eval as eval_cli
+from d3net_tpu_torch.scripts import prepare_weights
+from d3net_tpu_torch.scripts import train as train_cli
 from d3net_tpu_torch.scripts.train import load_task_config
 from d3net_tpu_torch.train import pipeline
 from d3net_tpu_torch.train.loop import (
     Checkpointer, detector_from_cfg, init_detector, make_val_loader,
     run_detector_training, spec_from_cfg,
 )
+from d3net_tpu_torch.train.losses_slt import caption_loss
 from d3net_tpu_torch.train.trainer import (
     create_train_state, detector_train_step,
 )
@@ -210,6 +217,9 @@ CAPTION_CONFIG = os.path.join(ROOT, "conf", "pointgroup_captioning.yaml")
 TINY_CAPTION_CONFIG = os.path.join(ROOT, "conf", "debug",
                                    "tiny_captioning.yaml")
 CAPTION_WARMUP, CAPTION_REPS = 2, 5
+SPK_STEPS = 16          # one epoch: the captioning config's 64 scenes at B=4
+SPK_CHECKED_STEP = 2    # the step whose gathers are held to the plain version
+SPK_REPS = 5
 
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
@@ -231,18 +241,6 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def randomize(tree, rng):
-    """Nonzero biases and BN statistics (as the CPU parity tests use)."""
-    for k, val in tree.items():
-        if isinstance(val, dict):
-            randomize(val, rng)
-        elif k in ("bias", "mean"):
-            tree[k] = rng.normal(0.0, 0.1, val.shape).astype(np.float32)
-        elif k in ("scale", "var"):
-            tree[k] = rng.uniform(0.5, 1.5, val.shape).astype(np.float32)
-    return tree
 
 
 # --------------------------------------------------------------------------
@@ -495,47 +493,6 @@ def phase_parity():
           "outside_tolerance": bad, "rtol": PARITY_RTOL, "atol": PARITY_ATOL})
     if held:
         raise AssertionError(f"cuda vs cpu outside tolerance: {held}")
-
-
-@contextlib.contextmanager
-def relu_sides(ref, record):
-    """Stands in for ``F.relu`` for one train step. ``record``: keeps each
-    call's input (the reference step, on the cpu). Otherwise each call
-    takes the side of the kink the reference's input took (``x * (ref >
-    0)``), and the yielded dict counts the inputs whose own side differs
-    and the largest of those inputs, relative to the call's largest input.
-
-    An input within float noise of 0 can land on either side of the kink
-    when sums run in another order, and that one element's gradient then
-    reaches every layer before it (seen on the card: one ScoreNet element
-    at 1e-8 on the cpu, -1e-7 on cuda). Following the reference's side
-    keeps the gradients comparable; ``KINK_NOISE`` bounds the crossings."""
-    real = F.relu
-    calls = iter(ref)
-    seen = {"crossings": 0, "largest": 0.0}
-
-    def relu(x, inplace=False):
-        if record:
-            ref.append(x.detach().clone())
-            return real(x, inplace)
-        want = next(calls).to(x.device)
-        side = want > 0
-        cross = side != (x.detach() > 0)
-        if bool(cross.any()):
-            size = max(float(want.abs().max()), 1e-30)
-            near = torch.maximum(want[cross].abs(), x.detach()[cross].abs())
-            seen["crossings"] += int(cross.sum())
-            seen["largest"] = max(seen["largest"], float(near.max()) / size)
-        return x * side
-
-    F.relu = relu
-    try:
-        yield seen
-    finally:
-        F.relu = real
-    if not record and next(calls, None) is not None:
-        raise AssertionError("the step made fewer ReLU calls than the "
-                             "reference")
 
 
 def _train_once(variables, batch_np, dev, do_clustering, jitter, perm,
@@ -1009,6 +966,21 @@ def run_config(root):
     cfg = load_task_config(RUN_CONFIG)
     cfg.general.output_root = root
     return cfg
+
+
+@contextlib.contextmanager
+def val_scenes(n):
+    """The loaders' ``D3NET_VAL_SCENES`` at ``n`` while open: one val batch
+    of the config's scenes."""
+    saved = os.environ.get("D3NET_VAL_SCENES")
+    os.environ["D3NET_VAL_SCENES"] = str(n)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["D3NET_VAL_SCENES"]
+        else:
+            os.environ["D3NET_VAL_SCENES"] = saved
 
 
 @contextlib.contextmanager
@@ -1497,21 +1469,13 @@ def phase_caption_eval(root, det_weights, per_forward):
     del model
     torch.cuda.empty_cache()
     setup_s = time.time() - t0
-    # one val batch of the config's scenes (the loader's D3NET_VAL_SCENES)
     val_batches = 1
-    saved = os.environ.get("D3NET_VAL_SCENES")
-    os.environ["D3NET_VAL_SCENES"] = str(cfg.data.batch_size)
     t1 = time.time()
-    try:
+    with val_scenes(cfg.data.batch_size):
         gather.gather_rows.launches = 0
         eval_cli.main(["--folder", run_dir, "--task", "captioning"])
         torch.cuda.synchronize()
         launches = gather.gather_rows.launches
-    finally:
-        if saved is None:
-            del os.environ["D3NET_VAL_SCENES"]
-        else:
-            os.environ["D3NET_VAL_SCENES"] = saved
     cli_s = time.time() - t1
     with open(os.path.join(run_dir, "eval_captioning.json")) as f:
         res = json.load(f)
@@ -1528,6 +1492,273 @@ def phase_caption_eval(root, det_weights, per_forward):
           "val_batches": val_batches, "gather_launches": launches,
           "setup_s": round(setup_s, 3), "cli_s": round(cli_s, 3),
           "seconds": round(time.time() - t0, 3)})
+
+
+# --------------------------------------------------------------------------
+def phase_spk_train_parity():
+    """One mode-1 train step at the tiny captioning widths: cuda vs cpu,
+    with the detector trained and frozen."""
+    t0 = time.time()
+    cfg = load_task_config(TINY_CAPTION_CONFIG)
+    cfg.model.use_orientation = True
+    cfg.data.min_iou_threshold = 0.0   # good rows from a random detector
+    vocab, emb = pipeline.build_vocab(cfg)
+    case = speaker_step_case(cfg, vocab, seed=0)
+    reports = {}
+    for freeze in (False, True):
+        reports["frozen_detector" if freeze else "trained_detector"] = \
+            speaker_step_cuda_vs_cpu(
+                cfg, vocab, emb, case, freeze, loss_rtol=PARITY_RTOL,
+                grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL,
+                bn_rtol=PARITY_RTOL, bn_atol=PARITY_ATOL,
+                kink_noise=KINK_NOISE)
+    emit({"phase": "spk_train_parity", "config": "conf/debug/tiny_captioning"
+          ".yaml (use_orientation on, min_iou_threshold 0, seeded object "
+          "rotations)", **reports, "loss_rtol": PARITY_RTOL,
+          "grad_rtol": GRAD_RTOL, "grad_atol": GRAD_ATOL,
+          "seconds": round(time.time() - t0, 3)})
+    bad = {k: r["outside_tolerance"] for k, r in reports.items()
+           if not r["ok"]}
+    if bad:
+        raise AssertionError(f"speaker train step cuda vs cpu: {bad}, "
+                             f"integers {[r['integers_equal'] for r in reports.values()]}")
+
+
+def phase_spk_train(root, det_run_dir, per_step, per_forward):
+    """The speaker's stage as users run it: ``prepare_weights`` on the run
+    phase's detector, then the train CLI on conf/pointgroup_captioning.yaml
+    for one epoch, the loop waiting for the card around each part of a
+    step; the restored state, the step timed alone, its profile and the
+    teacher-forced decoder's launches. Returns its ``gather_rows``
+    launches a step, the checked gathers' largest error, the bound of the
+    checked step's gathers (the bytes they need over HBM's rate) and their
+    device time in the profiled step."""
+    t_phase = time.time()
+    pre = os.path.join(root, "pretrained")
+    prepare_weights.main(["--folder", det_run_dir, "--name", "run", "--out",
+                          pre])
+    cfg = load_task_config(CAPTION_CONFIG)
+    cfg.general.output_root = root
+    cfg.model.pretrained_detector = os.path.join(pre, "run_detector.pkl")
+    log_every = cfg.train.log_every_n_steps
+    cfg.train.log_every_n_steps = 1
+    config_path = os.path.join(root, "pointgroup_captioning.yaml")
+    save_cfg(cfg, config_path)
+    run_dir = os.path.join(root, cfg.general.experiment)
+    chunk = int(cfg.data.num_des_per_scene)
+
+    # the CLI's loop, with the run phase's per-step hook; the gathers of
+    # step SPK_CHECKED_STEP are each held to the plain version as they run
+    steps, states, seen = [], [], [0]
+    rec = GatherRecorder(gather, check=True, where="the speaker train step")
+
+    def on_step(r):
+        r["gather_launches"] = gather.gather_rows.launches - seen[0]
+        seen[0] = gather.gather_rows.launches
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        steps.append(r)
+        mod = rec if r["step"] == SPK_CHECKED_STEP - 1 else gather
+        sparse_conv.gather, segment.gather = mod, mod
+
+    real = pipeline.run_pipeline_training
+
+    def run(*args, **kw):
+        states.append(real(*args, on_step=on_step, **kw))
+        return states[-1]
+
+    pipeline.run_pipeline_training = run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # what earlier phases hold
+    t0 = time.time()
+    try:
+        with val_scenes(cfg.data.batch_size):
+            gather.gather_rows.launches = 0  # the main path, counted from here
+            train_cli.main(["--config", config_path, "--max_steps",
+                            str(SPK_STEPS)])
+            torch.cuda.synchronize()
+    finally:
+        pipeline.run_pipeline_training = real
+        sparse_conv.gather, segment.gather = gather, gather
+    run_s = time.time() - t0
+    val_peak = torch.cuda.max_memory_allocated()   # validation, checkpoint
+    peak = max([val_peak] + [r["peak_bytes"] for r in steps])
+    launches = gather.gather_rows.launches
+    recs = _metrics(run_dir)
+    train = [r for r in recs if "train/loss" in r]
+    val = [r for r in recs if "val/cider" in r]
+    bad = [(r["step"], k) for r in recs for k, v in r.items()
+           if not math.isfinite(v)]
+    if len(steps) != SPK_STEPS or [r["step"] for r in train] != list(
+            range(1, SPK_STEPS + 1)) or len(val) != 1:
+        raise AssertionError(f"spk_train: {len(steps)} steps, metrics steps "
+                             f"{[r['step'] for r in recs]}")
+    if bad:
+        raise AssertionError(f"spk_train: non-finite metrics {bad}")
+    if rec.checked != per_step:
+        raise AssertionError(f"spk_train: {rec.checked} gathers checked in "
+                             f"step {SPK_CHECKED_STEP}, expected {per_step}")
+    spk_per_step = _check_launches("spk_train", steps, launches, per_step,
+                                   per_forward)
+    best = json.load(open(os.path.join(run_dir, "ckpt_best", "best.json")))
+    if best["monitor"] != "cider" or best["step"] != SPK_STEPS:
+        raise AssertionError(f"spk_train: best checkpoint {best}")
+    timed = [r for r in steps if r["step"] not in (1, SPK_CHECKED_STEP)]
+    state = states[0]
+    saved = _state_copy(state)
+    del state, states[:]
+    torch.cuda.empty_cache()
+
+    # a fresh state restored from the run dir equals the run's final state
+    vocab, emb = pipeline.build_vocab(cfg)
+    model = pipeline.pipeline_from_cfg(cfg, vocab)
+    model.load_state_dict(flax_to_state_dict(init_flax_variables(model, 1),
+                                             model))
+    o = cfg.train.optim
+    fresh = create_train_state(
+        model.cuda(), lr=o.lr, optim=o.classname,
+        weight_decay=o.weight_decay, step_epoch=cfg.train.step_epoch,
+        multiplier=cfg.train.multiplier)
+    if Checkpointer(run_dir, "cider", "max").restore_last(fresh) is None:
+        raise AssertionError("spk_train: no checkpoint in the run dir")
+    diff = _first_difference(_state_copy(fresh), saved)
+    if diff is not None:
+        raise AssertionError(f"spk_train: restored state differs at {diff}")
+    n_tensors = sum(1 for _ in _tensors(saved))
+    del saved
+
+    # the step alone, its profile, and the speaker's part, on one batch of
+    # the config's val scenes (no augmentation) and its descriptions
+    with val_scenes(cfg.data.batch_size):
+        val_it = make_val_loader(cfg, spec_from_cfg(cfg), return_scenes=True)
+        batch_np, scenes = next(iter(val_it))
+    lang_np = build_lang_batch(
+        scenes, vocab, chunk, cfg.data.max_spk_len, np.random.default_rng(0),
+        cfg.data.max_num_instance, apply_word_erase=True)
+    batch = batch_to_torch(batch_np, "cuda")
+    lang = pipeline.lang_rows(lang_np, emb, "cuda")
+    lw = tuple(cfg.train.loss_weight[:4])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        return pipeline.speaker_train_step(fresh, batch, lang, gen,
+                                           chunk_size=chunk, loss_weight=lw)[1]
+
+    torch.cuda.reset_peak_memory_stats()
+    med = time_ms({"step": step}, SPK_REPS, inner=1)["step"]
+    step_peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in step().items()}
+    prof = phase_profile("spk_train_profile", step)
+
+    # the speaker's forward and backward alone (graph, target selection,
+    # teacher-forced decoder, caption loss), on detached detector outputs;
+    # then the teacher-forced decoder alone, forward and backward
+    spk = fresh.model.speaker
+    with torch.no_grad():
+        det = fresh.model.run_detector(batch, train=True, generator=gen)
+    det = {k: v.detach() for k, v in det.items()}
+    det["proposal_feats_batched"].requires_grad_()
+    data = {**det, **lang, **pipeline.expand_rows(batch, chunk)}
+    n_rows = lang["lang_ids"].shape[0]
+    g = pipeline.gumbel_draw((n_rows, cfg.model.max_num_proposal), gen, "cuda")
+
+    def speaker_fwd_bwd():
+        out = fresh.model.run_speaker(data, mode="tf", chunk_size=chunk,
+                                      gumbel=g)
+        loss, _ = caption_loss(
+            out["lang_cap"], lang["lang_ids"],
+            out["good_bbox_masks"] & (lang["annotated"] > 0))
+        loss.backward()
+
+    rows = expand_to_rows(spk.graph(data), chunk)
+    inputs = [x.detach() for x in spk.caption.train_inputs(rows, g)[3:]]
+    inputs[0].requires_grad_()
+    inputs[1].requires_grad_()
+    steps_tf = lang["lang_ids"].shape[1] - 1
+
+    def tf_fwd_bwd():
+        spk.caption.teacher_forcing(lang["lang_ids"], lang["glove_embeddings"],
+                                    *inputs).sum().backward()
+
+    parts = time_ms({"speaker_fwd_bwd": speaker_fwd_bwd,
+                     "tf_fwd_bwd": tf_fwd_bwd}, SPK_REPS, inner=1)
+    tf_kernels = phase_profile("spk_tf_profile", tf_fwd_bwd)
+    tf_launches = sum(r[2] for r in tf_kernels)
+    bound_ms = rec.bytes_needed / HBM_BYTES_PER_S * 1e3
+    gather_dev_ms = sum(r[1] for r in prof if "gather_rows_kernel" in r[0])
+    timed_keys = ("wall_s", "data_wait_s", "h2d_s", "step_s")
+    emit({"phase": "spk_train", "config": "conf/pointgroup_captioning.yaml",
+          "widths": {"batch": cfg.data.batch_size,
+                     "max_num_point": cfg.data.max_num_point,
+                     "max_num_instance": cfg.data.max_num_instance,
+                     "m": cfg.model.m, "levels": len(cfg.model.blocks),
+                     "proposals": cfg.model.max_num_proposal,
+                     "description_rows": n_rows,
+                     "teacher_forced_steps": steps_tf,
+                     "graph_steps": cfg.model.num_graph_steps,
+                     "num_locals": cfg.model.num_locals, "vocab": len(vocab),
+                     "freeze_detector": bool(cfg.model.freeze_detector),
+                     "optimizer": o.classname, "lr": o.lr,
+                     "num_workers": cfg.data.get("num_workers"),
+                     "activation_dtype": cfg.tpu.get("activation_dtype")},
+          "weights": "the run phase's detector through prepare_weights, a "
+                     "seeded random speaker",
+          "reduced": [f"one epoch of {SPK_STEPS} steps (max_steps "
+                      f"{SPK_STEPS}) of the config's {cfg.train.epochs}",
+                      f"{cfg.data.batch_size} val scenes, one batch, of the "
+                      f"config's {max(2, cfg.data.synthetic.num_scenes // 8)}",
+                      f"log_every_n_steps 1 (the config's {log_every})"],
+          "timing": "the loop waits for the card around each part of a "
+                    f"step; medians over steps but 1 and {SPK_CHECKED_STEP} "
+                    "(the checked one)",
+          "run_step_ms": _median(timed, "wall_s"),
+          "data_wait_ms": _median(timed, "data_wait_s"),
+          "h2d_ms": _median(timed, "h2d_s"),
+          "h2d_bytes": steps[0]["h2d_bytes"],
+          "step_ms": _median(timed, "step_s"),
+          "spk_train_step_ms": med,
+          "speaker_fwd_bwd_ms": parts["speaker_fwd_bwd"],
+          "speaker_share": parts["speaker_fwd_bwd"] / med,
+          "tf_fwd_bwd_ms": parts["tf_fwd_bwd"],
+          "tf_launches": tf_launches,
+          "tf_launches_per_step": tf_launches / steps_tf,
+          "steps": [{(k[:-2] + "_ms" if k.endswith("_s") else k):
+                     (round(v * 1e3, 3) if k.endswith("_s")
+                      else round(v, 3) if isinstance(v, float) else v)
+                     for k, v in r.items() if k != "t_start"}
+                    for r in steps],
+          "timed_keys": list(timed_keys),
+          "max_memory_allocated": peak, "allocated_before_run": base,
+          "val_peak": val_peak, "step_peak": step_peak,
+          "run_s": round(run_s, 3),
+          "gather_launches": launches,
+          "gather_launches_per_step": spk_per_step,
+          "gathers_checked_exact": rec.checked,
+          "gather_max_abs_err": rec.max_abs_err,
+          "gather_rows_by_dtype_width": rec.rows_by_dtype_width,
+          "gather_bytes_needed": rec.bytes_needed,
+          "gather_bound_ms": bound_ms, "gather_device_ms": gather_dev_ms,
+          "kernel_launches_per_step": sum(r[2] for r in prof),
+          "losses_finite": True,
+          "train_losses": [r["train/loss"] for r in train],
+          "captioning_losses": [r["train/captioning_loss"] for r in train],
+          "step_losses": losses,
+          "val": {k[4:]: v for k, v in val[0].items() if k != "step"},
+          "best": best, "restored_bit_exact": ["model", "optimizer",
+                                               "scheduler", "step"],
+          "tensors_compared": n_tensors,
+          "run_dir": sorted(os.listdir(run_dir)),
+          "seconds": round(time.time() - t_phase, 3)})
+    for key in ("cider", "bleu4", "rouge"):
+        if not math.isfinite(val[0][f"val/{key}"]):
+            raise AssertionError(f"spk_train: val {key} not finite")
+    del fresh, model, batch, lang, data, det, inputs, rows
+    torch.cuda.empty_cache()
+    return {"spk_train_launches_per_step": spk_per_step,
+            "spk_train_max_abs_err": rec.max_abs_err,
+            "spk_train_bound_ms": bound_ms,
+            "spk_train_device_ms": gather_dev_ms}
 
 
 def main() -> int:
@@ -1573,10 +1804,16 @@ def main() -> int:
         caption_launches, caption_err = phase_caption(det_weights, launches)
         phase_caption_eval(os.path.join(root, "captioning"), det_weights,
                            launches)
+        phase_spk_train_parity()
+        spk = phase_spk_train(
+            os.path.join(root, "spk"), run_dir, train["train_launches"],
+            launches)
     kernels[0]["run_launches_per_step"] = run_per_step
     kernels[0]["caption_launches_per_batch"] = caption_launches
     kernels[0]["caption_max_abs_err"] = caption_err
-    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], caption_err)
+    kernels[0].update(spk)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], caption_err,
+                                    spk["spk_train_max_abs_err"])
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

@@ -1,6 +1,7 @@
 """The speaker on cuda against the speaker on cpu, shared by
-``chip_smoke.py`` (phase ``caption_parity``) and the card test
-``tests/test_torch_cuda.py::test_speaker_cuda_matches_cpu``.
+``chip_smoke.py`` (phases ``caption_parity``, ``spk_train_parity``) and the
+card tests ``tests/test_torch_cuda.py::test_speaker_cuda_matches_cpu`` and
+``test_speaker_train_step_cuda_matches_cpu``.
 
 The greedy decode is a chain of argmaxes: where f32 sums reorder on the
 card, a near-tie can flip a token and the rest of its row with it. So the
@@ -8,17 +9,23 @@ ids must be equal, and each device's logits are compared teacher-forced on
 the cpu's ids (``teacher_forced_logits``), which keeps one flip from
 hiding or causing every later difference. For a row whose ids differ the
 report gives the cpu's top-2 margin at the first difference.
+
+A train step's gradients go through every ReLU, and an input within float
+noise of 0 can fall on either side when sums run in another order: the
+cuda step takes each ReLU's side from the cpu step (``relu_sides``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import contextlib
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from d3net_tpu_torch import device
-from d3net_tpu_torch.params import load_pipeline
+from d3net_tpu_torch.params import flatten, load_pipeline, state_dict_to_flax
 
 SPEAKER_INTS = ("adjacent_mat", "local_ids", "local_mask")
 SPEAKER_FLOATS = ("bbox_feature", "edge_feature", "edge_orientations")
@@ -93,3 +100,185 @@ def speaker_cuda_vs_cpu(variables, cfg, vocab, data: Dict[str, np.ndarray],
             "rows_differing": len(rows), "first_difference": margins,
             "distinct_words": int(torch.unique(ids_c).numel()),
             "rtol": rtol, "atol": atol}
+
+
+@contextlib.contextmanager
+def relu_sides(ref: List[torch.Tensor], record: bool):
+    """Stands in for ``F.relu`` for one train step. ``record``: keeps each
+    call's input (the reference step, on the cpu). Otherwise each call
+    takes the side of the kink the reference's input took (``x * (ref >
+    0)``), and the yielded dict counts the inputs whose own side differs
+    and the largest of those inputs, relative to the call's largest input.
+
+    An input within float noise of 0 can land on either side of the kink
+    when sums run in another order, and that one element's gradient then
+    reaches every layer before it (seen on the card: one ScoreNet element
+    at 1e-8 on the cpu, -1e-7 on cuda). Following the reference's side
+    keeps the gradients comparable; the caller bounds the crossings."""
+    real = F.relu
+    calls = iter(ref)
+    seen = {"crossings": 0, "largest": 0.0}
+
+    def relu(x, inplace=False):
+        if record:
+            ref.append(x.detach().clone())
+            return real(x, inplace)
+        want = next(calls).to(x.device)
+        side = want > 0
+        cross = side != (x.detach() > 0)
+        if bool(cross.any()):
+            size = max(float(want.abs().max()), 1e-30)
+            near = torch.maximum(want[cross].abs(), x.detach()[cross].abs())
+            seen["crossings"] += int(cross.sum())
+            seen["largest"] = max(seen["largest"], float(near.max()) / size)
+        return x * side
+
+    F.relu = relu
+    try:
+        yield seen
+    finally:
+        F.relu = real
+    if not record and next(calls, None) is not None:
+        raise AssertionError("the step made fewer ReLU calls than the "
+                             "reference")
+
+
+def randomize(tree, rng: np.random.Generator):
+    """Nonzero biases and BN statistics in a Flax tree of numpy leaves (in
+    place; Flax starts biases and means at 0, scales and variances at 1)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            randomize(v, rng)
+        elif k in ("bias", "mean"):
+            tree[k] = rng.normal(0.0, 0.1, v.shape).astype(np.float32)
+        elif k in ("scale", "var"):
+            tree[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+    return tree
+
+
+def rot_z(theta: np.ndarray) -> np.ndarray:
+    """Rotations about z by ``theta`` -> (..., 3, 3) f32."""
+    c, s = np.cos(theta), np.sin(theta)
+    out = np.zeros(theta.shape + (3, 3), np.float32)
+    out[..., 0, 0], out[..., 0, 1] = c, -s
+    out[..., 1, 0], out[..., 1, 1] = s, c
+    out[..., 2, 2] = 1.0
+    return out
+
+
+def speaker_step_case(cfg, vocab, seed: int = 0) -> Dict[str, Any]:
+    """One mode-1 train step's inputs at ``cfg``'s widths (numpy): the
+    first batch of its train loader with seeded object rotations about z
+    (so the orientation loss runs), its description rows, random weights
+    with nonzero biases and BN statistics, and the jitter, proposal
+    permutation and Gumbel draws."""
+    from d3net_tpu_torch.data.language import build_lang_batch
+    from d3net_tpu_torch.params import init_flax_variables
+    from d3net_tpu_torch.train.loop import make_dataloaders, spec_from_cfg
+    from d3net_tpu_torch.train.pipeline import pipeline_from_cfg
+
+    spec = spec_from_cfg(cfg)
+    train_it, _ = make_dataloaders(cfg, spec, return_scenes=True)
+    batch_np, scenes = next(iter(train_it))
+    rng = np.random.default_rng(seed)
+    b, i = batch_np["center_label"].shape[:2]
+    batch_np["scene_object_rotations"] = rot_z(rng.uniform(-np.pi, np.pi,
+                                                           (b, i)))
+    batch_np["scene_object_rotation_masks"] = (rng.random((b, i)) < 0.8
+                                               ).astype(np.float32)
+    chunk = int(cfg.data.num_des_per_scene)
+    lang_np = build_lang_batch(scenes, vocab, chunk, cfg.data.max_spk_len,
+                               np.random.default_rng(seed),
+                               spec.max_instances, apply_word_erase=True)
+    variables = randomize(init_flax_variables(pipeline_from_cfg(cfg, vocab),
+                                              seed), rng)
+    k = cfg.model.max_num_proposal
+    return {"batch": batch_np, "scenes": scenes, "lang": lang_np,
+            "variables": variables, "chunk": chunk,
+            "jitter": rng.random((b, 2 * cfg.tpu.clusters_per_pass, 3)
+                                 ).astype(np.float32),
+            "perm": rng.permutation(k).astype(np.int64),
+            "gumbel": rng.gumbel(size=(b * chunk, k)).astype(np.float32)}
+
+
+def speaker_step_cuda_vs_cpu(cfg, vocab, emb, case: Dict[str, Any],
+                             freeze_detector: bool, loss_rtol: float = 1e-4,
+                             grad_rtol: float = 1e-3, grad_atol: float = 1e-6,
+                             bn_rtol: float = 1e-4, bn_atol: float = 1e-5,
+                             kink_noise: float = 1e-5) -> Dict[str, Any]:
+    """One ``speaker_train_step`` of ``case`` (``speaker_step_case``) on cpu
+    and on cuda inside ``device.parity_precision()``, the same injected
+    draws, the cuda step on the cpu step's ReLU sides: losses, every
+    gradient and the new BN statistics within their tolerances, and the
+    target ids and good-box masks of the same draws equal. ``ok`` when all
+    hold and no ReLU input that changed side lies beyond ``kink_noise``
+    (relative) of the kink. Also the cuda step's ``gather_rows``
+    launches (a frozen detector runs no backward gathers)."""
+    from d3net_tpu_torch.data.collate import batch_to_torch
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.train.pipeline import (
+        freeze_submodules, lang_rows, speaker_losses, speaker_train_step,
+    )
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    lw = tuple(cfg.train.loss_weight[:4])
+    o = cfg.train.optim
+    res, relu_ref = {}, []
+    with device.parity_precision():
+        for dev in ("cpu", "cuda"):
+            model = load_pipeline(case["variables"], cfg, vocab, device=dev)
+            freeze_submodules(model, {"detector": freeze_detector})
+            state = create_train_state(model, lr=o.lr, optim=o.classname,
+                                       weight_decay=o.weight_decay)
+            batch = batch_to_torch(case["batch"], dev)
+            lang = lang_rows(case["lang"], emb, dev)
+            kw = dict(chunk_size=case["chunk"], loss_weight=lw,
+                      jitter_u=torch.from_numpy(case["jitter"]).to(dev),
+                      proposal_perm=torch.from_numpy(case["perm"]).to(dev)[None],
+                      gumbel=torch.from_numpy(case["gumbel"]).to(dev))
+            before = gather.gather_rows.launches
+            with relu_sides(relu_ref, dev == "cpu") as kinks:
+                _, metrics = speaker_train_step(state, batch, lang, **kw)
+            launches = gather.gather_rows.launches - before
+            fresh = load_pipeline(case["variables"], cfg, vocab, device=dev)
+            with torch.no_grad():
+                _, _, data = speaker_losses(fresh, batch, lang, **kw)
+            res[dev] = {
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": flatten(state_dict_to_flax(model, {
+                    n: p.grad for n, p in model.named_parameters()
+                    if p.grad is not None})["params"]),
+                "stats": flatten(state_dict_to_flax(model)["batch_stats"]),
+                "ints": {k: data[k].cpu() for k in ("target_ids",
+                                                    "good_bbox_masks")},
+                "kinks": kinks, "launches": launches}
+    cpu, gpu = res["cpu"], res["cuda"]
+    bad = [k for k, want in cpu["metrics"].items()
+           if not np.isclose(gpu["metrics"][k], want, rtol=loss_rtol, atol=0)]
+    if set(gpu["grads"]) != set(cpu["grads"]):
+        bad.append("grad:keys")
+    for name, group, rtol, atol in (("grad", "grads", grad_rtol, grad_atol),
+                                    ("bn", "stats", bn_rtol, bn_atol)):
+        for k, want in cpu[group].items():
+            if not np.allclose(gpu[group].get(k, np.nan), want, rtol=rtol,
+                               atol=atol):
+                bad.append(f"{name}:{k}")
+    ints = {k: bool(torch.equal(gpu["ints"][k], v))
+            for k, v in cpu["ints"].items()}
+    kinks = gpu["kinks"]
+    if kinks["largest"] > kink_noise:
+        bad.append("relu_kink_crossing")
+    return {"ok": not bad and all(ints.values()),
+            "freeze_detector": freeze_detector,
+            "losses_cpu": cpu["metrics"], "losses_cuda": gpu["metrics"],
+            "gradients": len(cpu["grads"]),
+            "grad_max_abs_err": max(float(np.abs(gpu["grads"][k] - v).max())
+                                    for k, v in cpu["grads"].items()
+                                    if k in gpu["grads"]),
+            "bn_max_abs_err": max(float(np.abs(gpu["stats"][k] - v).max())
+                                  for k, v in cpu["stats"].items()),
+            "integers_equal": ints,
+            "good_rows": int(cpu["ints"]["good_bbox_masks"].sum()),
+            "relu_kink_crossings": kinks, "outside_tolerance": bad,
+            "gather_launches_cuda": gpu["launches"],
+            "gather_launches_cpu": cpu["launches"]}

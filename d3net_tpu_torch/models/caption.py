@@ -3,10 +3,13 @@
 
 Eval-mode captioning folds the proposal dimension into the batch: every
 proposal of every scene is a row (N = B·P) decoded greedily for
-``max_len + 1`` steps. The decode loop stays on the device: no host sync,
-no branch on a device value, so one step launches the same kernels every
-time. The only change from the JAX step is that ``map_feat(obj_feats)``,
-the same product at every step, is computed once before the loop.
+``max_len + 1`` steps. The training modes ``tf`` (teacher forcing) and
+``free`` (each step reads the previous step's argmax) run over description
+rows N = B·chunk, each with a target proposal picked by ``select_target``.
+Both loops stay on the device: no host sync, no branch on a device value,
+so one step launches the same kernels every time. The only change from the
+JAX step is that ``map_feat(obj_feats)``, the same product at every step,
+is computed once before the loop.
 
 Semantics preserved, including the reference's attention-mask quirk
 (masked scores are set to 0, not -inf, before the softmax over all
@@ -16,9 +19,8 @@ proposals: masked proposals still receive e^0 weight,
 The word embedding matrix arrives via ``data["glove_embeddings"]`` (V, E),
 E = ``emb_size``.
 
-Modes ``tf``/``free``/``rl``/``rl_tf``, target selection and beam search
-are the speaker's training path and are not ported yet (ROADMAP.md queue
-A item 13); they raise.
+Modes ``rl``/``rl_tf`` and the beam search belong to joint self-critical
+RL and are not ported yet (ROADMAP.md queue A item 15); they raise.
 """
 
 from __future__ import annotations
@@ -29,10 +31,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from d3net_tpu_torch.models.graph import box_centers, target_locals
+from d3net_tpu_torch.models.graph import box_centers, query_locals, target_locals
+from d3net_tpu_torch.utils.bbox import aabb_iou_corners
+from d3net_tpu_torch.utils.nn_distance import nn_distance
 
-NOT_PORTED = ("is the speaker's training path, not ported yet (ROADMAP.md, "
-              "queue A item 13)")
+NOT_PORTED = ("belongs to joint self-critical RL, not ported yet "
+              "(ROADMAP.md, queue A item 15)")
 
 
 class GRUCell(nn.Module):
@@ -68,13 +72,14 @@ class GRUCell(nn.Module):
 
 class CaptionModule(nn.Module):
     """Speaker caption head over batched proposals. The arguments are the
-    JAX module's fields that eval mode reads; the target selection's IoU
-    threshold and the beam search's are the training path's."""
+    JAX module's fields but the beam search's; a target whose IoU with its
+    GT box exceeds ``min_iou_threshold`` is a good box."""
 
     def __init__(self, num_vocabs: int, sos_id: int, eos_id: int,
                  pad_id: int = 0, emb_size: int = 300, feat_size: int = 128,
                  hidden_size: int = 512, num_locals: int = 10,
-                 max_len: int = 30, use_relation: bool = True):
+                 max_len: int = 30, min_iou_threshold: float = 0.25,
+                 use_relation: bool = True):
         super().__init__()
         self.sos_id = sos_id
         self.eos_id = eos_id
@@ -82,6 +87,7 @@ class CaptionModule(nn.Module):
         self.hidden_size = hidden_size
         self.num_locals = num_locals
         self.max_len = max_len
+        self.min_iou_threshold = min_iou_threshold
         self.use_relation = use_relation
         e, f, h = emb_size, feat_size, hidden_size
         self.map_topdown = nn.Linear(e + h + f, e)
@@ -121,6 +127,26 @@ class CaptionModule(nn.Module):
         logits = self.cls_fc2(F.relu(self.cls_fc1(h2)))
         return logits, (h1, h2), attn
 
+    def teacher_forcing(self, word_ids, embeddings, target_feat, obj_feats,
+                        valid_masks, use_tf: bool = True) -> torch.Tensor:
+        """word_ids (N, T) -> logits (N, T-1, V) (ref TF loop :636-667).
+        Step t reads ``word_ids[:, t]``, or with ``use_tf`` False the
+        previous step's argmax (``word_ids[:, 0]`` at t = 0)."""
+        n, t = word_ids.shape
+        feat_proj = self.map_feat(obj_feats)      # the same at every step
+        h = target_feat.new_zeros(n, self.hidden_size)
+        hiddens = (h, h)
+        words = word_ids.long()
+        all_logits = []
+        for i in range(t - 1):
+            ids = words[:, i] if use_tf or i == 0 else \
+                all_logits[-1].argmax(-1)
+            logits, hiddens, _ = self.step(
+                hiddens, embeddings[ids], target_feat, obj_feats,
+                valid_masks, feat_proj)
+            all_logits.append(logits)
+        return torch.stack(all_logits, 1)
+
     def greedy_decode(self, embeddings, target_feat, obj_feats, valid_masks,
                       max_len: Optional[int] = None,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,6 +173,30 @@ class CaptionModule(nn.Module):
         raise NotImplementedError(f"beam_decode {NOT_PORTED}")
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def select_target(gumbel, obj_masks, centers, corners, center_labels,
+                      corner_labels, ref_corner_label, is_annotated):
+        """Each description row's target (ref ``select_target`` :416-508):
+        an annotated row takes the proposal of highest IoU with its referred
+        GT box; another row a random valid proposal, the argmax of the
+        Gumbel draw ``gumbel`` (N, P) over the valid ones (over all when a
+        scene has none), and that proposal's nearest GT box. Ties go to the
+        first index, as ``jnp.argmax``'s. -> (target ids (N,) int32, target
+        IoUs (N,), the random proposal's GT ids (N,) int32)."""
+        rows = torch.arange(obj_masks.shape[0], device=obj_masks.device)
+        iou_ann = aabb_iou_corners(corners, ref_corner_label[:, None])
+        ann_iou, ann_id = iou_ann.amax(1), iou_ann.argmax(1)
+        rand_id = torch.where(obj_masks > 0, gumbel, -torch.inf).argmax(1)
+        rand_id = torch.where(obj_masks.sum(1) > 0, rand_id, gumbel.argmax(1))
+        _, assign, _, _ = nn_distance(centers, center_labels)
+        rand_assigned = assign[rows, rand_id].long()
+        rand_iou = aabb_iou_corners(corners[rows, rand_id],
+                                    corner_labels[rows, rand_assigned])
+        ann = is_annotated > 0
+        target_id = torch.where(ann, ann_id, rand_id).to(torch.int32)
+        target_iou = torch.where(ann, ann_iou, rand_iou)
+        return target_id, target_iou, rand_assigned.to(torch.int32)
+
     @staticmethod
     def scatter_relation(rel, ids, msk, obj_feats):
         """Add each row's target edge features ``rel`` (N, L, C) at its
@@ -192,16 +242,60 @@ class CaptionModule(nn.Module):
                 "edge_feature", "local_ids", "local_mask")), of)
         return target_feats, of, vm
 
+    def train_inputs(self, data: Dict[str, Any], gumbel: torch.Tensor):
+        """The training modes' targets and decoder inputs for description
+        rows: (target ids, target IoUs, the random targets' GT ids, target
+        feats (N, F), obj feats with the relation features (N, P, F), valid
+        masks (N, P))."""
+        if gumbel is None:
+            raise ValueError("modes 'tf' and 'free' need the Gumbel draw of "
+                             "select_target (N, P)")
+        obj_feats = data["bbox_feature"]            # (N, P, F)
+        obj_masks = data["proposal_batch_mask"]     # (N, P)
+        corners = data["proposal_bbox_batched"]     # (N, P, 8, 3)
+        centers = box_centers(corners)
+        with torch.no_grad():                       # integers and masks
+            target_ids, target_ious, assigned = self.select_target(
+                gumbel, obj_masks, centers, corners,
+                data["center_label_chunk"], data["gt_bbox_chunk"],
+                data["ref_box_corner_label"], data["annotated"])
+            vm = obj_masks if self.num_locals == -1 else query_locals(
+                corners, centers, target_ids, obj_masks, self.num_locals)
+        rows = torch.arange(target_ids.shape[0], device=target_ids.device)
+        target_feats = obj_feats[rows, target_ids.long()]
+        if self.use_relation:
+            obj_feats = self.add_relation_feat(
+                data["edge_feature"], data["local_ids"], data["local_mask"],
+                obj_feats, target_ids)
+        return target_ids, target_ious, assigned, target_feats, obj_feats, vm
+
     # ------------------------------------------------------------------
-    def forward(self, data: Dict[str, Any], mode: str = "tf") -> Dict[str, Any]:
+    def forward(self, data: Dict[str, Any], mode: str = "tf",
+                gumbel: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """mode 'eval': caption every proposal greedily -> ``lang_cap``
-        (B, P, max_len + 1) int32 ids."""
-        if mode != "eval":
+        (B, P, max_len + 1) int32 ids. Modes 'tf' and 'free': ``data`` holds
+        description rows (N = B·chunk) and ``gumbel`` (N, P) the draw of
+        ``select_target`` -> ``target_ids``, ``target_ious``,
+        ``assigned_bbox_id_labels``, ``good_bbox_masks`` and ``lang_cap``,
+        the logits (N, T-1, V) of ``teacher_forcing`` over ``lang_ids``."""
+        if mode not in ("eval", "tf", "free"):
             raise NotImplementedError(f"CaptionModule mode {mode!r} {NOT_PORTED}")
-        b, p, _ = data["bbox_feature"].shape
-        target_feats, of, vm = self.eval_inputs(data)
-        ids, _ = self.greedy_decode(data["glove_embeddings"], target_feats,
-                                    of, vm)
         out = dict(data)
-        out["lang_cap"] = ids.reshape(b, p, -1)
+        embeddings = data["glove_embeddings"]
+        if mode == "eval":
+            b, p, _ = data["bbox_feature"].shape
+            target_feats, of, vm = self.eval_inputs(data)
+            ids, _ = self.greedy_decode(embeddings, target_feats, of, vm)
+            out["lang_cap"] = ids.reshape(b, p, -1)
+            return out
+
+        target_ids, target_ious, assigned, target_feats, obj_feats, vm = \
+            self.train_inputs(data, gumbel)
+        out["target_ids"] = target_ids
+        out["target_ious"] = target_ious
+        out["assigned_bbox_id_labels"] = assigned
+        out["good_bbox_masks"] = target_ious > self.min_iou_threshold
+        out["lang_cap"] = self.teacher_forcing(
+            data["lang_ids"], embeddings, target_feats, obj_feats, vm,
+            use_tf=mode == "tf")
         return out

@@ -8,8 +8,9 @@ queue A item 14 and raises; the moderator waits for joint RL (item 15).
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
+import torch
 from torch import nn
 
 from d3net_tpu_torch.models.pointgroup import PointGroup
@@ -18,20 +19,22 @@ from d3net_tpu_torch.models.speaker import SpeakerNet
 
 class PipelineNet(nn.Module):
     """``in_channels`` is the detector's input width; the other arguments
-    are the JAX module's fields that the detector and the speaker's eval
-    mode read."""
+    are the JAX module's fields that the detector and the speaker read."""
 
     def __init__(self, in_channels: int, detector_cfg: Dict[str, Any],
                  num_vocabs: int = 44, sos_id: int = 2, eos_id: int = 3,
                  pad_id: int = 0, num_graph_steps: int = 2,
                  num_locals: int = 10, max_spk_len: int = 30,
-                 use_relation: bool = True, use_orientation: bool = True,
-                 no_captioning: bool = False, no_grounding: bool = False):
+                 min_iou_threshold: float = 0.25, use_relation: bool = True,
+                 use_orientation: bool = True, no_captioning: bool = False,
+                 no_grounding: bool = False):
         super().__init__()
         if not no_grounding:
             raise NotImplementedError(
                 "PipelineNet with the listener (no_grounding=False) is not "
                 "ported (ROADMAP.md, queue A item 14)")
+        self.pad_id = pad_id
+        self.use_orientation = use_orientation
         self.detector = PointGroup(in_channels, **detector_cfg)
         if not no_captioning:
             self.speaker = SpeakerNet(
@@ -41,12 +44,18 @@ class PipelineNet(nn.Module):
                 m=detector_cfg.get("m", 16)
                 * tuple(detector_cfg.get("cluster_blocks", (1, 2)))[0],
                 num_graph_steps=num_graph_steps, num_locals=num_locals,
-                max_len=max_spk_len, use_relation=use_relation,
+                max_len=max_spk_len, min_iou_threshold=min_iou_threshold,
+                use_relation=use_relation,
                 use_orientation=use_orientation)
 
     def run_detector(self, batch, train: bool = False,
-                     do_clustering: bool = True):
-        return self.detector(batch, train=train, do_clustering=do_clustering)
+                     do_clustering: bool = True, **draws):
+        """The detector; ``draws`` are its keyword arguments ``generator``,
+        ``jitter_u`` and ``proposal_perm``."""
+        return self.detector(batch, train=train, do_clustering=do_clustering,
+                             **draws)
 
-    def run_speaker(self, data, mode: str = "tf"):
-        return self.speaker(data, mode=mode)
+    def run_speaker(self, data, mode: str = "tf", chunk_size: int = 1,
+                    gumbel: Optional[torch.Tensor] = None):
+        return self.speaker(data, mode=mode, chunk_size=chunk_size,
+                            gumbel=gumbel)

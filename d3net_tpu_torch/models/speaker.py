@@ -3,12 +3,24 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
+import torch
 from torch import nn
 
 from d3net_tpu_torch.models.caption import NOT_PORTED, CaptionModule
 from d3net_tpu_torch.models.graph import GraphModule
+
+# the scene-level tensors that the training modes repeat per description
+EXPAND_KEYS = ("bbox_feature", "proposal_batch_mask", "proposal_bbox_batched",
+               "edge_feature", "local_ids", "local_mask")
+
+
+def expand_to_rows(data: Dict[str, Any], chunk_size: int) -> Dict[str, Any]:
+    """``data`` with each of ``EXPAND_KEYS`` repeated ``chunk_size`` times
+    per scene: one row per description."""
+    return {k: v.repeat_interleave(chunk_size, dim=0) if k in EXPAND_KEYS
+            else v for k, v in data.items()}
 
 
 class SpeakerNet(nn.Module):
@@ -18,8 +30,8 @@ class SpeakerNet(nn.Module):
     def __init__(self, num_vocabs: int, sos_id: int, eos_id: int,
                  pad_id: int = 0, m: int = 16, feat_size: int = 128,
                  num_graph_steps: int = 2, num_locals: int = 10,
-                 max_len: int = 30, use_relation: bool = True,
-                 use_orientation: bool = True):
+                 max_len: int = 30, min_iou_threshold: float = 0.25,
+                 use_relation: bool = True, use_orientation: bool = True):
         super().__init__()
         self.num_graph_steps = num_graph_steps
         if num_graph_steps > 0:
@@ -29,11 +41,21 @@ class SpeakerNet(nn.Module):
         self.caption = CaptionModule(
             num_vocabs=num_vocabs, sos_id=sos_id, eos_id=eos_id,
             pad_id=pad_id, feat_size=feat_size, num_locals=num_locals,
-            max_len=max_len, use_relation=use_relation)
+            max_len=max_len, min_iou_threshold=min_iou_threshold,
+            use_relation=use_relation)
 
-    def forward(self, data: Dict[str, Any], mode: str = "tf") -> Dict[str, Any]:
+    def forward(self, data: Dict[str, Any], mode: str = "tf",
+                chunk_size: int = 1,
+                gumbel: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """The graph over the scenes' proposals, then the caption head. In
+        modes other than 'eval' the scene-level keys are repeated
+        ``chunk_size`` times each, one row per description; the graph's
+        other outputs (``edge_orientations``, ``adjacent_mat``) stay per
+        scene."""
+        if mode not in ("eval", "tf", "free"):
+            raise NotImplementedError(f"SpeakerNet mode {mode!r} {NOT_PORTED}")
         if self.num_graph_steps > 0:
             data = self.graph(data)
         if mode != "eval":
-            raise NotImplementedError(f"SpeakerNet mode {mode!r} {NOT_PORTED}")
-        return self.caption(data, mode=mode)
+            data = expand_to_rows(data, chunk_size)
+        return self.caption(data, mode=mode, gumbel=gumbel)

@@ -5,8 +5,13 @@
 
 The task YAML is merged over ``path.yaml`` beside it, when there is one;
 the run goes to ``general.output_root/<folder or general.experiment>``
-and resumes from its last checkpoint. Runs on CUDA unless ``--cpu`` is
-given; without a GPU and without ``--cpu`` it raises.
+and resumes from its last checkpoint. The detector (task mode (1, 0, 0))
+trains through ``run_detector_training``, the detector with the speaker
+((1, 1, 0), e.g. conf/pointgroup_captioning.yaml, whose
+``model.pretrained_detector`` is written by ``prepare_weights``) through
+``run_pipeline_training``, which raises for the listener's and joint RL's
+modes. Runs on CUDA unless ``--cpu`` is given; without a GPU and without
+``--cpu`` it raises.
 """
 
 from __future__ import annotations
@@ -45,20 +50,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         int(not cfg.model.no_captioning),
         int(not cfg.model.no_grounding),
     )
-    if task_mode != (1, 0, 0):
-        raise NotImplementedError(
-            f"task mode {task_mode}: only the detector (1, 0, 0) is ported; "
-            "the speaker, listener and joint pipeline are ROADMAP.md queue A "
-            "items 13-15")
-    if cfg.tpu.get("steps_per_dispatch"):
-        raise NotImplementedError(
-            "tpu.steps_per_dispatch: the scan trainer "
-            "(run_detector_training_scan) is not ported (ROADMAP.md, Next)")
-
-    from d3net_tpu_torch.train.loop import run_detector_training
-
-    run_detector_training(cfg, run_dir, max_steps=args.max_steps,
-                          device=device)
+    if task_mode == (1, 0, 0):
+        if cfg.tpu.get("steps_per_dispatch"):
+            raise NotImplementedError(
+                "tpu.steps_per_dispatch: the scan trainer "
+                "(run_detector_training_scan) is not ported (ROADMAP.md, "
+                "queue A item 19)")
+        from d3net_tpu_torch.train.loop import run_detector_training as run
+    else:
+        from d3net_tpu_torch.train.pipeline import run_pipeline_training as run
+    run(cfg, run_dir, max_steps=args.max_steps, device=device)
 
 
 if __name__ == "__main__":

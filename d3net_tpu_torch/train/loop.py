@@ -35,7 +35,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -398,6 +398,127 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+class StepLoop:
+    """The train steps of a run loop (``run_detector_training`` and the
+    pipeline's ``run_pipeline_training``), one epoch per ``run_epoch``.
+
+    An epoch's batches come from the host loader or, with
+    ``tpu.cache_batches``, stay on the device: with augmentation the first
+    ``tpu.augment_variants`` epochs are kept as independent augmented
+    copies (the loader is epoch-seeded) and later epochs cycle them. Around
+    the steps: the ``log.profile_step`` window, the train log every
+    ``train.log_every_n_steps`` steps and ``max_steps``.
+
+    ``on_step``, if given, is called after every train step with its timings
+    on the host's clock: ``t_start`` when the loop asked for the batch,
+    ``data_wait_s`` blocked on the batch iterator, ``h2d_s`` copying the
+    batch to the device (``h2d_bytes``), ``step_s`` in the step, ``wall_s``
+    all three. With ``sync_steps`` the loop waits for the device around
+    each copy and at the end of each step, so each part's time includes its
+    device work; without, the steps run as they do without ``on_step`` and
+    each time ends when the host got past that part.
+    """
+
+    def __init__(self, cfg: Config, run_dir: str, dev: torch.device,
+                 augment: bool, step: int, max_steps: Optional[int] = None,
+                 on_step: Optional[Callable[[Dict], None]] = None,
+                 sync_steps: bool = True):
+        log_cfg = cfg.get("log")
+        self.logger = MetricLogger(run_dir, tensorboard=bool(
+            log_cfg is not None and log_cfg.get("tensorboard", False)))
+        self.logger.begin(step)
+        self.profile_at = int((log_cfg.get("profile_step", 0)
+                               if log_cfg is not None else 0) or 0)
+        self.prof = None
+        self.cache_batches = bool(cfg.tpu.get("cache_batches", False))
+        self.n_var = 1
+        if self.cache_batches and augment:
+            self.n_var = max(1, int(cfg.tpu.get("augment_variants", 2)))
+        self.variant_epochs: List[list] = []
+        self.log_every = cfg.train.log_every_n_steps
+        self.run_dir, self.dev = run_dir, dev
+        self.step, self.max_steps = step, max_steps
+        self.on_step, self.sync_steps = on_step, sync_steps
+
+    @property
+    def done(self) -> bool:
+        """Whether ``max_steps`` is reached."""
+        return bool(self.max_steps and self.step >= self.max_steps)
+
+    def run_epoch(self, epoch: int, train_it,
+                  to_device: Callable[[Any], Tuple[Any, Any]],
+                  train_step: Callable[[Any, int], Dict[str, torch.Tensor]],
+                  log_extra: Optional[Callable[[], Dict[str, float]]] = None,
+                  ) -> None:
+        """The steps of one epoch, until ``train_it`` ends or ``max_steps``.
+        ``to_device(item)`` turns a loader item into (its host arrays, the
+        device batch); ``train_step(batch, step)`` runs the 0-based step
+        ``step`` and returns its metrics; ``log_extra()`` adds to a train
+        log line."""
+        dev, on_step = self.dev, self.on_step
+        caching = self.cache_batches and len(self.variant_epochs) < self.n_var
+        from_host = not self.cache_batches or caching
+        if from_host:
+            items = iter(train_it)
+            if caching:
+                self.variant_epochs.append([])
+        else:
+            items = iter(self.variant_epochs[epoch % self.n_var])
+        while True:
+            t_wait = time.perf_counter()
+            item = next(items, None)
+            if item is None:
+                break
+            t_copy = time.perf_counter()
+            h2d_bytes = 0
+            if from_host:
+                arrays, batch = to_device(item)
+                if on_step is not None:
+                    h2d_bytes = sum(a.nbytes for a in _arrays(arrays))
+                if caching:
+                    self.variant_epochs[-1].append(batch)
+            else:
+                batch = item
+            if on_step is not None and self.sync_steps:
+                _sync(dev)
+            if self.profile_at and self.step == self.profile_at:
+                self.prof = _start_profile(dev)
+            t0 = time.perf_counter()
+            metrics = train_step(batch, self.step)
+            self.step += 1
+            if self.prof is not None and self.step == self.profile_at + 3:
+                self.prof = _stop_profile(self.prof, dev, self.run_dir)
+            if on_step is not None:
+                if self.sync_steps:
+                    _sync(dev)
+                t1 = time.perf_counter()
+                on_step({"step": self.step, "epoch": epoch, "t_start": t_wait,
+                         "data_wait_s": t_copy - t_wait, "h2d_s": t0 - t_copy,
+                         "h2d_bytes": h2d_bytes, "step_s": t1 - t0,
+                         "wall_s": t1 - t_wait})
+            if self.step % self.log_every == 0:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                metrics["iter_time"] = time.perf_counter() - t0
+                if log_extra is not None:
+                    metrics.update(log_extra())
+                self.logger.log(self.step, metrics, "train")
+                print(f"epoch {epoch} step {self.step} "
+                      + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+            if self.done:
+                break
+
+    def finish(self) -> None:
+        """Ends a profile window the run ended inside."""
+        if self.prof is not None:
+            self.prof = _stop_profile(self.prof, self.dev, self.run_dir)
+
+
+def _cap_counters() -> Dict[str, float]:
+    """Silent-truncation telemetry: the host cap counters since the last
+    train log line."""
+    return {k: v for k, v in CAP_STATS.reset().items() if k != "batches"}
+
+
 def run_detector_training(cfg: Config, run_dir: str,
                           max_steps: Optional[int] = None,
                           device: DeviceLike = None,
@@ -405,27 +526,13 @@ def run_detector_training(cfg: Config, run_dir: str,
                           sync_steps: bool = True,
                           ) -> TrainState:
     """Train the detector of ``cfg`` into ``run_dir``, resuming from its
-    last checkpoint; returns the train state.
-
-    Runs on CUDA unless ``device`` says otherwise. ``on_step``, if given,
-    is called after every train step with its timings on the host's clock:
-    ``t_start`` when the loop asked for the batch, ``data_wait_s`` blocked
-    on the batch iterator, ``h2d_s`` copying the batch to the device
-    (``h2d_bytes``), ``step_s`` in the step, ``wall_s`` all three. With
-    ``sync_steps`` the loop waits for the device around each copy and at
-    the end of each step, so each part's time includes its device work;
-    without, the steps run as they do without ``on_step`` and each time
-    ends when the host got past that part.
+    last checkpoint; returns the train state. Runs on CUDA unless
+    ``device`` says otherwise; ``on_step`` and ``sync_steps`` are
+    ``StepLoop``'s.
     """
     dev = resolve_device(device)
     os.makedirs(run_dir, exist_ok=True)
     save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
-    log_cfg = cfg.get("log")
-    profile_at = int((log_cfg.get("profile_step", 0) if log_cfg is not None
-                      else 0) or 0)
-    prof = None
-    logger = MetricLogger(run_dir, tensorboard=bool(
-        log_cfg is not None and log_cfg.get("tensorboard", False)))
     ckpt = Checkpointer(run_dir, cfg.general.monitor.replace("val_loss/", ""),
                         cfg.general.monitor_mode)
 
@@ -433,7 +540,6 @@ def run_detector_training(cfg: Config, run_dir: str,
     model = init_detector(detector_from_cfg(cfg),
                           cfg.general.manual_seed).to(dev)
     train_it, val_it = make_dataloaders(cfg, spec)
-    steps_per_epoch = max(1, len(train_it))
     state = create_train_state(
         model,
         lr=cfg.train.optim.lr,
@@ -442,7 +548,7 @@ def run_detector_training(cfg: Config, run_dir: str,
         momentum=cfg.train.optim.momentum,
         step_epoch=cfg.train.step_epoch,
         multiplier=cfg.train.multiplier,
-        steps_per_epoch=steps_per_epoch,
+        steps_per_epoch=max(1, len(train_it)),
     )
     if ckpt.restore_last(state) is not None:
         print(f"resumed from step {state.step}")
@@ -450,113 +556,52 @@ def run_detector_training(cfg: Config, run_dir: str,
         "framework": f"torch {torch.__version__}", "device": str(dev),
         "conv_impl": "gather",
         "conv_impl_requested": cfg.tpu.get("conv_impl") or "gather"})
-    logger.begin(state.step)
+    loop = StepLoop(cfg, run_dir, dev, train_it.augment, state.step,
+                    max_steps, on_step, sync_steps)
 
     lw = tuple(cfg.train.loss_weight[:4])
     # prepare_epochs: train the semantic and offset heads only (no
     # clustering, no ScoreNet) for the first N epochs
     prepare_epochs = int(cfg.cluster.get("prepare_epochs", -1) or -1)
     seed = cfg.general.manual_seed + 1
-
-    # device-resident batches: with augmentation the first
-    # ``tpu.augment_variants`` epochs are kept as independent augmented
-    # copies (the loader is epoch-seeded) and later epochs cycle them
-    cache_batches = bool(cfg.tpu.get("cache_batches", False))
-    n_var = 1
-    if cache_batches and train_it.augment:
-        n_var = max(1, int(cfg.tpu.get("augment_variants", 2)))
-    variant_epochs: List[list] = []
     val_batches: list = []
 
-    step = state.step
     for epoch in range(cfg.train.epochs):
         t_epoch = time.time()
         in_prepare = prepare_epochs > 0 and epoch < prepare_epochs
-        caching_this_epoch = cache_batches and len(variant_epochs) < n_var
-        from_host = not cache_batches or caching_this_epoch
-        if from_host:
-            batches = iter(train_it)
-            if caching_this_epoch:
-                variant_epochs.append([])
-        else:
-            batches = iter(variant_epochs[epoch % n_var])
-        while True:
-            t_wait = time.perf_counter()
-            item = next(batches, None)
-            if item is None:
-                break
-            t_copy = time.perf_counter()
-            h2d_bytes = 0
-            if from_host:
-                if on_step is not None:
-                    h2d_bytes = sum(a.nbytes for a in _arrays(item))
-                batch = batch_to_torch(item, dev)
-                if caching_this_epoch:
-                    variant_epochs[-1].append(batch)
-            else:
-                batch = item
-            if on_step is not None and sync_steps:
-                _sync(dev)
-            if profile_at and step == profile_at:
-                prof = _start_profile(dev)
-            t0 = time.perf_counter()
-            state, metrics = detector_train_step(
+        loop.run_epoch(
+            epoch, train_it, lambda item: (item, batch_to_torch(item, dev)),
+            lambda batch, step: detector_train_step(
                 state, batch, step_generator(seed, step, dev),
-                loss_weight=lw, do_clustering=not in_prepare)
-            step += 1
-            if prof is not None and step == profile_at + 3:
-                prof = _stop_profile(prof, dev, run_dir)
-            if on_step is not None:
-                if sync_steps:
-                    _sync(dev)
-                t1 = time.perf_counter()
-                on_step({"step": step, "epoch": epoch, "t_start": t_wait,
-                         "data_wait_s": t_copy - t_wait, "h2d_s": t0 - t_copy,
-                         "h2d_bytes": h2d_bytes, "step_s": t1 - t0,
-                         "wall_s": t1 - t_wait})
-            if step % cfg.train.log_every_n_steps == 0:
-                metrics = {k: float(v) for k, v in metrics.items()}
-                metrics["iter_time"] = time.perf_counter() - t0
-                # silent-truncation telemetry: host cap counters since the
-                # last log line
-                for k, v in CAP_STATS.reset().items():
-                    if k != "batches":
-                        metrics[k] = v
-                logger.log(step, metrics, "train")
-                print(f"epoch {epoch} step {step} "
-                      + " ".join(f"{k}={float(v):.4f}"
-                                 for k, v in metrics.items()))
-            if max_steps and step >= max_steps:
-                break
+                loss_weight=lw, do_clustering=not in_prepare)[1],
+            log_extra=_cap_counters)
 
         # validation (device-cached like the train batches)
         check_every = int(cfg.train.get("check_val_every_n_epoch", 1) or 1)
-        if (epoch + 1) % check_every != 0 and not (max_steps
-                                                   and step >= max_steps):
+        if (epoch + 1) % check_every != 0 and not loop.done:
             print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s "
                   "(val skipped)")
             continue
         val_metrics: Dict[str, list] = {}
-        cached_val = cache_batches and bool(val_batches)
+        cached_val = loop.cache_batches and bool(val_batches)
         for item in (val_batches if cached_val else val_it):
             batch = item if cached_val else batch_to_torch(item, dev)
-            if cache_batches and not cached_val:
+            if loop.cache_batches and not cached_val:
                 val_batches.append(batch)
             _, losses = detector_eval_step(state, batch,
                                            do_clustering=not in_prepare)
             for k, v in losses.items():
                 val_metrics.setdefault(k, []).append(float(v))
         agg = {k: float(np.mean(v)) for k, v in val_metrics.items()}
-        logger.log(step, agg, "val")
+        loop.logger.log(loop.step, agg, "val")
         print(f"epoch {epoch} VAL "
               + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
-        ckpt.save(step, state, agg)
+        ckpt.save(loop.step, state, agg)
 
         print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s")
-        if max_steps and step >= max_steps:
+        if loop.done:
             break
-    if prof is not None:               # the run ended inside the window
-        _stop_profile(prof, dev, run_dir)
+    loop.finish()
     return state
 
 

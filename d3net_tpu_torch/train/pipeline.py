@@ -1,31 +1,66 @@
-"""The pipeline's construction and validation (counterpart of
-``d3net_tpu/train/pipeline_loop.py``).
+"""The pipeline's training and validation for mode 1, detector -> speaker
+(counterpart of ``d3net_tpu/train/pipeline_loop.py``; parity:
+``PipelineNet.training_step`` mode 1, ``model/pipeline.py:152-191``).
 
-Ported: ``pipeline_from_cfg``, ``build_vocab`` and
-``run_pipeline_validation`` for mode 1 (detector -> speaker): every val
-scene's proposals captioned greedily and scored by ``CaptionEvaluator``
-against several grammar descriptions of each GT object (CIDEr, BLEU-4,
-ROUGE-L and METEOR at ``eval.min_iou_threshold``). The speaker's training
-(mode 1), the listener (mode 2) and joint RL (mode 3) are ROADMAP.md queue
-A items 13-15.
+- ``speaker_train_step``: the detector in train mode (BN statistics
+  updated) and ``detector_loss``, the speaker teacher-forced over the
+  batch's description rows, caption XE over the good annotated rows (plus
+  0.1 x the orientation loss when the batch has object rotations), one
+  backward and one optimizer step. Its cluster jitter, proposal shuffle
+  and target-sampling Gumbel draw come from one ``torch.Generator`` or are
+  passed in as tensors.
+- Freezing: a frozen submodule (``model.freeze_detector``) gets no update
+  and no weight decay, and no gradient is computed for it; its BN
+  statistics still move, as the detector runs in train mode.
+- ``apply_pretrained``: the JAX package's ``pretrained/<tag>_<sub>.pkl``
+  (``{"params", "batch_stats"}`` Flax trees of numpy leaves, written by
+  either package's ``prepare_weights``) into the named submodules.
+- ``run_pipeline_training``: the JAX loop's run dir, lang stream, step
+  seeds, validation cadence and checkpoints, with the detector loop's
+  timing hook and profile window.
+- ``run_pipeline_validation``: every val scene's proposals captioned
+  greedily and scored by ``CaptionEvaluator`` against several grammar
+  descriptions of each GT object (CIDEr, BLEU-4, ROUGE-L and METEOR at
+  ``eval.min_iou_threshold``).
+
+The listener (mode 2) and joint RL (mode 3) are ROADMAP.md queue A items
+14 and 15.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, Optional, Tuple
+import os
+import pickle
+import time
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from d3net_tpu_torch.config import Config
+from d3net_tpu_torch.config import Config, save as save_cfg
 from d3net_tpu_torch.data.collate import batch_to_torch
-from d3net_tpu_torch.data.language import base_corpus, describe_instance
+from d3net_tpu_torch.data.language import (
+    base_corpus, build_lang_batch, describe_instance,
+)
 from d3net_tpu_torch.data.vocab import Vocabulary, embedding_matrix
+from d3net_tpu_torch.device import DeviceLike, resolve_device
 from d3net_tpu_torch.eval.caption_eval import CaptionEvaluator, decode_captions
 from d3net_tpu_torch.models.pipeline import PipelineNet
-from d3net_tpu_torch.train.loop import detector_cfg_dict, in_channels_from_cfg
+from d3net_tpu_torch.params import (
+    flax_to_state_dict, init_flax_variables, state_dict_to_flax,
+)
+from d3net_tpu_torch.train.loop import (
+    Checkpointer, StepLoop, detector_cfg_dict, in_channels_from_cfg,
+    make_dataloaders, spec_from_cfg, step_generator, write_run_meta,
+)
+from d3net_tpu_torch.train.losses import detector_loss
+from d3net_tpu_torch.train.losses_slt import caption_loss, orientation_loss
+from d3net_tpu_torch.train.migrate import migrate_legacy_block_names
+from d3net_tpu_torch.train.trainer import TrainState, create_train_state
 from d3net_tpu_torch.utils.bbox import box_corners
+
+SUBMODULES = ("detector", "speaker", "listener")
 
 
 def pipeline_from_cfg(cfg: Config, vocab: Vocabulary) -> PipelineNet:
@@ -43,6 +78,7 @@ def pipeline_from_cfg(cfg: Config, vocab: Vocabulary) -> PipelineNet:
         num_graph_steps=cfg.model.num_graph_steps,
         num_locals=cfg.model.num_locals,
         max_spk_len=cfg.data.max_spk_len,
+        min_iou_threshold=cfg.data.min_iou_threshold,
         use_relation=cfg.model.use_relation,
         use_orientation=cfg.model.use_orientation,
         no_captioning=bool(cfg.model.no_captioning),
@@ -54,6 +90,265 @@ def build_vocab(cfg: Config) -> Tuple[Vocabulary, np.ndarray]:
     vocab = Vocabulary.build(base_corpus())
     return vocab, embedding_matrix(vocab, cfg.get("glove_path"))
 
+
+# ---------------------------------------------------------------------------
+# the mode-1 train step
+# ---------------------------------------------------------------------------
+
+def lang_rows(lang_np: Mapping[str, np.ndarray], emb: np.ndarray,
+              device) -> Dict[str, torch.Tensor]:
+    """(B, C, ...) host lang batch -> (B·C, ...) tensors on ``device``,
+    with the embedding matrix as ``glove_embeddings``."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(
+        v.reshape((-1,) + v.shape[2:]))).to(device)
+        for k, v in lang_np.items()}
+    out["glove_embeddings"] = torch.from_numpy(emb).to(device)
+    return out
+
+
+def expand_rows(batch: Mapping, chunk_size: int) -> Dict:
+    """The scene-level GT boxes -> description rows, for the speaker's
+    target selection. (The JAX function also repeats the proposals' boxes
+    and classes, which only the listener and joint RL read.)"""
+    def rep(x):
+        return x.repeat_interleave(chunk_size, dim=0)
+    return {
+        "center_label_chunk": rep(batch["center_label"]),
+        "gt_bbox_chunk": rep(box_corners(batch["center_label"],
+                                         batch["size_label"])),
+    }
+
+
+def gumbel_draw(shape, generator: Optional[torch.Generator],
+                device) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))``, u uniform in [tiny, 1)
+    (``jax.random.gumbel``'s form)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
+
+
+def speaker_losses(model: PipelineNet, batch: Dict, lang: Dict, *,
+                   chunk_size: int,
+                   loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                   generator: Optional[torch.Generator] = None,
+                   jitter_u: Optional[torch.Tensor] = None,
+                   proposal_perm: Optional[torch.Tensor] = None,
+                   gumbel: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict]:
+    """The mode-1 loss of ``model`` on ``batch`` and its description rows
+    ``lang`` (ref :152-191) -> (total, the JAX step's seven metrics, the
+    speaker's outputs). The draws not given come from ``generator``:
+    jitter, proposal shuffle, then the (N, P) Gumbel draw."""
+    out = model.run_detector(batch, train=True, generator=generator,
+                             jitter_u=jitter_u, proposal_perm=proposal_perm)
+    det = detector_loss(out, batch, loss_weight=loss_weight)["total_loss"]
+    data = {**out, **lang, **expand_rows(batch, chunk_size)}
+    if gumbel is None:
+        b, p = out["proposal_batch_mask"].shape
+        gumbel = gumbel_draw((b * chunk_size, p), generator, det.device)
+    data = model.run_speaker(data, mode="tf", chunk_size=chunk_size,
+                             gumbel=gumbel)
+    annotated = lang["annotated"]
+    cap_l, cap_acc = caption_loss(data["lang_cap"], lang["lang_ids"],
+                                  data["good_bbox_masks"] & (annotated > 0),
+                                  pad_id=model.pad_id)
+    if model.use_orientation and "scene_object_rotations" in batch:
+        # the graph's edges are per scene: one row of each scene's chunk
+        ori_l, ori_acc = orientation_loss(
+            data["edge_orientations"], data["local_ids"][::chunk_size],
+            data["local_mask"][::chunk_size], out["object_assignment"],
+            batch["scene_object_rotations"],
+            batch["scene_object_rotation_masks"])
+    else:
+        ori_l = ori_acc = det.new_zeros(())
+    total = det + cap_l + 0.1 * ori_l
+    metrics = {
+        "detect_loss": det, "captioning_loss": cap_l,
+        "orientation_loss": ori_l, "cap_acc": cap_acc, "ori_acc": ori_acc,
+        "pred_ious": (data["target_ious"] * annotated).sum()
+        / annotated.sum().clamp(min=1.0),
+        "loss": total,
+    }
+    return total, metrics, data
+
+
+def speaker_train_step(state: TrainState, batch: Dict, lang: Dict,
+                       generator: Optional[torch.Generator] = None, *,
+                       chunk_size: int,
+                       loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                       jitter_u: Optional[torch.Tensor] = None,
+                       proposal_perm: Optional[torch.Tensor] = None,
+                       gumbel: Optional[torch.Tensor] = None,
+                       ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One mode-1 optimization step of ``state.model`` (a ``PipelineNet``):
+    ``speaker_losses``, its backward through the parameters that require a
+    gradient (a frozen detector's do not) and an update of those. Returns
+    the state (updated in place) and the metrics, detached."""
+    model = state.model
+    params = [p for p in model.parameters() if p.requires_grad]
+    state.optimizer.zero_grad(set_to_none=True)
+    total, metrics, _ = speaker_losses(
+        model, batch, lang, chunk_size=chunk_size, loss_weight=loss_weight,
+        generator=generator, jitter_u=jitter_u, proposal_perm=proposal_perm,
+        gumbel=gumbel)
+    total.backward()
+    # a parameter the loss does not reach (the orientation head without
+    # rotation labels) has a zero gradient in JAX, and optax still decays
+    # and moments it
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return state, {k: v.detach() for k, v in metrics.items()}
+
+
+# ---------------------------------------------------------------------------
+# freezing and pretrained weights
+# ---------------------------------------------------------------------------
+
+def freeze_submodules(model: PipelineNet, freeze: Mapping[str, bool]) -> None:
+    """No gradient for the parameters of each submodule that ``freeze``
+    names true (``make_frozen_optimizer``'s frozen labels): the train state
+    made after this neither updates nor decays them."""
+    for name, frozen in freeze.items():
+        sub = getattr(model, name, None)
+        if sub is not None:
+            sub.requires_grad_(not frozen)
+
+
+def apply_pretrained(model: PipelineNet, cfg: Config) -> None:
+    """Load the submodule weights that ``model.pretrained_<sub>`` names: a
+    pickle of ``{"params", "batch_stats"}`` Flax trees (ref per-rank
+    loading, ``scripts/train.py:288-310``). Legacy U-Net block names are
+    migrated; a payload without BN statistics keeps the model's. A missing
+    file raises, as does a submodule the model lacks."""
+    for sub in SUBMODULES:
+        path = cfg.model.get(f"pretrained_{sub}")
+        if not path:
+            continue
+        module = getattr(model, sub, None)
+        if module is None:
+            raise ValueError(f"pretrained_{sub}: {sub} is not in the model")
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        variables = state_dict_to_flax(module)
+        variables["params"] = migrate_legacy_block_names(payload["params"])
+        if payload.get("batch_stats"):
+            variables["batch_stats"] = migrate_legacy_block_names(
+                payload["batch_stats"])
+        module.load_state_dict(flax_to_state_dict(variables, module))
+        print(f"loaded pretrained {sub} from {path}")
+
+
+# ---------------------------------------------------------------------------
+# the run loop
+# ---------------------------------------------------------------------------
+
+def run_pipeline_training(cfg: Config, run_dir: str,
+                          max_steps: Optional[int] = None,
+                          device: DeviceLike = None,
+                          on_step: Optional[Callable[[Dict], None]] = None,
+                          ) -> TrainState:
+    """Train the pipeline of ``cfg`` (mode 1: detector -> speaker) into
+    ``run_dir``, resuming from its last checkpoint; returns the train state.
+
+    The JAX loop's order: weights (seeded random, then the pretrained
+    submodules), the lang stream from ``default_rng(manual_seed)`` (its
+    first draw is the init batch's, which JAX spends on ``model.init``),
+    per-step generators from ``(manual_seed + 7, step)``, validation every
+    ``check_val_every_n_epoch`` epochs, at the last and at ``max_steps``,
+    and a checkpoint after each by the monitor (``val_score/cider`` ->
+    ``cider``). Runs on CUDA unless ``device`` says otherwise; ``on_step``
+    is ``StepLoop``'s, with the card waited on around each part of a step.
+    """
+    # 1 speaker, 2 listener, 3 both (joint RL)
+    mode = 2 if cfg.model.no_captioning else (
+        1 if cfg.model.no_grounding else 3)
+    if mode != 1:
+        raise NotImplementedError(
+            f"pipeline training mode {mode}: the listener and joint RL are "
+            "not ported (ROADMAP.md, queue A items 14 and 15)")
+    dev = resolve_device(device)
+    os.makedirs(run_dir, exist_ok=True)
+    save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
+    ckpt = Checkpointer(run_dir, cfg.general.monitor.split("/")[-1],
+                        cfg.general.monitor_mode)
+
+    vocab, emb = build_vocab(cfg)
+    model = pipeline_from_cfg(cfg, vocab)
+    model.load_state_dict(flax_to_state_dict(
+        init_flax_variables(model, cfg.general.manual_seed), model))
+    apply_pretrained(model, cfg)
+    model.to(dev)
+    spec = spec_from_cfg(cfg)
+    train_it, val_it = make_dataloaders(cfg, spec, return_scenes=True)
+    chunk = int(cfg.data.num_des_per_scene)
+    rng_np = np.random.default_rng(cfg.general.manual_seed)
+
+    def make_lang(scenes):
+        return build_lang_batch(
+            scenes, vocab, chunk, cfg.data.max_spk_len, rng_np,
+            spec.max_instances,
+            apply_word_erase=bool(cfg.train.get("apply_word_erase", False)),
+            num_refs=int(cfg.train.get("num_caption_refs", 1) or 1))
+
+    make_lang([train_it.scenes[i] for i in range(cfg.data.batch_size)])
+    freeze_submodules(model, {"detector": bool(cfg.model.freeze_detector)})
+    state = create_train_state(
+        model,
+        lr=cfg.train.optim.lr,
+        optim=cfg.train.optim.classname,
+        weight_decay=cfg.train.optim.weight_decay,
+        momentum=cfg.train.optim.momentum,
+        step_epoch=cfg.train.step_epoch,
+        multiplier=cfg.train.multiplier,
+        steps_per_epoch=max(1, len(train_it)),
+    )
+    if ckpt.restore_last(state) is not None:
+        print(f"resumed from step {state.step}")
+    write_run_meta(run_dir, cfg, {
+        "framework": f"torch {torch.__version__}", "device": str(dev),
+        "conv_impl": "gather",
+        "conv_impl_requested": cfg.tpu.get("conv_impl") or "gather"})
+    loop = StepLoop(cfg, run_dir, dev, train_it.augment, state.step,
+                    max_steps, on_step, True)
+
+    def to_device(item):
+        batch_np, scenes = item
+        lang_np = make_lang(scenes)
+        return [batch_np, lang_np], (batch_to_torch(batch_np, dev),
+                                     lang_rows(lang_np, emb, dev))
+
+    lw = tuple(cfg.train.loss_weight[:4])
+    seed = cfg.general.manual_seed + 7
+    check_every = int(cfg.train.get("check_val_every_n_epoch", 1) or 1)
+    for epoch in range(cfg.train.epochs):
+        t_epoch = time.time()
+        loop.run_epoch(epoch, train_it, to_device, lambda pair, step: (
+            speaker_train_step(state, *pair, step_generator(seed, step, dev),
+                               chunk_size=chunk, loss_weight=lw)[1]))
+        if ((epoch + 1) % check_every != 0 and epoch + 1 < cfg.train.epochs
+                and not loop.done):
+            continue
+        val_metrics = run_pipeline_validation(
+            cfg, model, val_it, vocab, emb, mode,
+            diag_path=os.path.join(run_dir, "caption_diag.json"))
+        loop.logger.log(loop.step, val_metrics, "val")
+        print(f"epoch {epoch} VAL " + " ".join(
+            f"{k}={v:.4f}" for k, v in sorted(val_metrics.items())))
+        ckpt.save(loop.step, state, val_metrics)
+        print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s")
+        if loop.done:
+            break
+    loop.finish()
+    return state
+
+
+# ---------------------------------------------------------------------------
+# validation
+# ---------------------------------------------------------------------------
 
 def caption_references(scene, num_refs: int) -> Dict[int, list]:
     """Up to ``num_refs`` distinct grammar descriptions of each instance of

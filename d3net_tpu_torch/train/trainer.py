@@ -57,9 +57,11 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, **optimizer_kw) -> TrainState:
-    """The model with a fresh ``make_optimizer(**optimizer_kw)`` over all of
-    its parameters, at step 0."""
-    opt, sched = make_optimizer(model.parameters(), **optimizer_kw)
+    """The model with a fresh ``make_optimizer(**optimizer_kw)`` over its
+    parameters that require a gradient (all but a frozen submodule's), at
+    step 0."""
+    opt, sched = make_optimizer(
+        [p for p in model.parameters() if p.requires_grad], **optimizer_kw)
     return TrainState(model, opt, sched)
 
 

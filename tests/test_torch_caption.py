@@ -9,7 +9,7 @@ inputs made by numpy from a seed, same weights converted from the Flax tree
   (rtol 1e-4), ``add_relation_feat`` (rtol 1e-5).
 - ``CaptionModule`` and ``SpeakerNet`` in eval mode on the fake proposals
   of tests/test_speaker_listener.py: ``lang_cap`` ids equal.
-- The modes and entry points of the speaker's training path raise.
+- Joint RL's modes and beam search raise; the training modes run.
 """
 
 import jax
@@ -219,15 +219,47 @@ def test_speaker_eval_matches_jax():
                                    atol=1e-5, err_msg=k)
 
 
+def _rows(rng, n=4, t=7):
+    """Description rows for the training modes (no relation features)."""
+    data = fake_proposals(rng)
+    rep = lambda a: np.repeat(a, n // B, axis=0)   # noqa: E731
+    ids = rng.integers(4, V, (n, t)).astype(np.int32)
+    ids[:, 0] = 2
+    gt_c = rng.uniform(0, 5, (n, 3, 3)).astype(np.float32)
+    gt = box_corners(gt_c, np.full_like(gt_c, 0.5))
+    return {"bbox_feature": rep(data["proposal_feats_batched"]),
+            "proposal_batch_mask": rep(data["proposal_batch_mask"]),
+            "proposal_bbox_batched": rep(data["proposal_bbox_batched"]),
+            "lang_ids": ids, "annotated": np.array([1, 0, 1, 0], np.float32),
+            "ref_box_corner_label": gt[:, 0], "center_label_chunk": gt_c,
+            "gt_bbox_chunk": gt,
+            "glove_embeddings": (rng.normal(size=(V, E)) * 0.3).astype(
+                np.float32)}
+
+
 def test_training_path_raises():
+    """Joint RL's modes and beam search raise (queue A item 15); the
+    teacher-forced modes run (tests/test_torch_caption_train.py holds them
+    to JAX), given the target sampler's Gumbel draw."""
     tm = CaptionModule(num_vocabs=V, sos_id=2, eos_id=3, feat_size=F,
-                       hidden_size=H)
-    for mode in ("tf", "free", "rl", "rl_tf"):
-        with pytest.raises(NotImplementedError, match="queue A item 13"):
+                       hidden_size=H, use_relation=False)
+    for mode in ("rl", "rl_tf"):
+        with pytest.raises(NotImplementedError, match="queue A item 15"):
             tm({}, mode=mode)
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
+    with pytest.raises(NotImplementedError, match="queue A item 15"):
         tm.beam_decode()
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        SpeakerNet(V, 2, 3, num_graph_steps=0)({}, mode="tf")
+    with pytest.raises(NotImplementedError, match="queue A item 15"):
+        SpeakerNet(V, 2, 3, num_graph_steps=0)({}, mode="rl")
     with pytest.raises(NotImplementedError, match="queue A item 14"):
         PipelineNet(9, dict(m=4, blocks=(1, 2)), no_grounding=False)
+    data = to_torch(_rows(np.random.default_rng(7)))
+    gumbel = torch.from_numpy(np.random.default_rng(8).gumbel(
+        size=(4, P)).astype(np.float32))
+    for mode in ("tf", "free"):
+        with torch.no_grad():
+            out = tm(data, mode=mode, gumbel=gumbel)
+        assert out["lang_cap"].shape == (4, 6, V)
+        assert out["target_ids"].dtype == torch.int32
+        assert bool(torch.isfinite(out["lang_cap"]).all())
+        with pytest.raises(ValueError, match="Gumbel"):
+            tm(data, mode=mode)

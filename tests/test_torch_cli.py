@@ -3,10 +3,14 @@
 ``python -m d3net_tpu_torch.scripts.train --cpu --max_steps 2`` leaves the
 JAX run-dir layout, a second call resumes from the saved step and goes on,
 and ``python -m d3net_tpu_torch.scripts.eval --task detection --cpu``
-writes ``eval_detection.json`` stamped with its checkpoint. Without
-``--cpu`` and without a GPU both exit non-zero; the tasks and trainers
-that are not ported raise ``NotImplementedError`` naming their ROADMAP item
-(``--task captioning`` is held in tests/test_torch_pipeline.py).
+writes ``eval_detection.json`` stamped with its checkpoint. The speaker's
+stage runs as users run it: ``prepare_weights`` turns a detector run into
+a pretrained pickle and ``train`` on conf/debug/tiny_captioning.yaml
+(mode (1, 1, 0)) loads it and leaves the same layout, validated by cider.
+Without ``--cpu`` and without a GPU every call exits non-zero; the tasks
+and trainers that are not ported raise ``NotImplementedError`` naming
+their ROADMAP item (``--task captioning`` is held in
+tests/test_torch_pipeline.py).
 """
 
 import json
@@ -17,11 +21,15 @@ import sys
 
 import pytest
 
+from d3net_tpu_torch import config as tcfg
 from d3net_tpu_torch.scripts import eval as eval_cli
 from d3net_tpu_torch.scripts import train as train_cli
+from d3net_tpu_torch.train import loop as tloop
+from d3net_tpu_torch.train.trainer import create_train_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = "conf/debug/tiny_pointgroup.yaml"
+TINY_CAPTION = "conf/debug/tiny_captioning.yaml"
 
 
 def _run(*args, gpu_hidden=False):
@@ -76,21 +84,56 @@ def test_train_resume_and_eval_cli(tmp_path):
     assert set(res) >= {"per_class@0.25", "per_class@0.5"}
 
 
-@pytest.mark.parametrize("cli", ["train", "eval"])
+@pytest.mark.parametrize("cli", ["train", "eval", "train_captioning"])
 def test_cli_without_cpu_fails_without_gpu(cli, tmp_path):
     run = str(tmp_path / "r")
-    args = (("--config", TINY, "--max_steps", "1", "--folder", run)
-            if cli == "train" else ("--folder", ROOT, "--task", "detection"))
-    out = _run(f"d3net_tpu_torch.scripts.{cli}", *args, gpu_hidden=True)
+    config = TINY_CAPTION if cli == "train_captioning" else TINY
+    args = (("--folder", ROOT, "--task", "detection") if cli == "eval"
+            else ("--config", config, "--max_steps", "1", "--folder", run))
+    out = _run(f"d3net_tpu_torch.scripts.{cli.split('_')[0]}", *args,
+               gpu_hidden=True)
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
     assert not os.path.exists(run)
 
 
+def test_captioning_train_cli_with_prepared_detector(tmp_path):
+    """The curriculum's steps 2-3: a detector run's checkpoint through
+    ``prepare_weights``, then the speaker's stage loading it."""
+    cfg = tcfg.load(os.path.join(ROOT, TINY_CAPTION))
+    det = str(tmp_path / "det")
+    os.makedirs(det)
+    tcfg.save(cfg, os.path.join(det, "config.yaml"))
+    tloop.Checkpointer(det, "total_loss").save(1, create_train_state(
+        tloop.init_detector(tloop.detector_from_cfg(cfg), 5)),
+        {"total_loss": 1.0})
+    out = _run("d3net_tpu_torch.scripts.prepare_weights", "--folder", det,
+               "--name", "tiny", "--out", str(tmp_path / "pretrained"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    pkl = str(tmp_path / "pretrained" / "tiny_detector.pkl")
+    assert os.listdir(tmp_path / "pretrained") == ["tiny_detector.pkl"]
+
+    cfg.model.pretrained_detector = pkl
+    config = str(tmp_path / "captioning.yaml")
+    tcfg.save(cfg, config)
+    run = str(tmp_path / "run")
+    out = _run("d3net_tpu_torch.scripts.train", "--config", config, "--cpu",
+               "--max_steps", "2", "--folder", run)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert f"loaded pretrained detector from {pkl}" in out.stdout
+    for name in ("config.yaml", "run_meta.json", "metrics.jsonl",
+                 "caption_diag.json", "ckpt/2/state.pt",
+                 "ckpt_best/best.json", "ckpt_best/2/state.pt"):
+        assert os.path.exists(os.path.join(run, name)), name
+    assert _steps(run) == [(1, "train"), (2, "train"), (2, "val")]
+    best = json.load(open(os.path.join(run, "ckpt_best", "best.json")))
+    assert best["monitor"] == "cider" and best["mode"] == "max"
+
+
 def test_modes_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A items 13-15"):
+    with pytest.raises(NotImplementedError, match="queue A items 14 and 15"):
         train_cli.main(["--config", os.path.join(
-                            ROOT, "conf", "debug", "tiny_captioning.yaml"),
+                            ROOT, "conf", "debug", "tiny_grounding.yaml"),
                         "--cpu", "--folder", str(tmp_path / "c")])
     cfg_path = tmp_path / "scan.yaml"
     cfg_path.write_text(open(os.path.join(ROOT, TINY)).read()

@@ -6,8 +6,9 @@ for every kernel, the detector on cuda
 against the detector on cpu, the sparse conv's backward on cuda
 against the same on cpu, and the run loop on cuda against the run loop on
 cpu, with a checkpoint round trip on the card; the speaker (graph and
-greedy decode) on cuda against cpu, and the captioning eval CLI on cuda
-against the same on cpu.
+greedy decode) on cuda against cpu, its train step (detector trained and
+frozen) on cuda against cpu, and the captioning eval CLI on cuda against
+the same on cpu.
 
 This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -433,3 +434,35 @@ def test_caption_eval_cli_cuda_matches_cpu(card, tmp_path):
     for k, v in res["cpu"].items():
         if k != "checkpoint":
             np.testing.assert_allclose(res["cuda"][k], v, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [False, True],
+                         ids=["trained_detector", "frozen_detector"])
+def test_speaker_train_step_cuda_matches_cpu(card, freeze):
+    """One mode-1 train step at the tiny captioning widths (orientation on,
+    seeded object rotations, ``min_iou_threshold`` 0) on cuda against cpu:
+    losses rtol 1e-4, every gradient 1e-3 / 1e-6, new BN statistics 1e-4 /
+    1e-5, target ids and good-box masks equal; ``gather_rows`` launched on
+    cuda only: forward, dW and dx gathers, or with the detector frozen the
+    forward's alone (``checks.speaker_step_cuda_vs_cpu``, which
+    chip_smoke.py also runs)."""
+    from d3net_tpu_torch.checks import (
+        speaker_step_case, speaker_step_cuda_vs_cpu,
+    )
+    from d3net_tpu_torch.models.blocks import SubmConv
+    from d3net_tpu_torch.train import pipeline
+
+    cfg = _tiny_caption_cfg()
+    cfg.data.min_iou_threshold = 0.0
+    vocab, emb = pipeline.build_vocab(cfg)
+    case = speaker_step_case(cfg, vocab, seed=1)
+    report = speaker_step_cuda_vs_cpu(cfg, vocab, emb, case, freeze)
+    assert report["ok"], report
+    assert report["losses_cpu"]["orientation_loss"] > 0
+    n_conv = sum(isinstance(m, SubmConv) for m in pipeline.pipeline_from_cfg(
+        cfg, vocab).detector.modules())
+    forward = n_conv + 4
+    assert report["gather_launches_cpu"] == 0
+    assert report["gather_launches_cuda"] == (
+        forward if freeze else forward + n_conv + n_conv - 1)
