@@ -132,13 +132,59 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               machine has no nltk), a best or last checkpoint, and 75
               ``gather_rows`` launches per val batch.
 
+17. spk_train_parity — one mode-1 train step at the tiny captioning
+              widths (orientation on, seeded rotations), cuda vs cpu, the
+              detector trained and frozen (``checks.
+              speaker_step_cuda_vs_cpu``).
+18. spk_train — ``prepare_weights`` on the ``run`` phase's detector, then
+              the train CLI on conf/pointgroup_captioning.yaml for one
+              epoch (``_stage_train``: per-step times and peaks, one
+              step's 216 gathers checked bit-exact, one val batch, the
+              restored state bit-exact), the step timed alone and
+              profiled, the speaker's and the teacher-forced loop's
+              forward and backward timed.
+19. grounding_parity — the listener at conf/debug/tiny_grounding.yaml's
+              widths on seeded proposals and descriptions (lengths 0 and
+              T among them), cuda vs cpu inside
+              ``device.parity_precision()``: eval and train forward with
+              the same dropout masks and copy-paste draws, every output
+              and the BN statistics within rtol 1e-4 / atol 1e-5
+              (``checks.listener_cuda_vs_cpu``).
+20. grounding — the mode-2 eval forward (``run_detector`` then
+              ``run_listener``) of a B=4 batch of
+              conf/pointgroup_grounding.yaml's own val scenes and their 32
+              descriptions (T = 32) at its widths, the ``run`` phase's
+              detector and a seeded random listener: ``ground_fwd_ms``
+              (median of 5 after 2 warm-up, CUDA events) split into
+              ``detector_ms`` and ``listener_ms``, ``lang_ms`` and
+              ``match_ms`` timed alone, peak memory, the 75 gathers of
+              one batch each held bit-exact against ``gather_rows_plain``,
+              two profiles (the forward; the GRU encoder: launches a
+              step).
+21. grounding_eval — ``python -m d3net_tpu_torch.scripts.eval --task
+              grounding`` (in-process) on a run dir holding one pipeline
+              checkpoint (the run phase's detector, a seeded random
+              listener), one val batch: finite Acc@0.25/0.5 and mean IoU,
+              the checkpoint stamped, 75 gathers a batch.
+22. lis_train_parity — one mode-2 train step at the tiny grounding
+              widths (dropout and copy-paste on), cuda vs cpu, the
+              detector trained and frozen (``checks.
+              listener_step_cuda_vs_cpu``).
+23. lis_train — the listener's stage as ``spk_train`` runs the speaker's,
+              on conf/pointgroup_grounding.yaml (validated by
+              ``ref_iou_rate_0.5``); then the step timed alone and
+              profiled, the listener's and its GRU encoder's forward and
+              backward timed, the encoder's launches a GRU step.
+
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
 version's and the library call's time (``library_ms``,
 ``library_device_ms``) and the bound; the two rings add the bytes their
 blocks move (``moved_bytes``), and ``gather_rows`` its launches per step
-of the ``run`` phase and per batch of the ``caption`` phase (its
-``max_abs_err`` covers the caption forward's gathers too). The last two
+of the ``run``, ``spk_train`` and ``lis_train`` phases and per batch of
+the ``caption`` and ``grounding`` phases, with the two train stages'
+bounds and device times (its ``max_abs_err`` covers every checked
+gather). The last two
 lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, the script exits non-zero
@@ -157,6 +203,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -164,6 +211,7 @@ import torch
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch.checks import (
+    listener_cuda_vs_cpu, listener_step_case, listener_step_cuda_vs_cpu,
     randomize, relu_sides, speaker_cuda_vs_cpu, speaker_step_case,
     speaker_step_cuda_vs_cpu,
 )
@@ -176,6 +224,7 @@ from d3net_tpu_torch.data.language import build_lang_batch
 from d3net_tpu_torch.data.synthetic import make_scene
 from d3net_tpu_torch.kernels import gather, probe
 from d3net_tpu_torch.models.blocks import SubmConv, fold_tables
+from d3net_tpu_torch.models.listener import ListenerDraws
 from d3net_tpu_torch.models.speaker import expand_to_rows
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.ops import native, segment, sparse_conv
@@ -193,7 +242,9 @@ from d3net_tpu_torch.train.loop import (
     Checkpointer, detector_from_cfg, init_detector, make_val_loader,
     run_detector_training, spec_from_cfg,
 )
-from d3net_tpu_torch.train.losses_slt import caption_loss
+from d3net_tpu_torch.train.losses_slt import (
+    caption_loss, grounding_loss, lang_cls_loss,
+)
 from d3net_tpu_torch.train.trainer import (
     create_train_state, detector_train_step,
 )
@@ -220,6 +271,13 @@ CAPTION_WARMUP, CAPTION_REPS = 2, 5
 SPK_STEPS = 16          # one epoch: the captioning config's 64 scenes at B=4
 SPK_CHECKED_STEP = 2    # the step whose gathers are held to the plain version
 SPK_REPS = 5
+GROUNDING_CONFIG = os.path.join(ROOT, "conf", "pointgroup_grounding.yaml")
+TINY_GROUNDING_CONFIG = os.path.join(ROOT, "conf", "debug",
+                                     "tiny_grounding.yaml")
+GROUND_WARMUP, GROUND_REPS = 2, 5
+LIS_STEPS = 16          # one epoch: the grounding config's 64 scenes at B=4
+LIS_CHECKED_STEP = 2    # the step whose gathers are held to the plain version
+LIS_REPS = 5
 
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
@@ -1319,9 +1377,9 @@ def run_detector_weights(run_dir):
     return mgr.restore(mgr.latest_step())["model"]
 
 
-def caption_model(cfg, vocab, det_weights):
+def pipeline_model(cfg, vocab, det_weights):
     """The config's pipeline on the card: ``det_weights`` in the detector,
-    a speaker of seeded random weights."""
+    its speaker or listener of seeded random weights."""
     model = load_pipeline(init_flax_variables(
         pipeline.pipeline_from_cfg(cfg, vocab), seed=0), cfg, vocab)
     model.detector.load_state_dict(det_weights)
@@ -1341,7 +1399,7 @@ def phase_caption(det_weights, per_forward):
                             for i in range(cfg.data.batch_size)], spec)
     collate_s = time.time() - t0
     batch = batch_to_torch(batch_np, "cuda")
-    model = caption_model(cfg, vocab, det_weights)
+    model = pipeline_model(cfg, vocab, det_weights)
     speaker, emb_t = model.speaker, torch.from_numpy(emb).cuda()
 
     def forward(marks=None):
@@ -1453,19 +1511,22 @@ def phase_caption(det_weights, per_forward):
     return launches, rec.max_abs_err
 
 
-def phase_caption_eval(root, det_weights, per_forward):
-    """The captioning eval CLI on a run dir holding one pipeline
-    checkpoint (the run phase's detector, a seeded random speaker)."""
+def phase_pipeline_eval(name, config, task, monitor, keys, root,
+                        det_weights, per_forward):
+    """The eval CLI's ``task`` on a run dir holding one pipeline checkpoint
+    of ``config`` (the run phase's detector, a seeded random speaker or
+    listener): its ``keys`` finite, the checkpoint stamped, 75
+    ``gather_rows`` launches per val batch."""
     t0 = time.time()
-    cfg = load_task_config(CAPTION_CONFIG)
+    cfg = load_task_config(config)
     run_dir = os.path.join(root, cfg.general.experiment)
     os.makedirs(run_dir)
     cfg.general.output_root = root
     save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
     vocab, _ = pipeline.build_vocab(cfg)
-    model = caption_model(cfg, vocab, det_weights)
-    Checkpointer(run_dir, "cider", "max").save(
-        RUN_STEPS, create_train_state(model), {"cider": 0.0})
+    model = pipeline_model(cfg, vocab, det_weights)
+    Checkpointer(run_dir, monitor, "max").save(
+        RUN_STEPS, create_train_state(model), {monitor: 0.0})
     del model
     torch.cuda.empty_cache()
     setup_s = time.time() - t0
@@ -1473,20 +1534,19 @@ def phase_caption_eval(root, det_weights, per_forward):
     t1 = time.time()
     with val_scenes(cfg.data.batch_size):
         gather.gather_rows.launches = 0
-        eval_cli.main(["--folder", run_dir, "--task", "captioning"])
+        eval_cli.main(["--folder", run_dir, "--task", task])
         torch.cuda.synchronize()
         launches = gather.gather_rows.launches
     cli_s = time.time() - t1
-    with open(os.path.join(run_dir, "eval_captioning.json")) as f:
+    with open(os.path.join(run_dir, f"eval_{task}.json")) as f:
         res = json.load(f)
-    keys = ("bleu4", "cider", "rouge", "meteor")
     if not all(math.isfinite(res[k]) for k in keys):
-        raise AssertionError(f"caption_eval: non-finite {res}")
+        raise AssertionError(f"{name}: non-finite {res}")
     if res["checkpoint"].get("kind") not in ("best", "last"):
-        raise AssertionError(f"caption_eval: checkpoint {res['checkpoint']}")
+        raise AssertionError(f"{name}: checkpoint {res['checkpoint']}")
     if launches != val_batches * per_forward:
-        raise AssertionError(f"caption_eval: {launches} gather_rows launches")
-    emit({"phase": "caption_eval", **res,
+        raise AssertionError(f"{name}: {launches} gather_rows launches")
+    emit({"phase": name, **res,
           "reduced": [f"{cfg.data.batch_size} val scenes, one batch, of "
                       f"the config's {max(2, cfg.data.synthetic.num_scenes // 8)}"],
           "val_batches": val_batches, "gather_launches": launches,
@@ -1524,33 +1584,29 @@ def phase_spk_train_parity():
                              f"integers {[r['integers_equal'] for r in reports.values()]}")
 
 
-def phase_spk_train(root, det_run_dir, per_step, per_forward):
-    """The speaker's stage as users run it: ``prepare_weights`` on the run
-    phase's detector, then the train CLI on conf/pointgroup_captioning.yaml
-    for one epoch, the loop waiting for the card around each part of a
-    step; the restored state, the step timed alone, its profile and the
-    teacher-forced decoder's launches. Returns its ``gather_rows``
-    launches a step, the checked gathers' largest error, the bound of the
-    checked step's gathers (the bytes they need over HBM's rate) and their
-    device time in the profiled step."""
-    t_phase = time.time()
+def _stage_train(root, det_run_dir, config, steps_n, checked_step,
+                 per_step, per_forward, monitor, where):
+    """A pipeline stage as users run it: ``prepare_weights`` on the run
+    phase's detector, then the train CLI on ``config`` for ``steps_n``
+    steps (one epoch), the loop waiting for the card around each part of a
+    step and the gathers of step ``checked_step`` each held to the plain
+    version as they run; then a fresh state restored from the run dir must
+    equal the run's final state bit for bit. Returns what the phase
+    reports and the restored state."""
     pre = os.path.join(root, "pretrained")
     prepare_weights.main(["--folder", det_run_dir, "--name", "run", "--out",
                           pre])
-    cfg = load_task_config(CAPTION_CONFIG)
+    cfg = load_task_config(config)
     cfg.general.output_root = root
     cfg.model.pretrained_detector = os.path.join(pre, "run_detector.pkl")
     log_every = cfg.train.log_every_n_steps
     cfg.train.log_every_n_steps = 1
-    config_path = os.path.join(root, "pointgroup_captioning.yaml")
+    config_path = os.path.join(root, os.path.basename(config))
     save_cfg(cfg, config_path)
     run_dir = os.path.join(root, cfg.general.experiment)
-    chunk = int(cfg.data.num_des_per_scene)
 
-    # the CLI's loop, with the run phase's per-step hook; the gathers of
-    # step SPK_CHECKED_STEP are each held to the plain version as they run
     steps, states, seen = [], [], [0]
-    rec = GatherRecorder(gather, check=True, where="the speaker train step")
+    rec = GatherRecorder(gather, check=True, where=f"the {where} train step")
 
     def on_step(r):
         r["gather_launches"] = gather.gather_rows.launches - seen[0]
@@ -1558,7 +1614,7 @@ def phase_spk_train(root, det_run_dir, per_step, per_forward):
         r["peak_bytes"] = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         steps.append(r)
-        mod = rec if r["step"] == SPK_CHECKED_STEP - 1 else gather
+        mod = rec if r["step"] == checked_step - 1 else gather
         sparse_conv.gather, segment.gather = mod, mod
 
     real = pipeline.run_pipeline_training
@@ -1576,35 +1632,32 @@ def phase_spk_train(root, det_run_dir, per_step, per_forward):
         with val_scenes(cfg.data.batch_size):
             gather.gather_rows.launches = 0  # the main path, counted from here
             train_cli.main(["--config", config_path, "--max_steps",
-                            str(SPK_STEPS)])
+                            str(steps_n)])
             torch.cuda.synchronize()
     finally:
         pipeline.run_pipeline_training = real
         sparse_conv.gather, segment.gather = gather, gather
     run_s = time.time() - t0
     val_peak = torch.cuda.max_memory_allocated()   # validation, checkpoint
-    peak = max([val_peak] + [r["peak_bytes"] for r in steps])
     launches = gather.gather_rows.launches
     recs = _metrics(run_dir)
     train = [r for r in recs if "train/loss" in r]
-    val = [r for r in recs if "val/cider" in r]
+    val = [r for r in recs if f"val/{monitor}" in r]
     bad = [(r["step"], k) for r in recs for k, v in r.items()
            if not math.isfinite(v)]
-    if len(steps) != SPK_STEPS or [r["step"] for r in train] != list(
-            range(1, SPK_STEPS + 1)) or len(val) != 1:
-        raise AssertionError(f"spk_train: {len(steps)} steps, metrics steps "
+    if len(steps) != steps_n or [r["step"] for r in train] != list(
+            range(1, steps_n + 1)) or len(val) != 1:
+        raise AssertionError(f"{where}: {len(steps)} steps, metrics steps "
                              f"{[r['step'] for r in recs]}")
     if bad:
-        raise AssertionError(f"spk_train: non-finite metrics {bad}")
+        raise AssertionError(f"{where}: non-finite metrics {bad}")
     if rec.checked != per_step:
-        raise AssertionError(f"spk_train: {rec.checked} gathers checked in "
-                             f"step {SPK_CHECKED_STEP}, expected {per_step}")
-    spk_per_step = _check_launches("spk_train", steps, launches, per_step,
-                                   per_forward)
+        raise AssertionError(f"{where}: {rec.checked} gathers checked in "
+                             f"step {checked_step}, expected {per_step}")
+    per = _check_launches(where, steps, launches, per_step, per_forward)
     best = json.load(open(os.path.join(run_dir, "ckpt_best", "best.json")))
-    if best["monitor"] != "cider" or best["step"] != SPK_STEPS:
-        raise AssertionError(f"spk_train: best checkpoint {best}")
-    timed = [r for r in steps if r["step"] not in (1, SPK_CHECKED_STEP)]
+    if best["monitor"] != monitor or best["step"] != steps_n:
+        raise AssertionError(f"{where}: best checkpoint {best}")
     state = states[0]
     saved = _state_copy(state)
     del state, states[:]
@@ -1620,24 +1673,77 @@ def phase_spk_train(root, det_run_dir, per_step, per_forward):
         model.cuda(), lr=o.lr, optim=o.classname,
         weight_decay=o.weight_decay, step_epoch=cfg.train.step_epoch,
         multiplier=cfg.train.multiplier)
-    if Checkpointer(run_dir, "cider", "max").restore_last(fresh) is None:
-        raise AssertionError("spk_train: no checkpoint in the run dir")
+    if Checkpointer(run_dir, monitor, "max").restore_last(fresh) is None:
+        raise AssertionError(f"{where}: no checkpoint in the run dir")
     diff = _first_difference(_state_copy(fresh), saved)
     if diff is not None:
-        raise AssertionError(f"spk_train: restored state differs at {diff}")
+        raise AssertionError(f"{where}: restored state differs at {diff}")
     n_tensors = sum(1 for _ in _tensors(saved))
     del saved
 
-    # the step alone, its profile, and the speaker's part, on one batch of
-    # the config's val scenes (no augmentation) and its descriptions
+    # one batch of the config's val scenes (no augmentation), its rows
+    chunk = int(cfg.data.num_des_per_scene)
     with val_scenes(cfg.data.batch_size):
         val_it = make_val_loader(cfg, spec_from_cfg(cfg), return_scenes=True)
         batch_np, scenes = next(iter(val_it))
     lang_np = build_lang_batch(
         scenes, vocab, chunk, cfg.data.max_spk_len, np.random.default_rng(0),
         cfg.data.max_num_instance, apply_word_erase=True)
-    batch = batch_to_torch(batch_np, "cuda")
-    lang = pipeline.lang_rows(lang_np, emb, "cuda")
+    timed = [r for r in steps if r["step"] not in (1, checked_step)]
+    report = {
+        "reduced": [f"one epoch of {steps_n} steps (max_steps {steps_n}) of "
+                    f"the config's {cfg.train.epochs}",
+                    f"{cfg.data.batch_size} val scenes, one batch, of the "
+                    f"config's {max(2, cfg.data.synthetic.num_scenes // 8)}",
+                    f"log_every_n_steps 1 (the config's {log_every})"],
+        "timing": "the loop waits for the card around each part of a "
+                  f"step; medians over steps but 1 and {checked_step} (the "
+                  "checked one)",
+        "run_step_ms": _median(timed, "wall_s"),
+        "data_wait_ms": _median(timed, "data_wait_s"),
+        "h2d_ms": _median(timed, "h2d_s"),
+        "h2d_bytes": steps[0]["h2d_bytes"],
+        "step_ms": _median(timed, "step_s"),
+        "steps": [{(k[:-2] + "_ms" if k.endswith("_s") else k):
+                   (round(v * 1e3, 3) if k.endswith("_s")
+                    else round(v, 3) if isinstance(v, float) else v)
+                   for k, v in r.items() if k != "t_start"} for r in steps],
+        "max_memory_allocated": max([val_peak] + [r["peak_bytes"]
+                                                  for r in steps]),
+        "allocated_before_run": base, "val_peak": val_peak,
+        "run_s": round(run_s, 3), "gather_launches": launches,
+        "gather_launches_per_step": per,
+        "gathers_checked_exact": rec.checked,
+        "gather_max_abs_err": rec.max_abs_err,
+        "gather_rows_by_dtype_width": rec.rows_by_dtype_width,
+        "gather_bytes_needed": rec.bytes_needed,
+        "gather_bound_ms": rec.bytes_needed / HBM_BYTES_PER_S * 1e3,
+        "losses_finite": True,
+        "train_losses": [r["train/loss"] for r in train],
+        "val": {k[4:]: v for k, v in val[0].items() if k != "step"},
+        "best": best, "restored_bit_exact": ["model", "optimizer",
+                                             "scheduler", "step"],
+        "tensors_compared": n_tensors, "run_dir": sorted(os.listdir(run_dir))}
+    return SimpleNamespace(
+        cfg=cfg, vocab=vocab, emb=emb, chunk=chunk, fresh=fresh,
+        batch=batch_to_torch(batch_np, "cuda"),
+        lang=pipeline.lang_rows(lang_np, emb, "cuda"), train=train,
+        report=report)
+
+
+def phase_spk_train(root, det_run_dir, per_step, per_forward):
+    """The speaker's stage as users run it (``_stage_train`` on
+    conf/pointgroup_captioning.yaml), then the step timed alone, its
+    profile and the teacher-forced decoder's launches. Returns its
+    ``gather_rows`` launches a step, the checked gathers' largest error,
+    the bound of the checked step's gathers (the bytes they need over
+    HBM's rate) and their device time in the profiled step."""
+    t_phase = time.time()
+    st = _stage_train(root, det_run_dir, CAPTION_CONFIG, SPK_STEPS,
+                      SPK_CHECKED_STEP, per_step, per_forward, "cider",
+                      "spk_train")
+    cfg, fresh, batch, lang, chunk = st.cfg, st.fresh, st.batch, st.lang, \
+        st.chunk
     lw = tuple(cfg.train.loss_weight[:4])
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -1659,7 +1765,7 @@ def phase_spk_train(root, det_run_dir, per_step, per_forward):
         det = fresh.model.run_detector(batch, train=True, generator=gen)
     det = {k: v.detach() for k, v in det.items()}
     det["proposal_feats_batched"].requires_grad_()
-    data = {**det, **lang, **pipeline.expand_rows(batch, chunk)}
+    data = {**det, **lang, **pipeline.expand_rows(det, batch, chunk)}
     n_rows = lang["lang_ids"].shape[0]
     g = pipeline.gumbel_draw((n_rows, cfg.model.max_num_proposal), gen, "cuda")
 
@@ -1685,9 +1791,9 @@ def phase_spk_train(root, det_run_dir, per_step, per_forward):
                      "tf_fwd_bwd": tf_fwd_bwd}, SPK_REPS, inner=1)
     tf_kernels = phase_profile("spk_tf_profile", tf_fwd_bwd)
     tf_launches = sum(r[2] for r in tf_kernels)
-    bound_ms = rec.bytes_needed / HBM_BYTES_PER_S * 1e3
     gather_dev_ms = sum(r[1] for r in prof if "gather_rows_kernel" in r[0])
-    timed_keys = ("wall_s", "data_wait_s", "h2d_s", "step_s")
+    rep = st.report
+    o = cfg.train.optim
     emit({"phase": "spk_train", "config": "conf/pointgroup_captioning.yaml",
           "widths": {"batch": cfg.data.batch_size,
                      "max_num_point": cfg.data.max_num_point,
@@ -1697,68 +1803,313 @@ def phase_spk_train(root, det_run_dir, per_step, per_forward):
                      "description_rows": n_rows,
                      "teacher_forced_steps": steps_tf,
                      "graph_steps": cfg.model.num_graph_steps,
-                     "num_locals": cfg.model.num_locals, "vocab": len(vocab),
+                     "num_locals": cfg.model.num_locals,
+                     "vocab": len(st.vocab),
                      "freeze_detector": bool(cfg.model.freeze_detector),
                      "optimizer": o.classname, "lr": o.lr,
                      "num_workers": cfg.data.get("num_workers"),
                      "activation_dtype": cfg.tpu.get("activation_dtype")},
           "weights": "the run phase's detector through prepare_weights, a "
                      "seeded random speaker",
-          "reduced": [f"one epoch of {SPK_STEPS} steps (max_steps "
-                      f"{SPK_STEPS}) of the config's {cfg.train.epochs}",
-                      f"{cfg.data.batch_size} val scenes, one batch, of the "
-                      f"config's {max(2, cfg.data.synthetic.num_scenes // 8)}",
-                      f"log_every_n_steps 1 (the config's {log_every})"],
-          "timing": "the loop waits for the card around each part of a "
-                    f"step; medians over steps but 1 and {SPK_CHECKED_STEP} "
-                    "(the checked one)",
-          "run_step_ms": _median(timed, "wall_s"),
-          "data_wait_ms": _median(timed, "data_wait_s"),
-          "h2d_ms": _median(timed, "h2d_s"),
-          "h2d_bytes": steps[0]["h2d_bytes"],
-          "step_ms": _median(timed, "step_s"),
+          **rep,
           "spk_train_step_ms": med,
           "speaker_fwd_bwd_ms": parts["speaker_fwd_bwd"],
           "speaker_share": parts["speaker_fwd_bwd"] / med,
           "tf_fwd_bwd_ms": parts["tf_fwd_bwd"],
           "tf_launches": tf_launches,
           "tf_launches_per_step": tf_launches / steps_tf,
-          "steps": [{(k[:-2] + "_ms" if k.endswith("_s") else k):
-                     (round(v * 1e3, 3) if k.endswith("_s")
-                      else round(v, 3) if isinstance(v, float) else v)
-                     for k, v in r.items() if k != "t_start"}
-                    for r in steps],
-          "timed_keys": list(timed_keys),
-          "max_memory_allocated": peak, "allocated_before_run": base,
-          "val_peak": val_peak, "step_peak": step_peak,
-          "run_s": round(run_s, 3),
-          "gather_launches": launches,
-          "gather_launches_per_step": spk_per_step,
+          "step_peak": step_peak,
+          "gather_device_ms": gather_dev_ms,
+          "kernel_launches_per_step": sum(r[2] for r in prof),
+          "captioning_losses": [r["train/captioning_loss"] for r in st.train],
+          "step_losses": losses,
+          "seconds": round(time.time() - t_phase, 3)})
+    for key in ("cider", "bleu4", "rouge"):
+        if not math.isfinite(rep["val"][key]):
+            raise AssertionError(f"spk_train: val {key} not finite")
+    del fresh, batch, lang, data, det, inputs, rows, st
+    torch.cuda.empty_cache()
+    return {"spk_train_launches_per_step": rep["gather_launches_per_step"],
+            "spk_train_max_abs_err": rep["gather_max_abs_err"],
+            "spk_train_bound_ms": rep["gather_bound_ms"],
+            "spk_train_device_ms": gather_dev_ms}
+
+
+# --------------------------------------------------------------------------
+def phase_grounding_parity():
+    """The listener at the tiny grounding widths on seeded proposals and
+    descriptions (lengths 0 and T among them): cuda vs cpu, eval and train
+    forward with the same draws."""
+    t0 = time.time()
+    cfg = load_task_config(TINY_GROUNDING_CONFIG)
+    vocab, emb = pipeline.build_vocab(cfg)
+    variables = randomize(init_flax_variables(
+        pipeline.pipeline_from_cfg(cfg, vocab), seed=0),
+        np.random.default_rng(4))
+    rng = np.random.default_rng(5)
+    b, p = 4, cfg.model.max_num_proposal
+    rows, t = b * int(cfg.data.num_des_per_scene), cfg.data.max_spk_len + 2
+    data = fake_proposals(rng, b, p, cfg.model.m * cfg.model.cluster_blocks[0])
+    data["proposal_center_batched"] = data.pop("proposal_bbox_batched").mean(-2)
+    lens = rng.integers(1, t + 1, rows)
+    lens[0], lens[1] = 0, t
+    data["word_embs"] = emb[rng.integers(0, len(vocab), (rows, t))]
+    data["lang_len"] = lens.astype(np.int64)
+    report = listener_cuda_vs_cpu(variables, cfg, vocab, data, seed=0,
+                                  rtol=PARITY_RTOL, atol=PARITY_ATOL)
+    emit({"phase": "grounding_parity", "config": "conf/debug/"
+          "tiny_grounding.yaml, fake proposals and descriptions", **report,
+          "seconds": round(time.time() - t0, 3)})
+    if not report["ok"]:
+        raise AssertionError(f"listener cuda vs cpu: outside tolerance "
+                             f"{report['outside_tolerance']}")
+
+
+def phase_grounding(det_weights, per_forward):
+    """The mode-2 eval forward of a B=4 batch of the grounding config's
+    val scenes and their descriptions: times, peak, gather launches,
+    profiles."""
+    t_phase = time.time()
+    cfg = load_task_config(GROUNDING_CONFIG)
+    vocab, emb = pipeline.build_vocab(cfg)
+    spec = spec_from_cfg(cfg)
+    val_it = make_val_loader(cfg, spec)
+    scenes = [val_it.scenes[i] for i in range(cfg.data.batch_size)]
+    chunk = int(cfg.data.num_des_per_scene)
+    t0 = time.time()
+    batch_np = build_batch(scenes, spec)
+    collate_s = time.time() - t0
+    lang_np = build_lang_batch(scenes, vocab, chunk, cfg.data.max_spk_len,
+                               np.random.default_rng(0), spec.max_instances)
+    batch = batch_to_torch(batch_np, "cuda")
+    lang = pipeline.lang_rows(lang_np, emb, "cuda")
+    model = pipeline_model(cfg, vocab, det_weights)
+    lis = model.listener
+
+    def forward(marks=None):
+        det = model.run_detector(batch)
+        if marks:
+            marks[1].record()
+        return det, model.run_listener(
+            {**det, **lang}, lang["glove_embeddings"][lang["lang_ids"].long()],
+            lang["lang_len"], chunk)
+
+    with torch.no_grad():
+        for _ in range(GROUND_WARMUP):
+            forward()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(GROUND_REPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            det, out = forward(ev)
+            ev[2].record()
+            torch.cuda.synchronize()
+            runs.append((ev[0].elapsed_time(ev[2]), ev[0].elapsed_time(ev[1]),
+                         ev[1].elapsed_time(ev[2])))
+        peak = torch.cuda.max_memory_allocated()
+
+        # the main path, counted: counts set to 0 just before, read after;
+        # each gather's output held bit-exact against the plain version on
+        # the same tensors as it happens (the plain calls launch no kernel)
+        rec = GatherRecorder(gather, check=True, where="the grounding forward")
+        sparse_conv.gather, segment.gather = rec, rec
+        try:
+            gather.gather_rows.launches = 0
+            forward()
+            torch.cuda.synchronize()
+            launches = gather.gather_rows.launches
+        finally:
+            sparse_conv.gather, segment.gather = gather, gather
+
+        # the listener's parts alone, on the last run's inputs
+        word_embs = lang["glove_embeddings"][lang["lang_ids"].long()]
+        lang_out = lis.lang(word_embs, lang["lang_len"])
+        data = {**det, **lang, **lang_out}
+        parts = time_ms({
+            "listener": lambda: model.run_listener(
+                {**det, **lang}, lang["glove_embeddings"][
+                    lang["lang_ids"].long()], lang["lang_len"], chunk),
+            "lang": lambda: lis.lang(word_embs, lang["lang_len"]),
+            "match": lambda: lis.match(data, chunk)}, GROUND_REPS, inner=1)
+        fwd_kernels = phase_profile("grounding_profile", forward)
+        lang_kernels = phase_profile(
+            "grounding_lang_profile",
+            lambda: lis.lang(word_embs, lang["lang_len"]))
+
+    ref = out["cluster_ref"]
+    b, k = cfg.data.batch_size, cfg.model.max_num_proposal
+    t = lang["lang_ids"].shape[1]
+    if tuple(ref.shape) != (b * chunk, k):
+        raise AssertionError(f"cluster_ref {tuple(ref.shape)}")
+    for key in ("cluster_ref", "lang_scores", "lang_emb", "lang_hiddens"):
+        if not bool(torch.isfinite(out[key]).all()):
+            raise AssertionError(f"{key} has non-finite values")
+    if launches != per_forward or rec.checked != launches:
+        raise AssertionError(f"grounding: {launches} gather_rows launches a "
+                             f"batch ({rec.checked} checked), expected "
+                             f"{per_forward}")
+    med = [statistics.median(r[i] for r in runs) for i in range(3)]
+    lang_launches = sum(r[2] for r in lang_kernels)
+    emit({"phase": "grounding", "config": "conf/pointgroup_grounding.yaml",
+          "widths": {"batch": b, "max_num_point": cfg.data.max_num_point,
+                     "max_num_instance": cfg.data.max_num_instance,
+                     "m": cfg.model.m, "levels": len(cfg.model.blocks),
+                     "proposals": k, "description_rows": b * chunk,
+                     "gru_steps": t, "lang_hidden": lis.lang.hidden_size,
+                     "match_type": cfg.model.match_type,
+                     "activation_dtype": cfg.tpu.get("activation_dtype")},
+          "weights": "the run phase's detector, a seeded random listener",
+          "host_collate_s": round(collate_s, 3),
+          "ground_fwd_ms": med[0], "detector_ms": med[1],
+          "listener_ms": med[2], "ground_fwd_ms_all": [r[0] for r in runs],
+          "detector_ms_all": [r[1] for r in runs],
+          "listener_ms_all": [r[2] for r in runs],
+          "listener_alone_ms": parts["listener"], "lang_ms": parts["lang"],
+          "match_ms": parts["match"], "listener_share": med[2] / med[0],
+          "max_memory_allocated": peak,
+          "gather_launches_per_batch": launches,
           "gathers_checked_exact": rec.checked,
           "gather_max_abs_err": rec.max_abs_err,
           "gather_rows_by_dtype_width": rec.rows_by_dtype_width,
-          "gather_bytes_needed": rec.bytes_needed,
-          "gather_bound_ms": bound_ms, "gather_device_ms": gather_dev_ms,
-          "kernel_launches_per_step": sum(r[2] for r in prof),
-          "losses_finite": True,
-          "train_losses": [r["train/loss"] for r in train],
-          "captioning_losses": [r["train/captioning_loss"] for r in train],
-          "step_losses": losses,
-          "val": {k[4:]: v for k, v in val[0].items() if k != "step"},
-          "best": best, "restored_bit_exact": ["model", "optimizer",
-                                               "scheduler", "step"],
-          "tensors_compared": n_tensors,
-          "run_dir": sorted(os.listdir(run_dir)),
+          "kernel_launches_per_batch": sum(r[2] for r in fwd_kernels),
+          "lang_launches": lang_launches,
+          "lang_launches_per_step": lang_launches / t,
+          "annotated_rows": int(lang["annotated"].sum()),
+          "proposals_valid": int(det["proposal_batch_mask"].sum()),
           "seconds": round(time.time() - t_phase, 3)})
-    for key in ("cider", "bleu4", "rouge"):
-        if not math.isfinite(val[0][f"val/{key}"]):
-            raise AssertionError(f"spk_train: val {key} not finite")
-    del fresh, model, batch, lang, data, det, inputs, rows
+    del model, batch, lang, out, det, data, lang_out, word_embs
     torch.cuda.empty_cache()
-    return {"spk_train_launches_per_step": spk_per_step,
-            "spk_train_max_abs_err": rec.max_abs_err,
-            "spk_train_bound_ms": bound_ms,
-            "spk_train_device_ms": gather_dev_ms}
+    return launches, rec.max_abs_err
+
+
+def phase_lis_train_parity():
+    """One mode-2 train step at the tiny grounding widths: cuda vs cpu,
+    with the detector trained and frozen."""
+    t0 = time.time()
+    cfg = load_task_config(TINY_GROUNDING_CONFIG)
+    vocab, emb = pipeline.build_vocab(cfg)
+    case = listener_step_case(cfg, vocab, emb, seed=0)
+    reports = {}
+    for freeze in (False, True):
+        reports["frozen_detector" if freeze else "trained_detector"] = \
+            listener_step_cuda_vs_cpu(
+                cfg, vocab, emb, case, freeze, loss_rtol=PARITY_RTOL,
+                grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL,
+                bn_rtol=PARITY_RTOL, bn_atol=PARITY_ATOL,
+                kink_noise=KINK_NOISE)
+    emit({"phase": "lis_train_parity", "config": "conf/debug/"
+          "tiny_grounding.yaml (copy-paste applied, dropout on)", **reports,
+          "loss_rtol": PARITY_RTOL, "grad_rtol": GRAD_RTOL,
+          "grad_atol": GRAD_ATOL, "seconds": round(time.time() - t0, 3)})
+    bad = {k: r["outside_tolerance"] for k, r in reports.items()
+           if not r["ok"]}
+    if bad:
+        raise AssertionError(f"listener train step cuda vs cpu: {bad}")
+
+
+def phase_lis_train(root, det_run_dir, per_step, per_forward):
+    """The listener's stage as users run it (``_stage_train`` on
+    conf/pointgroup_grounding.yaml), then the step timed alone, its
+    profile, the listener's and its GRU encoder's forward and backward.
+    Returns the ``gather_rows`` numbers of the stage's steps."""
+    t_phase = time.time()
+    st = _stage_train(root, det_run_dir, GROUNDING_CONFIG, LIS_STEPS,
+                      LIS_CHECKED_STEP, per_step, per_forward,
+                      "ref_iou_rate_0.5", "lis_train")
+    cfg, fresh, batch, lang, chunk = st.cfg, st.fresh, st.batch, st.lang, \
+        st.chunk
+    lw = tuple(cfg.train.loss_weight[:4])
+    loss_type = str(cfg.model.get("loss_type", "cross_entropy"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        return pipeline.listener_train_step(
+            fresh, batch, lang, gen, chunk_size=chunk, loss_weight=lw,
+            loss_type=loss_type)[1]
+
+    torch.cuda.reset_peak_memory_stats()
+    med = time_ms({"step": step}, LIS_REPS, inner=1)["step"]
+    step_peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in step().items()}
+    prof = phase_profile("lis_train_profile", step)
+
+    # the listener's forward and backward alone (GRU encoder, match module,
+    # grounding and lang-cls losses) on detached detector outputs; then the
+    # GRU encoder alone, forward and backward
+    lis = fresh.model.listener
+    with torch.no_grad():
+        det = fresh.model.run_detector(batch, train=True, generator=gen)
+    det = {k: v.detach() for k, v in det.items()}
+    det["proposal_feats_batched"].requires_grad_()
+    rows = pipeline.expand_rows(det, batch, chunk)
+    word_embs = lang["glove_embeddings"][lang["lang_ids"].long()]
+    word_embs.requires_grad_()
+    t = lang["lang_ids"].shape[1]
+
+    def listener_fwd_bwd():
+        out = fresh.model.run_listener({**det, **lang}, word_embs,
+                                       lang["lang_len"], chunk, train=True,
+                                       draws=ListenerDraws(gen))
+        ref_l, _ = grounding_loss(out["cluster_ref"],
+                                  rows["proposal_bbox_rows"],
+                                  lang["ref_box_corner_label"],
+                                  lang["annotated"], loss_type=loss_type)
+        cls_l, _ = lang_cls_loss(out["lang_scores"], lang["ref_cat_label"],
+                                 lang["annotated"])
+        (ref_l + cls_l).backward()
+
+    def lang_fwd_bwd():
+        out = lis.lang(word_embs, lang["lang_len"], ListenerDraws(gen))
+        (out["lang_hiddens"].sum() + out["lang_emb"].sum()
+         + out["lang_scores"].sum()).backward()
+
+    parts = time_ms({"listener_fwd_bwd": listener_fwd_bwd,
+                     "lang_fwd_bwd": lang_fwd_bwd}, LIS_REPS, inner=1)
+    lang_kernels = phase_profile("lis_lang_profile", lang_fwd_bwd)
+    lang_launches = sum(r[2] for r in lang_kernels)
+    gather_dev_ms = sum(r[1] for r in prof if "gather_rows_kernel" in r[0])
+    rep = st.report
+    o = cfg.train.optim
+    emit({"phase": "lis_train", "config": "conf/pointgroup_grounding.yaml",
+          "widths": {"batch": cfg.data.batch_size,
+                     "max_num_point": cfg.data.max_num_point,
+                     "max_num_instance": cfg.data.max_num_instance,
+                     "m": cfg.model.m, "levels": len(cfg.model.blocks),
+                     "proposals": cfg.model.max_num_proposal,
+                     "description_rows": lang["lang_ids"].shape[0],
+                     "gru_steps": t, "lang_hidden": lis.lang.hidden_size,
+                     "match_type": cfg.model.match_type,
+                     "loss_type": loss_type,
+                     "freeze_detector": bool(cfg.model.freeze_detector),
+                     "optimizer": o.classname, "lr": o.lr,
+                     "num_workers": cfg.data.get("num_workers"),
+                     "activation_dtype": cfg.tpu.get("activation_dtype")},
+          "weights": "the run phase's detector through prepare_weights, a "
+                     "seeded random listener",
+          **rep,
+          "lis_train_step_ms": med,
+          "listener_fwd_bwd_ms": parts["listener_fwd_bwd"],
+          "listener_share": parts["listener_fwd_bwd"] / med,
+          "lang_fwd_bwd_ms": parts["lang_fwd_bwd"],
+          "lang_launches": lang_launches,
+          "lang_launches_per_step": lang_launches / t,
+          "step_peak": step_peak,
+          "gather_device_ms": gather_dev_ms,
+          "kernel_launches_per_step": sum(r[2] for r in prof),
+          "grounding_losses": [r["train/grounding_loss"] for r in st.train],
+          "step_losses": losses,
+          "seconds": round(time.time() - t_phase, 3)})
+    for key in ("ref_iou_rate_0.25", "ref_iou_rate_0.5"):
+        if not math.isfinite(rep["val"][key]):
+            raise AssertionError(f"lis_train: val {key} not finite")
+    del fresh, batch, lang, det, rows, word_embs, st
+    torch.cuda.empty_cache()
+    return {"lis_train_launches_per_step": rep["gather_launches_per_step"],
+            "lis_train_max_abs_err": rep["gather_max_abs_err"],
+            "lis_train_bound_ms": rep["gather_bound_ms"],
+            "lis_train_device_ms": gather_dev_ms}
 
 
 def main() -> int:
@@ -1802,18 +2153,38 @@ def main() -> int:
         phase_caption_parity()
         det_weights = run_detector_weights(run_dir)
         caption_launches, caption_err = phase_caption(det_weights, launches)
-        phase_caption_eval(os.path.join(root, "captioning"), det_weights,
-                           launches)
+        phase_pipeline_eval("caption_eval", CAPTION_CONFIG, "captioning",
+                            "cider", ("bleu4", "cider", "rouge", "meteor"),
+                            os.path.join(root, "captioning"), det_weights,
+                            launches)
         phase_spk_train_parity()
         spk = phase_spk_train(
             os.path.join(root, "spk"), run_dir, train["train_launches"],
             launches)
+        phase_grounding_parity()
+        grounding_launches, grounding_err = phase_grounding(det_weights,
+                                                            launches)
+        phase_pipeline_eval("grounding_eval", GROUNDING_CONFIG, "grounding",
+                            "ref_iou_rate_0.5",
+                            ("ref_iou_rate_0.25", "ref_iou_rate_0.5",
+                             "iou_mean"),
+                            os.path.join(root, "grounding"), det_weights,
+                            launches)
+        phase_lis_train_parity()
+        lis = phase_lis_train(
+            os.path.join(root, "lis"), run_dir, train["train_launches"],
+            launches)
     kernels[0]["run_launches_per_step"] = run_per_step
     kernels[0]["caption_launches_per_batch"] = caption_launches
     kernels[0]["caption_max_abs_err"] = caption_err
+    kernels[0]["grounding_launches_per_batch"] = grounding_launches
+    kernels[0]["grounding_max_abs_err"] = grounding_err
     kernels[0].update(spk)
+    kernels[0].update(lis)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], caption_err,
-                                    spk["spk_train_max_abs_err"])
+                                    spk["spk_train_max_abs_err"],
+                                    grounding_err,
+                                    lis["lis_train_max_abs_err"])
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

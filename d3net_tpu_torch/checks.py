@@ -1,7 +1,10 @@
-"""The speaker on cuda against the speaker on cpu, shared by
-``chip_smoke.py`` (phases ``caption_parity``, ``spk_train_parity``) and the
-card tests ``tests/test_torch_cuda.py::test_speaker_cuda_matches_cpu`` and
-``test_speaker_train_step_cuda_matches_cpu``.
+"""The speaker and the listener on cuda against the same on cpu, shared by
+``chip_smoke.py`` (phases ``caption_parity``, ``spk_train_parity``,
+``grounding_parity``, ``lis_train_parity``) and the card tests
+``tests/test_torch_cuda.py::test_speaker_cuda_matches_cpu``,
+``test_speaker_train_step_cuda_matches_cpu``,
+``test_listener_cuda_matches_cpu`` and
+``test_listener_train_step_cuda_matches_cpu``.
 
 The greedy decode is a chain of argmaxes: where f32 sums reorder on the
 card, a near-tie can flip a token and the rest of its row with it. So the
@@ -13,12 +16,22 @@ report gives the cpu's top-2 margin at the first difference.
 A train step's gradients go through every ReLU, and an input within float
 noise of 0 can fall on either side when sums run in another order: the
 cuda step takes each ReLU's side from the cpu step (``relu_sides``).
+
+The listener's backward into the detector is ill-conditioned in f32:
+moving every weight by one ulp moves a few gradient elements by more than
+the gradient tolerance. So ``listener_step_cuda_vs_cpu`` also runs the cpu
+step on weights moved by one ulp (``ulp_moved``), and a gradient element
+outside the tolerance passes only where the cuda-cpu difference is within
+``ulp_factor`` times that element's own one-ulp movement, for under 1% of
+any tensor (``grad_mismatches``). The biases that only shift a train-mode
+BatchNorm's input (``BN_FED_BIASES``) have a zero gradient: there both
+devices' noise must stay under 1e-5 of the largest gradient.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +42,11 @@ from d3net_tpu_torch.params import flatten, load_pipeline, state_dict_to_flax
 
 SPEAKER_INTS = ("adjacent_mat", "local_ids", "local_mask")
 SPEAKER_FLOATS = ("bbox_feature", "edge_feature", "edge_orientations")
+LISTENER_FLOATS = ("cluster_ref", "lang_scores", "lang_emb", "lang_hiddens")
+# the listener's biases that add a constant to a train-mode BatchNorm's
+# input, which the batch mean takes out
+BN_FED_BIASES = tuple(f"listener.match.{n}.bias" for n in (
+    "feat_fc1", "match_fc1", "match_fc2", "cross_attn_1.LayerNorm_0"))
 
 
 def teacher_forced_logits(caption, embeddings, target_feat, obj_feats,
@@ -144,8 +162,9 @@ def relu_sides(ref: List[torch.Tensor], record: bool):
 
 
 def randomize(tree, rng: np.random.Generator):
-    """Nonzero biases and BN statistics in a Flax tree of numpy leaves (in
-    place; Flax starts biases and means at 0, scales and variances at 1)."""
+    """Nonzero biases and BN statistics and unequal PReLU slopes in a Flax
+    tree of numpy leaves (in place; Flax starts biases and means at 0,
+    scales and variances at 1, slopes at 0.25)."""
     for k, v in tree.items():
         if isinstance(v, dict):
             randomize(v, rng)
@@ -153,6 +172,8 @@ def randomize(tree, rng: np.random.Generator):
             tree[k] = rng.normal(0.0, 0.1, v.shape).astype(np.float32)
         elif k in ("scale", "var"):
             tree[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        elif k == "alpha":
+            tree[k] = rng.uniform(0.1, 0.4, v.shape).astype(np.float32)
     return tree
 
 
@@ -279,6 +300,246 @@ def speaker_step_cuda_vs_cpu(cfg, vocab, emb, case: Dict[str, Any],
                                   for k, v in cpu["stats"].items()),
             "integers_equal": ints,
             "good_rows": int(cpu["ints"]["good_bbox_masks"].sum()),
+            "relu_kink_crossings": kinks, "outside_tolerance": bad,
+            "gather_launches_cuda": gpu["launches"],
+            "gather_launches_cpu": cpu["launches"]}
+
+
+def listener_step_case(cfg, vocab, emb, seed: int = 0) -> Dict[str, Any]:
+    """One mode-2 train step's inputs at ``cfg``'s widths (numpy): the
+    first batch of its train loader, its description rows, random weights
+    with nonzero biases, BN statistics and PReLU slopes, the jitter and
+    proposal permutation, a copy-paste draw that applies, and the
+    listener's dropout keep masks, drawn once on the cpu from a seeded
+    generator (``ListenerDraws.drawn``)."""
+    from d3net_tpu_torch.data.collate import batch_to_torch
+    from d3net_tpu_torch.data.language import build_lang_batch
+    from d3net_tpu_torch.models.listener import ListenerDraws
+    from d3net_tpu_torch.params import init_flax_variables
+    from d3net_tpu_torch.train.loop import make_dataloaders, spec_from_cfg
+    from d3net_tpu_torch.train.pipeline import (
+        lang_rows, listener_losses, pipeline_from_cfg,
+    )
+
+    spec = spec_from_cfg(cfg)
+    train_it, _ = make_dataloaders(cfg, spec, return_scenes=True)
+    batch_np, scenes = next(iter(train_it))
+    rng = np.random.default_rng(seed)
+    b = batch_np["center_label"].shape[0]
+    chunk = int(cfg.data.num_des_per_scene)
+    lang_np = build_lang_batch(scenes, vocab, chunk, cfg.data.max_spk_len,
+                               np.random.default_rng(seed),
+                               spec.max_instances, apply_word_erase=True)
+    variables = randomize(init_flax_variables(pipeline_from_cfg(cfg, vocab),
+                                              seed), rng)
+    k = cfg.model.max_num_proposal
+    case = {"batch": batch_np, "scenes": scenes, "lang": lang_np,
+            "variables": variables, "chunk": chunk,
+            "jitter": rng.random((b, 2 * cfg.tpu.clusters_per_pass, 3)
+                                 ).astype(np.float32),
+            "perm": rng.permutation(k).astype(np.int64),
+            "copy_paste": (np.asarray(True),
+                           rng.gumbel(size=(b, k, k)).astype(np.float32))}
+    draws = ListenerDraws(torch.Generator().manual_seed(seed),
+                          copy_paste=tuple(torch.from_numpy(a)
+                                           for a in case["copy_paste"]))
+    model = load_pipeline(variables, cfg, vocab, device="cpu")
+    with torch.no_grad():
+        listener_losses(model, batch_to_torch(batch_np, "cpu"),
+                        lang_rows(lang_np, emb, "cpu"), chunk_size=chunk,
+                        jitter_u=torch.from_numpy(case["jitter"]),
+                        proposal_perm=torch.from_numpy(case["perm"])[None],
+                        draws=draws)
+    case["masks"] = {p: m.numpy() for p, m in draws.drawn.items()}
+    return case
+
+
+def listener_step_kwargs(case: Dict[str, Any], dev) -> Dict[str, Any]:
+    """The draws of ``case`` (``listener_step_case``) as the keyword
+    arguments of ``listener_train_step``/``listener_losses`` on ``dev``."""
+    from d3net_tpu_torch.models.listener import ListenerDraws
+
+    return {"jitter_u": torch.from_numpy(case["jitter"]).to(dev),
+            "proposal_perm": torch.from_numpy(case["perm"]).to(dev)[None],
+            "draws": ListenerDraws(
+                masks={p: torch.from_numpy(m).to(dev)
+                       for p, m in case["masks"].items()},
+                copy_paste=tuple(torch.from_numpy(a).to(dev)
+                                 for a in case["copy_paste"]))}
+
+
+def listener_cuda_vs_cpu(variables, cfg, vocab, data: Dict[str, np.ndarray],
+                         seed: int = 0, rtol: float = 1e-4,
+                         atol: float = 1e-5) -> Dict[str, Any]:
+    """The pipeline's listener of ``variables`` on ``data`` (proposals,
+    ``word_embs`` and ``lang_len``, numpy) on cpu and on cuda inside
+    ``device.parity_precision()``: in eval mode, then in train mode with
+    the same draws (the keep masks drawn on the cpu from a seeded
+    generator, a copy-paste draw that applies). ``ok`` when every float
+    output of both modes and the BN statistics after the train forward
+    are within ``rtol``/``atol``."""
+    from d3net_tpu_torch.models.listener import ListenerDraws
+    from d3net_tpu_torch.models.match import gumbel_draw
+
+    chunk = data["word_embs"].shape[0] // data["proposal_batch_mask"].shape[0]
+    b, p = data["proposal_batch_mask"].shape
+    gen = torch.Generator().manual_seed(seed)
+    copy_paste = (torch.tensor(True), gumbel_draw((b, p, p), gen, "cpu"))
+    outs, stats, masks = {}, {}, None
+    with device.parity_precision(), torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            lis = load_pipeline(variables, cfg, vocab, device=dev).listener
+            t = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+            props = {k: t[k] for k in ("proposal_feats_batched",
+                                       "proposal_batch_mask",
+                                       "proposal_center_batched")}
+            for train in (False, True):
+                if not train:
+                    draws = None
+                elif masks is None:
+                    draws = ListenerDraws(gen, copy_paste=copy_paste)
+                else:
+                    draws = ListenerDraws(
+                        masks={k: m.to(dev) for k, m in masks.items()},
+                        copy_paste=tuple(a.to(dev) for a in copy_paste))
+                out = lis(props, t["word_embs"], t["lang_len"],
+                                       chunk, train=train, draws=draws)
+                if train and masks is None:
+                    masks = draws.drawn
+                outs[(dev, train)] = {k: out[k].cpu()
+                                      for k in LISTENER_FLOATS}
+            stats[dev] = {k: v.cpu() for k, v in lis.state_dict().items()
+                          if k.endswith((".mean", ".var"))}
+    errs, bad = {}, []
+    for train in (False, True):
+        mode = "train" if train else "eval"
+        for k in LISTENER_FLOATS:
+            g, c = outs[("cuda", train)][k], outs[("cpu", train)][k]
+            errs[f"{mode}:{k}"] = float((g - c).abs().max())
+            if not torch.allclose(g, c, rtol=rtol, atol=atol):
+                bad.append(f"{mode}:{k}")
+    for k, c in stats["cpu"].items():
+        if not torch.allclose(stats["cuda"][k], c, rtol=rtol, atol=atol):
+            bad.append(f"bn:{k}")
+    return {"ok": not bad, "rows": int(data["word_embs"].shape[0]),
+            "proposals": p, "dropout_masks": sorted(masks),
+            "max_abs_err": errs, "bn_statistics": len(stats["cpu"]),
+            "outside_tolerance": bad, "rtol": rtol, "atol": atol}
+
+
+def grad_mismatches(got: Dict[str, np.ndarray], want: Dict[str, np.ndarray],
+                    noise: Optional[Dict[str, np.ndarray]] = None,
+                    rtol: float = 1e-3, atol: float = 1e-6,
+                    ulp_factor: float = 4.0, zero_grads=()
+                    ) -> Tuple[List[str], int]:
+    """The keys of the flat gradients ``want`` that ``got`` does not match,
+    and how many elements passed only as f32 noise. An element passes
+    within ``rtol``/``atol``, or, given ``noise`` (by key, one side's
+    gradient less the same on weights moved by one ulp, ``ulp_moved``),
+    within ``ulp_factor`` times it, for under 1% of the tensor. The keys of
+    ``zero_grads`` have a zero gradient: both sides must stay under 1e-5 of
+    the largest gradient."""
+    bad = [] if set(got) == set(want) else ["keys"]
+    top = max(float(np.abs(w).max()) for w in want.values())
+    noise_elements = 0
+    for k, w in want.items():
+        g = got.get(k, np.full_like(w, np.nan))
+        if k in zero_grads:
+            if not max(float(np.abs(g).max()), float(np.abs(w).max())) \
+                    <= 1e-5 * top:
+                bad.append(k)
+            continue
+        diff = np.abs(g - w)
+        outside = ~(diff <= atol + rtol * np.abs(w))
+        passed = (outside & (diff <= ulp_factor * noise[k]) if noise
+                  else np.zeros_like(outside))
+        noise_elements += int(passed.sum())
+        if (outside & ~passed).any() or passed.mean() >= 0.01:
+            bad.append(k)
+    return bad, noise_elements
+
+
+def ulp_moved(tree, rng: np.random.Generator):
+    """A Flax tree of numpy leaves with every leaf moved by one ulp
+    (relative 2^-24, random signs)."""
+    return {k: ulp_moved(v, rng) if isinstance(v, dict) else (
+        v * (1 + rng.choice([-1.0, 1.0], v.shape) * 2.0 ** -24)).astype(
+            np.float32) for k, v in tree.items()}
+
+
+def listener_step_cuda_vs_cpu(cfg, vocab, emb, case: Dict[str, Any],
+                              freeze_detector: bool, loss_rtol: float = 1e-4,
+                              grad_rtol: float = 1e-3, grad_atol: float = 1e-6,
+                              bn_rtol: float = 1e-4, bn_atol: float = 1e-5,
+                              kink_noise: float = 1e-5,
+                              ulp_factor: float = 4.0) -> Dict[str, Any]:
+    """One ``listener_train_step`` of ``case`` (``listener_step_case``) on
+    cpu and on cuda inside ``device.parity_precision()``, the same injected
+    draws, the cuda step on the cpu step's ReLU sides: the ten metrics,
+    every gradient (with the f32 noise rules of this module's docstring)
+    and the new BN statistics within their tolerances. ``ok`` when all
+    hold and no ReLU input that changed side lies beyond ``kink_noise``
+    (relative) of the kink. Also the cuda step's ``gather_rows`` launches
+    (a frozen detector runs no backward gathers)."""
+    from d3net_tpu_torch.data.collate import batch_to_torch
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.train.pipeline import (
+        freeze_submodules, lang_rows, listener_train_step,
+    )
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    lw = tuple(cfg.train.loss_weight[:4])
+    o = cfg.train.optim
+    moved = dict(case["variables"])
+    moved["params"] = ulp_moved(moved["params"], np.random.default_rng(0))
+    res, relu_ref = {}, []
+    with device.parity_precision():
+        for run, dev, variables in (("cpu", "cpu", case["variables"]),
+                                    ("cuda", "cuda", case["variables"]),
+                                    ("cpu_ulp", "cpu", moved)):
+            model = load_pipeline(variables, cfg, vocab, device=dev)
+            freeze_submodules(model, {"detector": freeze_detector})
+            state = create_train_state(model, lr=o.lr, optim=o.classname,
+                                       weight_decay=o.weight_decay)
+            before = gather.gather_rows.launches
+            with relu_sides([] if run == "cpu_ulp" else relu_ref,
+                            run != "cuda") as kinks:
+                _, metrics = listener_train_step(
+                    state, batch_to_torch(case["batch"], dev),
+                    lang_rows(case["lang"], emb, dev), chunk_size=case["chunk"],
+                    loss_weight=lw, **listener_step_kwargs(case, dev))
+            res[run] = {
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": flatten(state_dict_to_flax(model, {
+                    n: p.grad for n, p in model.named_parameters()
+                    if p.grad is not None})["params"]),
+                "stats": flatten(state_dict_to_flax(model)["batch_stats"]),
+                "kinks": kinks,
+                "launches": gather.gather_rows.launches - before}
+    cpu, gpu, ulp = res["cpu"], res["cuda"], res["cpu_ulp"]
+    bad = [k for k, want in cpu["metrics"].items()
+           if not np.isclose(gpu["metrics"][k], want, rtol=loss_rtol, atol=0)]
+    grads_bad, noise_elements = grad_mismatches(
+        gpu["grads"], cpu["grads"],
+        {k: np.abs(v - ulp["grads"][k]) for k, v in cpu["grads"].items()},
+        grad_rtol, grad_atol, ulp_factor, BN_FED_BIASES)
+    bad += [f"grad:{k}" for k in grads_bad]
+    for k, want in cpu["stats"].items():
+        if not np.allclose(gpu["stats"].get(k, np.nan), want, rtol=bn_rtol,
+                           atol=bn_atol):
+            bad.append(f"bn:{k}")
+    kinks = gpu["kinks"]
+    if kinks["largest"] > kink_noise:
+        bad.append("relu_kink_crossing")
+    return {"ok": not bad, "freeze_detector": freeze_detector,
+            "losses_cpu": cpu["metrics"], "losses_cuda": gpu["metrics"],
+            "gradients": len(cpu["grads"]),
+            "grad_max_abs_err": max(float(np.abs(gpu["grads"][k] - v).max())
+                                    for k, v in cpu["grads"].items()
+                                    if k in gpu["grads"]),
+            "grad_ulp_noise_elements": noise_elements,
+            "bn_max_abs_err": max(float(np.abs(gpu["stats"][k] - v).max())
+                                  for k, v in cpu["stats"].items()),
             "relu_kink_crossings": kinks, "outside_tolerance": bad,
             "gather_launches_cuda": gpu["launches"],
             "gather_launches_cpu": cpu["launches"]}

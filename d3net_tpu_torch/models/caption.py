@@ -61,8 +61,17 @@ class GRUCell(nn.Module):
         nn.init.xavier_uniform_(self.weight_ih)
         nn.init.orthogonal_(self.weight_hh)
 
+    def input_gates(self, x: torch.Tensor) -> torch.Tensor:
+        """``x·[W_ir|W_iz|W_in] + b`` (…, 3H): one product for every step
+        of a sequence whose inputs are known."""
+        return F.linear(x, self.weight_ih, self.bias_ih)
+
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        i_r, i_z, i_n = F.linear(x, self.weight_ih, self.bias_ih).chunk(3, -1)
+        return self.step(h, self.input_gates(x))
+
+    def step(self, h: torch.Tensor, gates_i: torch.Tensor) -> torch.Tensor:
+        """The cell on the input gates of ``input_gates``."""
+        i_r, i_z, i_n = gates_i.chunk(3, -1)
         h_r, h_z, h_n = F.linear(h, self.weight_hh).chunk(3, -1)
         r = torch.sigmoid(i_r + h_r)
         z = torch.sigmoid(i_z + h_z)

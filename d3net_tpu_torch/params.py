@@ -18,11 +18,15 @@ to a ``state_dict`` key by joining with dots. Layout changes:
   of ``ir/iz/in`` and of ``hr/hz/hn`` transposed and stacked into
   ``weight_ih``/``weight_hh`` (3H, ·), the biases of ``ir/iz/in`` into
   ``bias_ih``, ``hn``'s bias into ``bias_hn``.
+- the listener's Flax ``BatchNorm`` (``scale``/``bias`` params,
+  ``mean``/``var`` batch_stats), ``LayerNorm`` (``scale``/``bias``) and
+  ``PReLU`` (``alpha``) stay as they are; the port's modules carry the
+  same names (``listener.match.self_attn_0.LayerNorm_0.scale``).
 
 The conversion fails if any Flax leaf is left unused or any port
 parameter or buffer is left unset. It covers the detector alone
-(``load_detector``) and the pipeline's whole ``{detector, speaker}`` tree
-(``load_pipeline``). ``state_dict_to_flax`` is its inverse
+(``load_detector``) and the pipeline's whole ``{detector, speaker,
+listener}`` tree (``load_pipeline``). ``state_dict_to_flax`` is its inverse
 (also for a mapping of gradients), and ``optax_adam_state_to_torch``
 carries optax's ``mu``/``nu``/``count`` into ``exp_avg``/``exp_avg_sq``/
 ``step``, so a run can move between the frameworks in either direction.
@@ -41,8 +45,10 @@ from d3net_tpu_torch.data.collate import BatchSpec
 from d3net_tpu_torch.device import DeviceLike, resolve_device
 from d3net_tpu_torch.models.blocks import MaskedBatchNorm, SubmConv
 from d3net_tpu_torch.models.caption import GRUCell
+from d3net_tpu_torch.models.match import BatchNorm, PReLU
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.models.scorenet import Conv, ConvTranspose
+from d3net_tpu_torch.models.transformer import LayerNorm
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -92,12 +98,17 @@ _LEAVES = {
                       ("params", "bias", "bias", _SAME, _SAME),
                       ("batch_stats", "mean", "mean", _SAME, _SAME),
                       ("batch_stats", "var", "var", _SAME, _SAME)],
+    LayerNorm: [("params", "scale", "scale", _SAME, _SAME),
+                ("params", "bias", "bias", _SAME, _SAME)],
+    PReLU: [("params", "alpha", "alpha", _SAME, _SAME)],
     GRUCell: [("params", _GATES_I, "weight_ih", _STACK_T, _SPLIT_T),
               ("params", ("ir.bias", "iz.bias", "in.bias"), "bias_ih",
                np.concatenate, lambda a: np.split(a, 3)),
               ("params", _GATES_H, "weight_hh", _STACK_T, _SPLIT_T),
               ("params", "hn.bias", "bias_hn", _SAME, _SAME)],
 }
+# the listener's Flax BatchNorm has MaskedBatchNorm's leaves
+_LEAVES[BatchNorm] = _LEAVES[MaskedBatchNorm]
 
 
 def _leaf_modules(model: nn.Module):
@@ -233,8 +244,9 @@ def init_flax_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
     Kernels are He-normal for the sparse and dense convs, LeCun-normal for
     the Dense layers and a GRU's input gates, orthogonal for its recurrent
     gates (Flax's initializers, untruncated); biases and BN shifts 0, BN
-    scales 1, running mean 0 and var 1 — what ``model.init`` gives. Feed
-    the result through :func:`flax_to_state_dict`.
+    and LayerNorm scales 1, running mean 0 and var 1, PReLU slopes 0.25 —
+    what ``model.init`` gives. Feed the result through
+    :func:`flax_to_state_dict`.
     """
     rng = np.random.default_rng(seed)
     flat: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "batch_stats": {}}
@@ -253,6 +265,8 @@ def init_flax_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
                     v = rng.normal(0.0, math.sqrt(gain / fan_in), shape)
                 elif leaf in ("scale", "var"):
                     v = np.ones(shape)
+                elif leaf == "alpha":
+                    v = np.full(shape, 0.25)
                 else:
                     v = np.zeros(shape)
                 flat[coll][f"{name}{leaf}"] = v.astype(np.float32)
@@ -276,9 +290,10 @@ def load_detector(variables: Mapping[str, Any], cfg: Mapping[str, Any],
 def load_pipeline(variables: Mapping[str, Any], cfg, vocab,
                   device: DeviceLike = None) -> nn.Module:
     """The config's ``PipelineNet`` (``train.pipeline.pipeline_from_cfg``)
-    with Flax ``variables`` of the whole ``{detector, speaker}`` tree
-    loaded, in eval mode. Runs on CUDA unless ``device`` says otherwise;
-    raises without a GPU when no device is given."""
+    with Flax ``variables`` of the whole ``{detector, speaker, listener}``
+    tree (the submodules the config names) loaded, in eval mode. Runs on
+    CUDA unless ``device`` says otherwise; raises without a GPU when no
+    device is given."""
     from d3net_tpu_torch.train.pipeline import pipeline_from_cfg
 
     dev = resolve_device(device)

@@ -1,7 +1,7 @@
 """Eval entry point of the port (the JAX package's ``scripts/eval.py``).
 
     python -m d3net_tpu_torch.scripts.eval --folder <run_dir> \
-        --task detection|captioning [--set KEY=VALUE ...] [--cpu]
+        --task detection|captioning|grounding [--set KEY=VALUE ...] [--cpu]
 
 Reloads the run dir's ``config.yaml``, restores its best checkpoint (else
 its last; with none it warns and evaluates random weights) and runs the
@@ -11,8 +11,15 @@ task's protocol over the val scenes:
 - ``captioning``: the detector -> speaker pipeline captions every proposal
   greedily, scored as CIDEr, BLEU-4, ROUGE-L and METEOR at
   ``eval.min_iou_threshold`` (METEOR is 0.0 where nltk is absent) ->
-  ``eval_captioning.json``. Its checkpoint must hold the whole pipeline: a
-  detector-only one fails to load.
+  ``eval_captioning.json``;
+- ``grounding``: the detector -> listener pipeline grounds every
+  description row of the val scenes, scored as Acc@0.25/0.5
+  (``ref_iou_rate_*``) and the mean IoU, with the unique/multiple and
+  others breakdown, averaged over ``eval.repeat`` runs ->
+  ``eval_grounding.json``.
+
+The pipeline tasks' checkpoint must hold the whole pipeline: a
+detector-only one fails to load. ``scannet`` is not ported and raises.
 
 Each file is stamped with the checkpoint it used. Runs on CUDA unless
 ``--cpu`` is given; without a GPU and without ``--cpu`` it raises.
@@ -25,6 +32,7 @@ import json
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 from torch import nn
 
 from d3net_tpu_torch import config as cfg_lib
@@ -104,17 +112,13 @@ def eval_detection(cfg: cfg_lib.Config, run_dir: str,
     return results
 
 
-def eval_captioning(cfg: cfg_lib.Config, run_dir: str,
-                    device: DeviceLike = None) -> Dict[str, float]:
-    """The JAX package's ``eval_captioning_cli``: mode-1 validation of the
-    run dir's pipeline."""
+def _pipeline_for_eval(cfg: cfg_lib.Config, run_dir: str, dev):
+    """The config's ``PipelineNet`` on ``dev`` with the run dir's weights,
+    its val loader, vocabulary, embeddings and checkpoint stamp."""
     from d3net_tpu_torch.params import flax_to_state_dict, init_flax_variables
     from d3net_tpu_torch.train.loop import make_val_loader, spec_from_cfg
-    from d3net_tpu_torch.train.pipeline import (
-        build_vocab, pipeline_from_cfg, run_pipeline_validation,
-    )
+    from d3net_tpu_torch.train.pipeline import build_vocab, pipeline_from_cfg
 
-    dev = resolve_device(device)
     vocab, emb = build_vocab(cfg)
     model = pipeline_from_cfg(cfg, vocab)
     model.load_state_dict(flax_to_state_dict(init_flax_variables(model, 0),
@@ -122,8 +126,37 @@ def eval_captioning(cfg: cfg_lib.Config, run_dir: str,
     model.to(dev)
     val_it = make_val_loader(cfg, spec_from_cfg(cfg), return_scenes=True)
     _, ckpt_info = restore_for_eval(model, cfg, run_dir)
+    return model, val_it, vocab, emb, ckpt_info
+
+
+def eval_captioning(cfg: cfg_lib.Config, run_dir: str,
+                    device: DeviceLike = None) -> Dict[str, float]:
+    """The JAX package's ``eval_captioning_cli``: mode-1 validation of the
+    run dir's pipeline."""
+    from d3net_tpu_torch.train.pipeline import run_pipeline_validation
+
+    model, val_it, vocab, emb, ckpt_info = _pipeline_for_eval(
+        cfg, run_dir, resolve_device(device))
     metrics = run_pipeline_validation(cfg, model, val_it, vocab, emb, mode=1)
     _write(run_dir, "captioning", metrics, ckpt_info)
+    return metrics
+
+
+def eval_grounding(cfg: cfg_lib.Config, run_dir: str,
+                   device: DeviceLike = None) -> Dict[str, float]:
+    """The JAX package's ``eval_grounding_cli``: mode-2 validation of the
+    run dir's pipeline, each metric the mean of ``eval.repeat`` runs."""
+    from d3net_tpu_torch.train.pipeline import run_pipeline_validation
+
+    model, val_it, vocab, emb, ckpt_info = _pipeline_for_eval(
+        cfg, run_dir, resolve_device(device))
+    runs: Dict[str, list] = {}
+    for _ in range(int(cfg.eval.get("repeat", 1))):
+        m = run_pipeline_validation(cfg, model, val_it, vocab, emb, mode=2)
+        for k, v in m.items():
+            runs.setdefault(k, []).append(v)
+    metrics = {k: float(np.mean(v)) for k, v in runs.items()}
+    _write(run_dir, "grounding", metrics, ckpt_info)
     return metrics
 
 
@@ -166,12 +199,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     cfg = cfg_lib.load(os.path.join(args.folder, "config.yaml"))
     apply_overrides(cfg, args.set)
-    if args.task in ("grounding", "scannet"):
-        item = {"grounding": "14 and 16", "scannet": "16"}[args.task]
+    if args.task == "scannet":
         raise NotImplementedError(
-            f"--task {args.task} is not ported (ROADMAP.md, queue A item "
-            f"{item})")
-    run = eval_captioning if args.task == "captioning" else eval_detection
+            "--task scannet is not ported (ROADMAP.md, queue A item 16)")
+    run = {"detection": eval_detection, "captioning": eval_captioning,
+           "grounding": eval_grounding}[args.task]
     run(cfg, args.folder, device)
 
 

@@ -6,12 +6,13 @@
 The task YAML is merged over ``path.yaml`` beside it, when there is one;
 the run goes to ``general.output_root/<folder or general.experiment>``
 and resumes from its last checkpoint. The detector (task mode (1, 0, 0))
-trains through ``run_detector_training``, the detector with the speaker
-((1, 1, 0), e.g. conf/pointgroup_captioning.yaml, whose
-``model.pretrained_detector`` is written by ``prepare_weights``) through
-``run_pipeline_training``, which raises for the listener's and joint RL's
-modes. Runs on CUDA unless ``--cpu`` is given; without a GPU and without
-``--cpu`` it raises.
+trains through ``run_detector_training``; the detector with the speaker
+((1, 1, 0), e.g. conf/pointgroup_captioning.yaml) or with the listener
+((1, 0, 1), e.g. conf/pointgroup_grounding.yaml), whose
+``model.pretrained_detector`` is written by ``prepare_weights``, through
+``run_pipeline_training``. Joint RL's (1, 1, 1) raises
+(``train.pipeline.task_mode``). Runs on CUDA unless ``--cpu`` is given;
+without a GPU and without ``--cpu`` it raises.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional, Sequence
 
 from d3net_tpu_torch import config as cfg_lib
 from d3net_tpu_torch.device import resolve_device
+from d3net_tpu_torch.train.pipeline import task_mode
 
 
 def load_task_config(path: str) -> cfg_lib.Config:
@@ -45,12 +47,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = load_task_config(args.config)
     run_dir = os.path.join(cfg.general.output_root,
                            args.folder or cfg.general.experiment)
-    task_mode = (
-        int(not cfg.model.no_detection),
-        int(not cfg.model.no_captioning),
-        int(not cfg.model.no_grounding),
-    )
-    if task_mode == (1, 0, 0):
+    if task_mode(cfg) == (1, 0, 0):
         if cfg.tpu.get("steps_per_dispatch"):
             raise NotImplementedError(
                 "tpu.steps_per_dispatch: the scan trainer "

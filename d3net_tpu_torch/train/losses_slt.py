@@ -1,23 +1,29 @@
-"""Speaker (captioning) losses (counterpart of
+"""Speaker (captioning) and listener (grounding) losses (counterpart of
 ``d3net_tpu/train/losses_slt.py``).
 
 Parity targets:
 - caption XE + accuracy over good-bbox entries with pad ignore
   (``lib/captioning/loss_helper.py:178-215``),
 - 6-bin relative-orientation CE over graph edges
-  (``compute_node_orientation_loss`` :244-307).
+  (``compute_node_orientation_loss`` :244-307),
+- SoftmaxRankingLoss (or the contrastive loss) grounding with argmax-IoU
+  one-hot labels + Acc@kIoU metrics (``lib/grounding/loss_helper.py:
+  130-214``, ``loss.py:6-40``),
+- language-to-object classification CE (``get_lobjcls_loss`` :231-302).
 
-The listener's grounding and lang-cls losses are ROADMAP.md queue A item
-14.
+``argmax`` keeps the first index on ties, as ``jnp.argmax``: a row whose
+IoUs are all 0 is labelled with proposal 0.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
+
+from d3net_tpu_torch.utils.bbox import aabb_iou_corners
 
 
 def caption_loss(pred_logits, lang_ids, good_bbox_masks, pad_id: int = 0
@@ -71,3 +77,90 @@ def orientation_loss(
     loss = (nll * w).sum() / denom
     acc = ((edge_orientations.argmax(-1) == labels) * w).sum() / denom
     return loss, acc
+
+
+def softmax_ranking_loss(preds, targets, reduce: bool = True) -> torch.Tensor:
+    """-sum(target * log softmax(pred)) (ref ``SoftmaxRankingLoss``)."""
+    probs = torch.softmax(preds + 1e-8, dim=1)
+    loss = -(torch.log(probs + 1e-8) * targets).sum(1)
+    return loss.mean() if reduce else loss
+
+
+def contrastive_loss(preds, targets, margin: float = 0.2, gamma: float = 5.0,
+                     reduce: bool = True) -> torch.Tensor:
+    """Per-row contrastive ranking loss (ref ``ContrastiveLoss``,
+    ``lib/grounding/loss.py:27-40``):
+
+    loss_i = max(0, logsumexp_j(gamma*pred_ij*(1-t_ij))
+                    - sum_j(gamma*pred_ij*t_ij) + margin)
+
+    Negatives are zeroed (not -inf-masked) inside the logsumexp, as the
+    reference multiplies by ``label.logical_not()``."""
+    score = preds * gamma
+    sim = (score * targets).sum(1)
+    neg_sim = torch.logsumexp(score * (1.0 - targets), dim=1)
+    loss = torch.clamp(neg_sim - sim + margin, min=0.0)
+    return loss.mean() if reduce else loss
+
+
+def grounding_labels(pred_corners, ref_corner_label
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-hot argmax-IoU labels (ref :148-158): pred_corners (N, P, 8, 3),
+    ref_corner_label (N, 8, 3) -> (labels (N, P), IoUs (N, P)), both
+    constants of the loss."""
+    with torch.no_grad():
+        ious = aabb_iou_corners(pred_corners, ref_corner_label[:, None])
+        labels = F.one_hot(ious.argmax(-1), ious.shape[-1]).to(ious.dtype)
+    return labels, ious
+
+
+def grounding_loss(
+    cluster_ref,        # (N, P) confidences
+    pred_corners,       # (N, P, 8, 3)
+    ref_corner_label,   # (N, 8, 3)
+    annotated=None,     # (N,) optional mask over description rows
+    reduce: bool = True,
+    loss_type: str = "cross_entropy",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The grounding loss over the annotated rows and its five ``ref_*``
+    metrics: the argmax proposal's accuracy against the label, its IoU,
+    the label's IoU and the rate of rows whose pick reaches 0.25 / 0.5."""
+    labels, ious = grounding_labels(pred_corners, ref_corner_label)
+    if loss_type == "contrastive":
+        per_row = contrastive_loss(cluster_ref, labels, reduce=False)
+    else:
+        per_row = softmax_ranking_loss(cluster_ref, labels, reduce=False)
+    if annotated is not None:
+        w = annotated.to(per_row.dtype)
+        loss = (per_row * w).sum() / w.sum().clamp(min=1.0)
+    else:
+        w = torch.ones_like(per_row)
+        loss = per_row.mean()
+    pred_idx = cluster_ref.detach().argmax(-1)
+    label_idx = labels.argmax(-1)
+    chosen_iou = ious.gather(1, pred_idx[:, None])[:, 0]
+    best_iou = ious.gather(1, label_idx[:, None])[:, 0]
+    denom = w.sum().clamp(min=1.0)
+    metrics = {
+        "ref_acc_mean": ((pred_idx == label_idx) * w).sum() / denom,
+        "ref_iou_mean": (chosen_iou * w).sum() / denom,
+        "best_ious_mean": (best_iou * w).sum() / denom,
+        "ref_iou_rate_0.25": ((chosen_iou >= 0.25) * w).sum() / denom,
+        "ref_iou_rate_0.5": ((chosen_iou >= 0.5) * w).sum() / denom,
+    }
+    return (loss if reduce else per_row), metrics
+
+
+def lang_cls_loss(lang_scores, ref_cat_label,
+                  annotated: Optional[torch.Tensor] = None,
+                  reduce: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Language object-class CE (ref ``get_lobjcls_loss``) and accuracy
+    over the annotated rows."""
+    target = ref_cat_label.long()
+    nll = -F.log_softmax(lang_scores, -1).gather(-1, target[:, None])[:, 0]
+    w = (annotated.to(nll.dtype) if annotated is not None
+         else torch.ones_like(nll))
+    denom = w.sum().clamp(min=1.0)
+    loss = (nll * w).sum() / denom
+    acc = ((lang_scores.detach().argmax(-1) == target) * w).sum() / denom
+    return (loss if reduce else nll), acc

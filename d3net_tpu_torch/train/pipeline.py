@@ -1,7 +1,11 @@
-"""The pipeline's training and validation for mode 1, detector -> speaker
-(counterpart of ``d3net_tpu/train/pipeline_loop.py``; parity:
-``PipelineNet.training_step`` mode 1, ``model/pipeline.py:152-191``).
+"""The pipeline's training and validation for modes 1 (detector ->
+speaker) and 2 (detector -> listener) (counterpart of
+``d3net_tpu/train/pipeline_loop.py``; parity: ``PipelineNet.training_step``
+modes 1 and 2, ``model/pipeline.py:152-226``).
 
+- ``task_mode``: the config's (detection, captioning, grounding) flags,
+  the one place that refuses joint RL's (1, 1, 1) (ROADMAP.md queue A
+  item 15).
 - ``speaker_train_step``: the detector in train mode (BN statistics
   updated) and ``detector_loss``, the speaker teacher-forced over the
   batch's description rows, caption XE over the good annotated rows (plus
@@ -9,22 +13,26 @@
   backward and one optimizer step. Its cluster jitter, proposal shuffle
   and target-sampling Gumbel draw come from one ``torch.Generator`` or are
   passed in as tensors.
+- ``listener_train_step``: the detector as above, then the listener on
+  the rows' GloVe embeddings with dropout and copy-paste (its draws from
+  the same generator, or a ``ListenerDraws``); the loss is
+  ``detector_loss`` + the grounding loss + the lang-cls loss.
 - Freezing: a frozen submodule (``model.freeze_detector``) gets no update
   and no weight decay, and no gradient is computed for it; its BN
-  statistics still move, as the detector runs in train mode.
+  statistics still move, as the detector runs in train mode. A
+  ``freeze_<sub>`` that names no submodule of the model is a no-op.
 - ``apply_pretrained``: the JAX package's ``pretrained/<tag>_<sub>.pkl``
   (``{"params", "batch_stats"}`` Flax trees of numpy leaves, written by
   either package's ``prepare_weights``) into the named submodules.
 - ``run_pipeline_training``: the JAX loop's run dir, lang stream, step
   seeds, validation cadence and checkpoints, with the detector loop's
   timing hook and profile window.
-- ``run_pipeline_validation``: every val scene's proposals captioned
-  greedily and scored by ``CaptionEvaluator`` against several grammar
-  descriptions of each GT object (CIDEr, BLEU-4, ROUGE-L and METEOR at
-  ``eval.min_iou_threshold``).
-
-The listener (mode 2) and joint RL (mode 3) are ROADMAP.md queue A items
-14 and 15.
+- ``run_pipeline_validation``: mode 1 captions every val scene's
+  proposals greedily, scored by ``CaptionEvaluator`` against several
+  grammar descriptions of each GT object (CIDEr, BLEU-4, ROUGE-L and
+  METEOR at ``eval.min_iou_threshold``); mode 2 grounds every description
+  row, scored by ``GroundingEvaluator`` (Acc@0.25/0.5 as
+  ``ref_iou_rate_*``, with the unique/multiple and others breakdown).
 """
 
 from __future__ import annotations
@@ -46,6 +54,9 @@ from d3net_tpu_torch.data.language import (
 from d3net_tpu_torch.data.vocab import Vocabulary, embedding_matrix
 from d3net_tpu_torch.device import DeviceLike, resolve_device
 from d3net_tpu_torch.eval.caption_eval import CaptionEvaluator, decode_captions
+from d3net_tpu_torch.eval.grounding_eval import GroundingEvaluator
+from d3net_tpu_torch.models.listener import ListenerDraws
+from d3net_tpu_torch.models.match import gumbel_draw
 from d3net_tpu_torch.models.pipeline import PipelineNet
 from d3net_tpu_torch.params import (
     flax_to_state_dict, init_flax_variables, state_dict_to_flax,
@@ -55,7 +66,9 @@ from d3net_tpu_torch.train.loop import (
     make_dataloaders, spec_from_cfg, step_generator, write_run_meta,
 )
 from d3net_tpu_torch.train.losses import detector_loss
-from d3net_tpu_torch.train.losses_slt import caption_loss, orientation_loss
+from d3net_tpu_torch.train.losses_slt import (
+    caption_loss, grounding_loss, lang_cls_loss, orientation_loss,
+)
 from d3net_tpu_torch.train.migrate import migrate_legacy_block_names
 from d3net_tpu_torch.train.trainer import TrainState, create_train_state
 from d3net_tpu_torch.utils.bbox import box_corners
@@ -81,9 +94,26 @@ def pipeline_from_cfg(cfg: Config, vocab: Vocabulary) -> PipelineNet:
         min_iou_threshold=cfg.data.min_iou_threshold,
         use_relation=cfg.model.use_relation,
         use_orientation=cfg.model.use_orientation,
+        use_lang_classifier=cfg.model.use_lang_classifier,
+        use_bidir=cfg.model.use_bidir,
+        match_type=cfg.model.match_type,
+        num_text_classes=cfg.model.num_bbox_class,
         no_captioning=bool(cfg.model.no_captioning),
         no_grounding=bool(cfg.model.no_grounding),
     )
+
+
+def task_mode(cfg: Config) -> Tuple[int, int, int]:
+    """The config's (detection, captioning, grounding) flags. (1, 0, 0)
+    trains the detector alone, (1, 1, 0) the speaker (pipeline mode 1),
+    (1, 0, 1) the listener (mode 2); joint RL's (1, 1, 1) raises."""
+    mode = (int(not cfg.model.no_detection), int(not cfg.model.no_captioning),
+            int(not cfg.model.no_grounding))
+    if mode == (1, 1, 1):
+        raise NotImplementedError(
+            "task mode (1, 1, 1): joint speaker-listener RL is not ported "
+            "(ROADMAP.md, queue A item 15)")
+    return mode
 
 
 def build_vocab(cfg: Config) -> Tuple[Vocabulary, np.ndarray]:
@@ -106,25 +136,20 @@ def lang_rows(lang_np: Mapping[str, np.ndarray], emb: np.ndarray,
     return out
 
 
-def expand_rows(batch: Mapping, chunk_size: int) -> Dict:
-    """The scene-level GT boxes -> description rows, for the speaker's
-    target selection. (The JAX function also repeats the proposals' boxes
-    and classes, which only the listener and joint RL read.)"""
+def expand_rows(det_out: Mapping, batch: Mapping, chunk_size: int) -> Dict:
+    """Scene-level labels and proposals -> description rows: the GT boxes
+    for the speaker's target selection, the proposals' boxes and classes
+    for the grounding loss."""
     def rep(x):
         return x.repeat_interleave(chunk_size, dim=0)
     return {
         "center_label_chunk": rep(batch["center_label"]),
         "gt_bbox_chunk": rep(box_corners(batch["center_label"],
                                          batch["size_label"])),
+        "proposal_bbox_rows": rep(det_out["proposal_bbox_batched"]),
+        "proposal_sem_cls_batched_rows": rep(
+            det_out["proposal_sem_cls_batched"]),
     }
-
-
-def gumbel_draw(shape, generator: Optional[torch.Generator],
-                device) -> torch.Tensor:
-    """Standard Gumbel noise ``-log(-log(u))``, u uniform in [tiny, 1)
-    (``jax.random.gumbel``'s form)."""
-    u = torch.rand(shape, generator=generator, device=device)
-    return -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
 
 
 def speaker_losses(model: PipelineNet, batch: Dict, lang: Dict, *,
@@ -142,7 +167,7 @@ def speaker_losses(model: PipelineNet, batch: Dict, lang: Dict, *,
     out = model.run_detector(batch, train=True, generator=generator,
                              jitter_u=jitter_u, proposal_perm=proposal_perm)
     det = detector_loss(out, batch, loss_weight=loss_weight)["total_loss"]
-    data = {**out, **lang, **expand_rows(batch, chunk_size)}
+    data = {**out, **lang, **expand_rows(out, batch, chunk_size)}
     if gumbel is None:
         b, p = out["proposal_batch_mask"].shape
         gumbel = gumbel_draw((b * chunk_size, p), generator, det.device)
@@ -184,13 +209,20 @@ def speaker_train_step(state: TrainState, batch: Dict, lang: Dict,
     ``speaker_losses``, its backward through the parameters that require a
     gradient (a frozen detector's do not) and an update of those. Returns
     the state (updated in place) and the metrics, detached."""
-    model = state.model
-    params = [p for p in model.parameters() if p.requires_grad]
-    state.optimizer.zero_grad(set_to_none=True)
     total, metrics, _ = speaker_losses(
-        model, batch, lang, chunk_size=chunk_size, loss_weight=loss_weight,
-        generator=generator, jitter_u=jitter_u, proposal_perm=proposal_perm,
-        gumbel=gumbel)
+        state.model, batch, lang, chunk_size=chunk_size,
+        loss_weight=loss_weight, generator=generator, jitter_u=jitter_u,
+        proposal_perm=proposal_perm, gumbel=gumbel)
+    return apply_gradients(state, total), {k: v.detach()
+                                           for k, v in metrics.items()}
+
+
+def apply_gradients(state: TrainState, total: torch.Tensor) -> TrainState:
+    """The backward of ``total`` through the parameters that require a
+    gradient, then one optimizer and scheduler step; returns ``state``
+    (updated in place)."""
+    params = [p for p in state.model.parameters() if p.requires_grad]
+    state.optimizer.zero_grad(set_to_none=True)
     total.backward()
     # a parameter the loss does not reach (the orientation head without
     # rotation labels) has a zero gradient in JAX, and optax still decays
@@ -201,7 +233,66 @@ def speaker_train_step(state: TrainState, batch: Dict, lang: Dict,
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
-    return state, {k: v.detach() for k, v in metrics.items()}
+    return state
+
+
+# ---------------------------------------------------------------------------
+# the mode-2 train step
+# ---------------------------------------------------------------------------
+
+def listener_losses(model: PipelineNet, batch: Dict, lang: Dict, *,
+                    chunk_size: int,
+                    loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                    loss_type: str = "cross_entropy",
+                    generator: Optional[torch.Generator] = None,
+                    jitter_u: Optional[torch.Tensor] = None,
+                    proposal_perm: Optional[torch.Tensor] = None,
+                    draws: Optional[ListenerDraws] = None,
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict]:
+    """The mode-2 loss of ``model`` on ``batch`` and its description rows
+    ``lang`` (ref :193-226) -> (total, the JAX step's ten metrics, the
+    listener's outputs). The draws not given come from ``generator``:
+    jitter, proposal shuffle, then the listener's dropout masks and
+    copy-paste draws."""
+    out = model.run_detector(batch, train=True, generator=generator,
+                             jitter_u=jitter_u, proposal_perm=proposal_perm)
+    det = detector_loss(out, batch, loss_weight=loss_weight)["total_loss"]
+    word_embs = lang["glove_embeddings"][lang["lang_ids"].long()]
+    data = model.run_listener(
+        {**out, **lang}, word_embs, lang["lang_len"], chunk_size, train=True,
+        draws=draws if draws is not None else ListenerDraws(generator))
+    rows = expand_rows(out, batch, chunk_size)
+    annotated = lang["annotated"]
+    ref_l, ref_m = grounding_loss(
+        data["cluster_ref"], rows["proposal_bbox_rows"],
+        lang["ref_box_corner_label"], annotated, loss_type=loss_type)
+    lang_l, lang_acc = lang_cls_loss(data["lang_scores"],
+                                     lang["ref_cat_label"], annotated)
+    total = det + ref_l + lang_l
+    metrics = {"detect_loss": det, "grounding_loss": ref_l,
+               "lobjcls_loss": lang_l, "lang_acc": lang_acc, "loss": total,
+               **ref_m}
+    return total, metrics, data
+
+
+def listener_train_step(state: TrainState, batch: Dict, lang: Dict,
+                        generator: Optional[torch.Generator] = None, *,
+                        chunk_size: int,
+                        loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                        loss_type: str = "cross_entropy",
+                        jitter_u: Optional[torch.Tensor] = None,
+                        proposal_perm: Optional[torch.Tensor] = None,
+                        draws: Optional[ListenerDraws] = None,
+                        ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One mode-2 optimization step of ``state.model`` (a ``PipelineNet``
+    with a listener): ``listener_losses``, then ``apply_gradients``.
+    Returns the state (updated in place) and the metrics, detached."""
+    total, metrics, _ = listener_losses(
+        state.model, batch, lang, chunk_size=chunk_size,
+        loss_weight=loss_weight, loss_type=loss_type, generator=generator,
+        jitter_u=jitter_u, proposal_perm=proposal_perm, draws=draws)
+    return apply_gradients(state, total), {k: v.detach()
+                                           for k, v in metrics.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +342,9 @@ def run_pipeline_training(cfg: Config, run_dir: str,
                           device: DeviceLike = None,
                           on_step: Optional[Callable[[Dict], None]] = None,
                           ) -> TrainState:
-    """Train the pipeline of ``cfg`` (mode 1: detector -> speaker) into
-    ``run_dir``, resuming from its last checkpoint; returns the train state.
+    """Train the pipeline of ``cfg`` (mode 1: detector -> speaker, or mode
+    2: detector -> listener, by ``task_mode``) into ``run_dir``, resuming
+    from its last checkpoint; returns the train state.
 
     The JAX loop's order: weights (seeded random, then the pretrained
     submodules), the lang stream from ``default_rng(manual_seed)`` (its
@@ -260,16 +352,14 @@ def run_pipeline_training(cfg: Config, run_dir: str,
     per-step generators from ``(manual_seed + 7, step)``, validation every
     ``check_val_every_n_epoch`` epochs, at the last and at ``max_steps``,
     and a checkpoint after each by the monitor (``val_score/cider`` ->
-    ``cider``). Runs on CUDA unless ``device`` says otherwise; ``on_step``
-    is ``StepLoop``'s, with the card waited on around each part of a step.
+    ``cider``; ``val_score/ref_iou_rate_0.5`` -> ``ref_iou_rate_0.5``).
+    ``freeze_detector`` freezes the detector; ``freeze_speaker`` and
+    ``freeze_listener`` freeze the submodule the mode does not train, a
+    no-op where the model lacks it. Runs on CUDA unless ``device`` says
+    otherwise; ``on_step`` is ``StepLoop``'s, with the card waited on
+    around each part of a step.
     """
-    # 1 speaker, 2 listener, 3 both (joint RL)
-    mode = 2 if cfg.model.no_captioning else (
-        1 if cfg.model.no_grounding else 3)
-    if mode != 1:
-        raise NotImplementedError(
-            f"pipeline training mode {mode}: the listener and joint RL are "
-            "not ported (ROADMAP.md, queue A items 14 and 15)")
+    mode = 1 if task_mode(cfg)[1] else 2     # 1 speaker, 2 listener
     dev = resolve_device(device)
     os.makedirs(run_dir, exist_ok=True)
     save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
@@ -295,7 +385,11 @@ def run_pipeline_training(cfg: Config, run_dir: str,
             num_refs=int(cfg.train.get("num_caption_refs", 1) or 1))
 
     make_lang([train_it.scenes[i] for i in range(cfg.data.batch_size)])
-    freeze_submodules(model, {"detector": bool(cfg.model.freeze_detector)})
+    freeze_submodules(model, {
+        "detector": bool(cfg.model.freeze_detector),
+        "speaker": bool(cfg.model.get("freeze_speaker", False)) and mode != 1,
+        "listener": bool(cfg.model.get("freeze_listener", False))
+        and mode != 2})
     state = create_train_state(
         model,
         lr=cfg.train.optim.lr,
@@ -321,14 +415,16 @@ def run_pipeline_training(cfg: Config, run_dir: str,
         return [batch_np, lang_np], (batch_to_torch(batch_np, dev),
                                      lang_rows(lang_np, emb, dev))
 
-    lw = tuple(cfg.train.loss_weight[:4])
+    kw = dict(chunk_size=chunk, loss_weight=tuple(cfg.train.loss_weight[:4]))
+    if mode == 2:
+        kw["loss_type"] = str(cfg.model.get("loss_type", "cross_entropy"))
     seed = cfg.general.manual_seed + 7
     check_every = int(cfg.train.get("check_val_every_n_epoch", 1) or 1)
     for epoch in range(cfg.train.epochs):
         t_epoch = time.time()
         loop.run_epoch(epoch, train_it, to_device, lambda pair, step: (
-            speaker_train_step(state, *pair, step_generator(seed, step, dev),
-                               chunk_size=chunk, loss_weight=lw)[1]))
+            (speaker_train_step if mode == 1 else listener_train_step)(
+                state, *pair, step_generator(seed, step, dev), **kw)[1]))
         if ((epoch + 1) % check_every != 0 and epoch + 1 < cfg.train.epochs
                 and not loop.done):
             continue
@@ -371,37 +467,70 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
                             vocab: Vocabulary, emb: np.ndarray, mode: int = 1,
                             diag_path: Optional[str] = None,
                             ) -> Dict[str, float]:
-    """Caption CIDEr@kIoU over the val split (ref ``validation_epoch_end``
+    """The val split scored by mode (ref ``validation_epoch_end``
     :645-735) with ``model`` in eval mode on its own device; ``val_it``
-    yields (batch, scenes). Returns the metrics, with the evaluator's
-    ``cap_frac_replaced``, ``cap_assign_iou_mean`` and ``cider_raw``; its
-    whole ``diagnostics()`` go to ``diag_path`` when given."""
-    if mode != 1:
-        raise NotImplementedError(
-            f"pipeline validation mode {mode}: the listener and joint RL are "
-            "not ported (ROADMAP.md, queue A items 14 and 15)")
+    yields (batch, scenes). Mode 1: caption CIDEr@kIoU, with the
+    evaluator's ``cap_frac_replaced``, ``cap_assign_iou_mean`` and
+    ``cider_raw`` (its whole ``diagnostics()`` go to ``diag_path`` when
+    given). Mode 2: grounding over every description row of
+    ``build_lang_batch`` (from ``default_rng(0)``), the evaluator's
+    ``acc@k`` named ``ref_iou_rate_k``, ``iou_mean`` and the breakdown
+    keys."""
+    sub = {1: "speaker", 2: "listener"}.get(mode)
+    if sub is None:
+        raise ValueError(f"pipeline validation mode {mode}: 1 or 2")
+    if not hasattr(model, sub):
+        raise ValueError(f"validation mode {mode} needs the {sub}")
     dev = next(model.parameters()).device
     model.eval()
     emb_t = torch.from_numpy(emb).to(dev)
+    chunk = int(cfg.data.num_des_per_scene)
     cap_eval = CaptionEvaluator(min_iou=cfg.eval.min_iou_threshold)
+    grd_eval = GroundingEvaluator()
+    rng_np = np.random.default_rng(0)
     n_refs = int(cfg.eval.get("num_caption_refs", 4) or 1)
     with torch.no_grad():
         for batch_np, scenes in val_it:
             det_out = model.run_detector(batch_to_torch(batch_np, dev))
-            data = model.run_speaker({**det_out, "glove_embeddings": emb_t},
-                                     mode="eval")
-            ids = data["lang_cap"].cpu().numpy()
             corners = det_out["proposal_bbox_batched"].cpu().numpy()
             mask = det_out["proposal_batch_mask"].cpu().numpy()
-            for i, scene in enumerate(scenes):
-                nb = len(scene.instance_bboxes)
-                gt_c = np.stack([
-                    box_corners(bb[:3], bb[3:6]) for bb in scene.instance_bboxes
-                ]) if nb else np.zeros((0, 8, 3))
-                cap_eval.add_scene(scene.scene_id, decode_captions(ids[i], vocab),
-                                   corners[i], mask[i], gt_c, np.ones(nb),
-                                   caption_references(scene, n_refs))
+            if mode == 1:
+                data = model.run_speaker(
+                    {**det_out, "glove_embeddings": emb_t}, mode="eval")
+                ids = data["lang_cap"].cpu().numpy()
+                for i, scene in enumerate(scenes):
+                    nb = len(scene.instance_bboxes)
+                    gt_c = np.stack([
+                        box_corners(bb[:3], bb[3:6])
+                        for bb in scene.instance_bboxes
+                    ]) if nb else np.zeros((0, 8, 3))
+                    cap_eval.add_scene(
+                        scene.scene_id, decode_captions(ids[i], vocab),
+                        corners[i], mask[i], gt_c, np.ones(nb),
+                        caption_references(scene, n_refs))
+            else:
+                lang_np = build_lang_batch(scenes, vocab, chunk,
+                                           cfg.data.max_spk_len, rng_np,
+                                           val_it.spec.max_instances)
+                lang = lang_rows(lang_np, emb, dev)
+                data = model.run_listener(
+                    {**det_out, **lang}, emb_t[lang["lang_ids"].long()],
+                    lang["lang_len"], chunk)
+                flat = {k: v.reshape((-1,) + v.shape[2:])
+                        for k, v in lang_np.items()}
+                grd_eval.add(
+                    data["cluster_ref"].cpu().numpy(),
+                    np.repeat(corners, chunk, axis=0),
+                    np.repeat(mask, chunk, axis=0),
+                    flat["ref_box_corner_label"], flat["annotated"],
+                    unique_multiple=flat["unique_multiple"],
+                    object_cat=flat["ref_cat_label"])
 
+    if mode == 2:
+        # overall acc@K -> the reference's ref_iou_rate_K name; the
+        # breakdown keys (unique_/multiple_/others_...) keep their prefix
+        return {f"ref_iou_rate_{k.split('@')[-1]}" if k.startswith("acc@")
+                else k: v for k, v in grd_eval.compute().items()}
     out = dict(cap_eval.compute())
     diag = cap_eval.diagnostics()
     if diag:

@@ -9,8 +9,11 @@ inputs made by numpy from a seed, same weights converted from the Flax tree
   (rtol 1e-4), ``add_relation_feat`` (rtol 1e-5).
 - ``CaptionModule`` and ``SpeakerNet`` in eval mode on the fake proposals
   of tests/test_speaker_listener.py: ``lang_cap`` ids equal.
-- Joint RL's modes and beam search raise; the training modes run.
+- Joint RL's modes and beam search raise, as does its task mode (1, 1, 1);
+  the training modes run.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -23,12 +26,17 @@ from d3net_tpu.models.caption import CaptionModule as JCaption
 from d3net_tpu.models.graph import GraphModule as JGraph
 from d3net_tpu.models.speaker import SpeakerNet as JSpeaker
 from d3net_tpu.utils.bbox import box_corners
+from d3net_tpu_torch import config as tcfg
 from d3net_tpu_torch import params
 from d3net_tpu_torch.checks import teacher_forced_logits
 from d3net_tpu_torch.models.caption import CaptionModule, GRUCell
 from d3net_tpu_torch.models.pipeline import PipelineNet
 from d3net_tpu_torch.models.speaker import SpeakerNet
+from d3net_tpu_torch.train.pipeline import task_mode
 
+TINY_CAPTION = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "conf",
+    "debug", "tiny_captioning.yaml")
 B, P, F, V, L = 2, 12, 32, 40, 4
 H, E, MAX_LEN = 64, 300, 10
 
@@ -250,8 +258,14 @@ def test_training_path_raises():
         tm.beam_decode()
     with pytest.raises(NotImplementedError, match="queue A item 15"):
         SpeakerNet(V, 2, 3, num_graph_steps=0)({}, mode="rl")
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        PipelineNet(9, dict(m=4, blocks=(1, 2)), no_grounding=False)
+    # a pipeline holds the listener beside the speaker, but joint
+    # training's task mode (1, 1, 1) raises
+    joint = PipelineNet(9, dict(m=4, blocks=(1, 2)), no_grounding=False)
+    assert hasattr(joint, "speaker") and hasattr(joint, "listener")
+    cfg = tcfg.load(TINY_CAPTION)
+    cfg.model.no_grounding = False
+    with pytest.raises(NotImplementedError, match="queue A item 15"):
+        task_mode(cfg)
     data = to_torch(_rows(np.random.default_rng(7)))
     gumbel = torch.from_numpy(np.random.default_rng(8).gumbel(
         size=(4, P)).astype(np.float32))

@@ -6,8 +6,10 @@ and ``python -m d3net_tpu_torch.scripts.eval --task detection --cpu``
 writes ``eval_detection.json`` stamped with its checkpoint. The speaker's
 stage runs as users run it: ``prepare_weights`` turns a detector run into
 a pretrained pickle and ``train`` on conf/debug/tiny_captioning.yaml
-(mode (1, 1, 0)) loads it and leaves the same layout, validated by cider.
-Without ``--cpu`` and without a GPU every call exits non-zero; the tasks
+(mode (1, 1, 0)) loads it and leaves the same layout, validated by cider;
+the listener's stage likewise on conf/debug/tiny_grounding.yaml (mode
+(1, 0, 1)), validated by ``ref_iou_rate_0.5``, resumed, and evaluated by
+``--task grounding``. Without ``--cpu`` and without a GPU every call exits non-zero; the tasks
 and trainers that are not ported raise ``NotImplementedError`` naming
 their ROADMAP item (``--task captioning`` is held in
 tests/test_torch_pipeline.py).
@@ -20,6 +22,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from d3net_tpu_torch import config as tcfg
 from d3net_tpu_torch.scripts import eval as eval_cli
@@ -30,6 +33,17 @@ from d3net_tpu_torch.train.trainer import create_train_state
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = "conf/debug/tiny_pointgroup.yaml"
 TINY_CAPTION = "conf/debug/tiny_captioning.yaml"
+TINY_GROUNDING = "conf/debug/tiny_grounding.yaml"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for in-process runs: the test workers share the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _run(*args, gpu_hidden=False):
@@ -84,11 +98,14 @@ def test_train_resume_and_eval_cli(tmp_path):
     assert set(res) >= {"per_class@0.25", "per_class@0.5"}
 
 
-@pytest.mark.parametrize("cli", ["train", "eval", "train_captioning"])
+@pytest.mark.parametrize("cli", ["train", "eval", "train_captioning",
+                                 "train_grounding", "eval_grounding"])
 def test_cli_without_cpu_fails_without_gpu(cli, tmp_path):
     run = str(tmp_path / "r")
-    config = TINY_CAPTION if cli == "train_captioning" else TINY
-    args = (("--folder", ROOT, "--task", "detection") if cli == "eval"
+    config = {"train_captioning": TINY_CAPTION,
+              "train_grounding": TINY_GROUNDING}.get(cli, TINY)
+    task = "grounding" if cli == "eval_grounding" else "detection"
+    args = (("--folder", ROOT, "--task", task) if cli.startswith("eval")
             else ("--config", config, "--max_steps", "1", "--folder", run))
     out = _run(f"d3net_tpu_torch.scripts.{cli.split('_')[0]}", *args,
                gpu_hidden=True)
@@ -131,17 +148,59 @@ def test_captioning_train_cli_with_prepared_detector(tmp_path):
 
 
 def test_modes_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A items 14 and 15"):
-        train_cli.main(["--config", os.path.join(
-                            ROOT, "conf", "debug", "tiny_grounding.yaml"),
-                        "--cpu", "--folder", str(tmp_path / "c")])
+    joint = tmp_path / "joint.yaml"
+    joint.write_text(open(os.path.join(
+        ROOT, "conf", "debug", "tiny_grounding.yaml")).read().replace(
+            "no_captioning: true", "no_captioning: false"))
+    with pytest.raises(NotImplementedError, match="queue A item 15"):
+        train_cli.main(["--config", str(joint), "--cpu", "--folder",
+                        str(tmp_path / "c")])
     cfg_path = tmp_path / "scan.yaml"
     cfg_path.write_text(open(os.path.join(ROOT, TINY)).read()
                         + "  steps_per_dispatch: 4\n")
     with pytest.raises(NotImplementedError, match="scan trainer"):
         train_cli.main(["--config", str(cfg_path), "--cpu"])
     (tmp_path / "config.yaml").write_text(open(os.path.join(ROOT, TINY)).read())
-    for task in ("grounding", "scannet"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            eval_cli.main(["--folder", str(tmp_path), "--task", task,
-                           "--cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        eval_cli.main(["--folder", str(tmp_path), "--task", "scannet",
+                       "--cpu"])
+
+
+def test_grounding_train_resume_and_eval_cli(tmp_path, capsys):
+    """The curriculum's stage 3 in-process: a prepared detector, the
+    listener's stage for 2 steps, a resume to 3, then ``eval --task
+    grounding``."""
+    from d3net_tpu_torch.scripts import prepare_weights
+
+    cfg = tcfg.load(os.path.join(ROOT, TINY_GROUNDING))
+    det = str(tmp_path / "det")
+    os.makedirs(det)
+    tcfg.save(cfg, os.path.join(det, "config.yaml"))
+    tloop.Checkpointer(det, "total_loss").save(1, create_train_state(
+        tloop.init_detector(tloop.detector_from_cfg(cfg), 5)),
+        {"total_loss": 1.0})
+    prepare_weights.main(["--folder", det, "--name", "tiny", "--out",
+                          str(tmp_path / "pretrained")])
+    pkl = str(tmp_path / "pretrained" / "tiny_detector.pkl")
+    cfg.model.pretrained_detector = pkl
+    config = str(tmp_path / "grounding.yaml")
+    tcfg.save(cfg, config)
+    run = str(tmp_path / "run")
+    capsys.readouterr()
+    train_cli.main(["--config", config, "--cpu", "--max_steps", "2",
+                    "--folder", run])
+    assert f"loaded pretrained detector from {pkl}" in capsys.readouterr().out
+    assert _steps(run) == [(1, "train"), (2, "train"), (2, "val")]
+    best = json.load(open(os.path.join(run, "ckpt_best", "best.json")))
+    assert best["monitor"] == "ref_iou_rate_0.5" and best["mode"] == "max"
+    train_cli.main(["--config", config, "--cpu", "--max_steps", "3",
+                    "--folder", run])
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert _steps(run)[3:] == [(3, "train"), (3, "val")]
+
+    eval_cli.main(["--folder", run, "--task", "grounding", "--cpu"])
+    res = json.load(open(os.path.join(run, "eval_grounding.json")))
+    best = json.load(open(os.path.join(run, "ckpt_best", "best.json")))
+    assert res["checkpoint"] == {"kind": "best", "step": best["step"]}
+    for key in ("ref_iou_rate_0.25", "ref_iou_rate_0.5", "iou_mean"):
+        assert math.isfinite(res[key]) and 0.0 <= res[key] <= 1.0, key

@@ -8,7 +8,9 @@ against the same on cpu, and the run loop on cuda against the run loop on
 cpu, with a checkpoint round trip on the card; the speaker (graph and
 greedy decode) on cuda against cpu, its train step (detector trained and
 frozen) on cuda against cpu, and the captioning eval CLI on cuda against
-the same on cpu.
+the same on cpu; the listener (eval and train forward) on cuda against
+cpu, its train step (detector trained and frozen) and the grounding eval
+CLI likewise.
 
 This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -466,3 +468,114 @@ def test_speaker_train_step_cuda_matches_cpu(card, freeze):
     assert report["gather_launches_cpu"] == 0
     assert report["gather_launches_cuda"] == (
         forward if freeze else forward + n_conv + n_conv - 1)
+
+
+def _tiny_grounding_cfg():
+    from d3net_tpu_torch import config
+
+    return config.load(os.path.join(ROOT, "conf", "debug",
+                                    "tiny_grounding.yaml"))
+
+
+@pytest.mark.cuda
+def test_listener_cuda_matches_cpu(card):
+    """The listener at the tiny grounding widths on seeded proposals and
+    descriptions (lengths 0 and T among them), eval and train forward with
+    the same draws: every output and the BN statistics within rtol 1e-4 /
+    atol 1e-5 (``checks.listener_cuda_vs_cpu``, which chip_smoke.py also
+    runs)."""
+    from d3net_tpu_torch.checks import listener_cuda_vs_cpu, randomize
+    from d3net_tpu_torch.train import pipeline
+
+    cfg = _tiny_grounding_cfg()
+    vocab, emb = pipeline.build_vocab(cfg)
+    variables = randomize(params.init_flax_variables(
+        pipeline.pipeline_from_cfg(cfg, vocab), seed=1),
+        np.random.default_rng(2))
+    rng = np.random.default_rng(0)
+    b, p, t = 3, cfg.model.max_num_proposal, cfg.data.max_spk_len + 2
+    rows = b * int(cfg.data.num_des_per_scene)
+    mask = (rng.random((b, p)) < 0.8).astype(np.float32)
+    lens = rng.integers(1, t + 1, rows)
+    lens[0], lens[1] = 0, t
+    data = {"proposal_feats_batched": rng.normal(size=(b, p, 8)).astype(
+                np.float32) * mask[..., None],
+            "proposal_batch_mask": mask,
+            "proposal_center_batched": rng.uniform(0, 4, (b, p, 3)).astype(
+                np.float32) * mask[..., None],
+            "word_embs": emb[rng.integers(0, len(vocab), (rows, t))],
+            "lang_len": lens.astype(np.int64)}
+    report = listener_cuda_vs_cpu(variables, cfg, vocab, data, rtol=1e-4,
+                                  atol=1e-5)
+    assert report["outside_tolerance"] == [], report
+    assert len(report["dropout_masks"]) == 7 and report["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [False, True],
+                         ids=["trained_detector", "frozen_detector"])
+def test_listener_train_step_cuda_matches_cpu(card, freeze):
+    """One mode-2 train step at the tiny grounding widths (dropout and
+    copy-paste on, the same draws) on cuda against cpu: the ten metrics
+    rtol 1e-4, every gradient 1e-3 / 1e-6 (or within 4x its own one-ulp
+    movement, for under 1% of a tensor), new BN statistics 1e-4 / 1e-5;
+    ``gather_rows`` launched on cuda only (``checks.
+    listener_step_cuda_vs_cpu``, which chip_smoke.py also runs)."""
+    from d3net_tpu_torch.checks import (
+        listener_step_case, listener_step_cuda_vs_cpu,
+    )
+    from d3net_tpu_torch.models.blocks import SubmConv
+    from d3net_tpu_torch.train import pipeline
+
+    cfg = _tiny_grounding_cfg()
+    vocab, emb = pipeline.build_vocab(cfg)
+    case = listener_step_case(cfg, vocab, emb, seed=1)
+    report = listener_step_cuda_vs_cpu(cfg, vocab, emb, case, freeze)
+    assert report["ok"], report
+    assert report["losses_cpu"]["grounding_loss"] > 0
+    n_conv = sum(isinstance(m, SubmConv) for m in pipeline.pipeline_from_cfg(
+        cfg, vocab).detector.modules())
+    forward = n_conv + 4
+    assert report["gather_launches_cpu"] == 0
+    assert report["gather_launches_cuda"] == (
+        forward if freeze else forward + n_conv + n_conv - 1)
+
+
+@pytest.mark.cuda
+def test_grounding_eval_cli_cuda_matches_cpu(card, tmp_path):
+    """``--task grounding`` on one run dir (a tiny listener pipeline
+    checkpoint) on cuda and on cpu: the same metrics, and ``gather_rows``
+    launched on cuda only."""
+    import json
+
+    from d3net_tpu_torch import config
+    from d3net_tpu_torch.scripts import eval as eval_cli
+    from d3net_tpu_torch.train import pipeline
+    from d3net_tpu_torch.train.loop import Checkpointer
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    cfg = _tiny_grounding_cfg()
+    cfg.general.output_root = str(tmp_path)
+    run = str(tmp_path / "run")
+    os.makedirs(run)
+    config.save(cfg, os.path.join(run, "config.yaml"))
+    vocab, _ = pipeline.build_vocab(cfg)
+    model = params.load_pipeline(params.init_flax_variables(
+        pipeline.pipeline_from_cfg(cfg, vocab), seed=2), cfg, vocab,
+        device="cpu")
+    Checkpointer(run, "ref_iou_rate_0.5", "max").save(
+        3, create_train_state(model), {"ref_iou_rate_0.5": 0.1})
+    res = {}
+    for dev in ("cpu", "cuda"):
+        before = gather.gather_rows.launches
+        eval_cli.main(["--folder", run, "--task", "grounding"]
+                      + (["--cpu"] if dev == "cpu" else []))
+        launched = gather.gather_rows.launches - before
+        assert (launched > 0) == (dev == "cuda")
+        with open(os.path.join(run, "eval_grounding.json")) as f:
+            res[dev] = json.load(f)
+    assert res["cuda"]["checkpoint"] == {"kind": "best", "step": 3}
+    assert set(res["cuda"]) == set(res["cpu"])
+    for k, v in res["cpu"].items():
+        if k != "checkpoint":
+            np.testing.assert_allclose(res["cuda"][k], v, rtol=1e-4, err_msg=k)

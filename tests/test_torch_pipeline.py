@@ -148,7 +148,7 @@ def test_validation_matches_jax(jax_run, tmp_path, monkeypatch):
             {k: w[k] for k in w if k != "iou"}
     _assert_metrics_equal({k: v for k, v in diag.items() if k != "examples"},
                           {k: v for k, v in want.items() if k != "examples"})
-    with pytest.raises(NotImplementedError, match="queue A items 14"):
+    with pytest.raises(ValueError, match="needs the listener"):
         tpl.run_pipeline_validation(cfg, model, val_it, vocab, emb, mode=2)
 
 
