@@ -137,8 +137,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               detector trained and frozen (``checks.
               speaker_step_cuda_vs_cpu``).
 18. spk_train — ``prepare_weights`` on the ``run`` phase's detector, then
-              the train CLI on conf/pointgroup_captioning.yaml for one
-              epoch (``_stage_train``: per-step times and peaks, one
+              the train CLI on conf/pointgroup_captioning.yaml for 8
+              steps, half an epoch (``_stage_train``: per-step times and peaks, one
               step's 216 gathers checked bit-exact, one val batch, the
               restored state bit-exact), the step timed alone and
               profiled, the speaker's and the teacher-forced loop's
@@ -175,15 +175,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               ``ref_iou_rate_0.5``); then the step timed alone and
               profiled, the listener's and its GRU encoder's forward and
               backward timed, the encoder's launches a GRU step.
+24. joint_parity — one mode-3 (joint self-critical RL) train step at
+              conf/debug/tiny_joint.yaml's widths with the published beam
+              (3 in 3 groups), the XE anchor and the same draws, cuda vs
+              cpu, the detector trained and frozen: the rollout ids equal
+              (the cuda search run once under CUDA's sync debug mode
+              "error"; a differing row reports the cpu's top-2 margin),
+              then on the cpu's rollout the metrics, gradients, BN
+              statistics and host scores (``checks.
+              joint_step_cuda_vs_cpu``, shared with the card test).
+25. joint_train — the curriculum's stage 4 as users run it:
+              ``prepare_weights`` on the run phase's detector and on the
+              ``spk_train`` and ``lis_train`` run dirs, then the train CLI
+              on conf/pointgroup_joint.yaml pointed at those pickles for
+              one epoch of 16 steps (``_stage_train``: per-step times and
+              peaks, step 2's 432 gathers, two detector passes with their
+              backward, checked bit-exact, one val batch with ``cider``,
+              ``ref_iou_rate_0.5`` and ``combined``, the restored state
+              bit-exact); then the step timed alone (``joint_train_step_
+              ms``, median of 5 after 1 warm-up) and profiled (launches,
+              idle share, the gathers' device time against their bound),
+              its parts timed (``rollout_ms``: beam and baseline, the
+              beam's launches a step; ``reward_ms``: the host CIDEr, both
+              calls; ``spk_stream_ms`` and ``lis_stream_ms``, forward and
+              backward) and its peak memory.
+26. joint_eval — the eval CLI's ``captioning`` and ``grounding`` tasks on
+              that run dir, one val batch each: finite metrics, the
+              checkpoint stamped, 75 gathers a batch.
 
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
 version's and the library call's time (``library_ms``,
 ``library_device_ms``) and the bound; the two rings add the bytes their
 blocks move (``moved_bytes``), and ``gather_rows`` its launches per step
-of the ``run``, ``spk_train`` and ``lis_train`` phases and per batch of
-the ``caption`` and ``grounding`` phases, with the two train stages'
-bounds and device times (its ``max_abs_err`` covers every checked
+of the ``run``, ``spk_train``, ``lis_train`` and ``joint_train`` phases
+and per batch of the ``caption`` and ``grounding`` phases, with the three
+train stages' bounds and device times (its ``max_abs_err`` covers every checked
 gather). The last two
 lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
@@ -211,9 +238,10 @@ import torch
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch.checks import (
-    listener_cuda_vs_cpu, listener_step_case, listener_step_cuda_vs_cpu,
-    randomize, relu_sides, speaker_cuda_vs_cpu, speaker_step_case,
-    speaker_step_cuda_vs_cpu,
+    joint_parity_config, joint_step_case, joint_step_cuda_vs_cpu,
+    joint_step_kw, listener_cuda_vs_cpu, listener_step_case,
+    listener_step_cuda_vs_cpu, randomize, relu_sides, speaker_cuda_vs_cpu,
+    speaker_step_case, speaker_step_cuda_vs_cpu,
 )
 from d3net_tpu_torch.config import save as save_cfg
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
@@ -268,16 +296,22 @@ CAPTION_CONFIG = os.path.join(ROOT, "conf", "pointgroup_captioning.yaml")
 TINY_CAPTION_CONFIG = os.path.join(ROOT, "conf", "debug",
                                    "tiny_captioning.yaml")
 CAPTION_WARMUP, CAPTION_REPS = 2, 5
-SPK_STEPS = 16          # one epoch: the captioning config's 64 scenes at B=4
+SPK_STEPS = 8           # half an epoch of the captioning config's 64 scenes
+                        # at B=4, to keep the whole run near 7 minutes
 SPK_CHECKED_STEP = 2    # the step whose gathers are held to the plain version
 SPK_REPS = 5
 GROUNDING_CONFIG = os.path.join(ROOT, "conf", "pointgroup_grounding.yaml")
 TINY_GROUNDING_CONFIG = os.path.join(ROOT, "conf", "debug",
                                      "tiny_grounding.yaml")
 GROUND_WARMUP, GROUND_REPS = 2, 5
-LIS_STEPS = 16          # one epoch: the grounding config's 64 scenes at B=4
+LIS_STEPS = 8           # half an epoch, as SPK_STEPS
 LIS_CHECKED_STEP = 2    # the step whose gathers are held to the plain version
 LIS_REPS = 5
+JOINT_CONFIG = os.path.join(ROOT, "conf", "pointgroup_joint.yaml")
+TINY_JOINT_CONFIG = os.path.join(ROOT, "conf", "debug", "tiny_joint.yaml")
+JOINT_STEPS = 16        # one epoch: the joint config's 64 scenes at B=4
+JOINT_CHECKED_STEP = 2  # the step whose gathers are held to the plain version
+JOINT_REPS = 5
 
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
@@ -1585,10 +1619,12 @@ def phase_spk_train_parity():
 
 
 def _stage_train(root, det_run_dir, config, steps_n, checked_step,
-                 per_step, per_forward, monitor, where):
+                 per_step, per_forward, monitor, where, submodules=()):
     """A pipeline stage as users run it: ``prepare_weights`` on the run
-    phase's detector, then the train CLI on ``config`` for ``steps_n``
-    steps (one epoch), the loop waiting for the card around each part of a
+    phase's detector (and on the run dir of each (submodule, run dir) of
+    ``submodules``, whose pickle the config then names), then the train
+    CLI on ``config`` for ``steps_n``
+    steps, the loop waiting for the card around each part of a
     step and the gathers of step ``checked_step`` each held to the plain
     version as they run; then a fresh state restored from the run dir must
     equal the run's final state bit for bit. Returns what the phase
@@ -1599,6 +1635,11 @@ def _stage_train(root, det_run_dir, config, steps_n, checked_step,
     cfg = load_task_config(config)
     cfg.general.output_root = root
     cfg.model.pretrained_detector = os.path.join(pre, "run_detector.pkl")
+    for sub, folder in submodules:
+        prepare_weights.main(["--folder", folder, "--name", sub, "--out",
+                              pre])
+        setattr(cfg.model, f"pretrained_{sub}",
+                os.path.join(pre, f"{sub}_{sub}.pkl"))
     log_every = cfg.train.log_every_n_steps
     cfg.train.log_every_n_steps = 1
     config_path = os.path.join(root, os.path.basename(config))
@@ -1688,11 +1729,13 @@ def _stage_train(root, det_run_dir, config, steps_n, checked_step,
         batch_np, scenes = next(iter(val_it))
     lang_np = build_lang_batch(
         scenes, vocab, chunk, cfg.data.max_spk_len, np.random.default_rng(0),
-        cfg.data.max_num_instance, apply_word_erase=True)
+        cfg.data.max_num_instance, apply_word_erase=True,
+        num_refs=int(cfg.train.get("num_caption_refs", 1) or 1))
     timed = [r for r in steps if r["step"] not in (1, checked_step)]
     report = {
-        "reduced": [f"one epoch of {steps_n} steps (max_steps {steps_n}) of "
-                    f"the config's {cfg.train.epochs}",
+        "reduced": [f"{steps_n} steps (max_steps {steps_n}) of the config's "
+                    f"{cfg.train.epochs} epochs of "
+                    f"{cfg.data.synthetic.num_scenes // cfg.data.batch_size}",
                     f"{cfg.data.batch_size} val scenes, one batch, of the "
                     f"config's {max(2, cfg.data.synthetic.num_scenes // 8)}",
                     f"log_every_n_steps 1 (the config's {log_every})"],
@@ -1726,9 +1769,16 @@ def _stage_train(root, det_run_dir, config, steps_n, checked_step,
         "tensors_compared": n_tensors, "run_dir": sorted(os.listdir(run_dir))}
     return SimpleNamespace(
         cfg=cfg, vocab=vocab, emb=emb, chunk=chunk, fresh=fresh,
+        run_dir=run_dir,
         batch=batch_to_torch(batch_np, "cuda"),
         lang=pipeline.lang_rows(lang_np, emb, "cuda"), train=train,
         report=report)
+
+
+def stage_run_dir(root, config):
+    """The run dir ``_stage_train`` gives the stage of ``config`` under
+    ``root``."""
+    return os.path.join(root, load_task_config(config).general.experiment)
 
 
 def phase_spk_train(root, det_run_dir, per_step, per_forward):
@@ -2112,6 +2162,233 @@ def phase_lis_train(root, det_run_dir, per_step, per_forward):
             "lis_train_device_ms": gather_dev_ms}
 
 
+# --------------------------------------------------------------------------
+def phase_joint_parity():
+    """One mode-3 train step at the tiny joint widths: cuda vs cpu, with
+    the detector trained and frozen."""
+    t0 = time.time()
+    cfg = joint_parity_config(load_task_config(TINY_JOINT_CONFIG))
+    vocab, emb = pipeline.build_vocab(cfg)
+    case = joint_step_case(cfg, vocab, emb, seed=0)
+    reports = {}
+    for freeze in (False, True):
+        reports["frozen_detector" if freeze else "trained_detector"] = \
+            joint_step_cuda_vs_cpu(
+                cfg, vocab, emb, case, freeze, loss_rtol=PARITY_RTOL,
+                grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL,
+                bn_rtol=PARITY_RTOL, bn_atol=PARITY_ATOL,
+                kink_noise=KINK_NOISE)
+    emit({"phase": "joint_parity", "config": "conf/debug/tiny_joint.yaml "
+          "(beam 3 in 3 groups, lambda 0.5, top 3, 4 caption references, "
+          "rl_xe_weight 0.2, min_iou_threshold 0; copy-paste applied, "
+          "dropout on)", **reports, "loss_rtol": PARITY_RTOL,
+          "grad_rtol": GRAD_RTOL, "grad_atol": GRAD_ATOL,
+          "seconds": round(time.time() - t0, 3)})
+    bad = {k: (r["outside_tolerance"], r["rollout_ids_equal"],
+               r["first_difference"]) for k, r in reports.items()
+           if not r["ok"]}
+    if bad:
+        raise AssertionError(f"joint train step cuda vs cpu: {bad}")
+
+
+def phase_joint_train(root, det_run_dir, spk_run_dir, lis_run_dir,
+                      per_step, per_forward):
+    """Joint RL's stage as users run it (``_stage_train`` on
+    conf/pointgroup_joint.yaml from the detector, speaker and listener
+    stages' pickles), then the step timed alone, profiled and split.
+    Returns the stage's run dir and its ``gather_rows`` numbers."""
+    t_phase = time.time()
+    st = _stage_train(root, det_run_dir, JOINT_CONFIG, JOINT_STEPS,
+                      JOINT_CHECKED_STEP, 2 * per_step, per_forward,
+                      "combined", "joint_train",
+                      submodules=(("speaker", spk_run_dir),
+                                  ("listener", lis_run_dir)))
+    cfg, fresh, batch, lang, chunk = st.cfg, st.fresh, st.batch, st.lang, \
+        st.chunk
+    model, spk = fresh.model, fresh.model.speaker
+    kw = joint_step_kw(cfg)
+    topn = kw["sample_topn"]
+    reward_fn = pipeline.make_caption_reward_fn(st.vocab)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        # both streams on the val batch: the step's shapes, one batch
+        return pipeline.joint_rl_train_step(fresh, batch, lang, batch, lang,
+                                            reward_fn, gen, **kw)[1]
+
+    torch.cuda.reset_peak_memory_stats()
+    med = time_ms({"step": step}, JOINT_REPS, inner=1)["step"]
+    step_peak = torch.cuda.max_memory_allocated()
+    losses = {k: float(v) for k, v in step().items()}
+    prof = phase_profile("joint_train_profile", step)
+
+    # the parts: the rollout on the detector's output (no grad), the host
+    # reward of its samples and baseline, each stream forward and backward
+    b, p = batch["point_mask"].shape[0], cfg.model.max_num_proposal
+    n_rows = lang["lang_ids"].shape[0]
+    det = model.detector
+    jitter = torch.rand((b, 2 * det.clusters_per_pass, 3), generator=gen,
+                        device="cuda")
+    perm = torch.randperm(p, generator=gen, device="cuda")[None]
+    g = pipeline.gumbel_draw((n_rows, p), gen, "cuda")
+    with torch.no_grad():
+        out = model.run_detector(batch, train=True, jitter_u=jitter,
+                                 proposal_perm=perm)
+    data = {**out, **lang, **pipeline.expand_rows(out, batch, chunk)}
+
+    def rollout():
+        return pipeline.sample_caption_ids(
+            model, data, chunk_size=chunk, beam_size=kw["beam_size"],
+            sample_topn=topn, gumbel=g)
+
+    roll = rollout()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")      # no host sync in the search
+    try:
+        rollout()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    def reward():
+        return pipeline.caption_scores(reward_fn, roll, lang, topn)
+
+    reward_s = []
+    for _ in range(JOINT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reward()
+        reward_s.append(time.perf_counter() - t0)
+    sw = {k: v for k, v in kw.items() if k not in ("beam_size",
+                                                   "sample_topn")}
+
+    def spk_stream():
+        pipeline.speaker_stream_losses(
+            model, batch, lang, reward_fn, beam_size=kw["beam_size"],
+            sample_topn=topn, jitter_u=jitter, proposal_perm=perm, gumbel=g,
+            draws=ListenerDraws(gen), **sw)[0].backward()
+
+    def lis_stream():
+        pipeline.listener_losses(
+            model, batch, lang, chunk_size=chunk,
+            loss_weight=kw["loss_weight"], loss_type=kw["loss_type"],
+            jitter_u=jitter, proposal_perm=perm,
+            draws=ListenerDraws(gen))[0].backward()
+
+    parts = time_ms({"rollout": rollout, "spk_stream": spk_stream,
+                     "lis_stream": lis_stream}, JOINT_REPS, inner=1)
+    with torch.no_grad():
+        rows = expand_to_rows(spk.graph(data), chunk)
+        rows.update(target_ids_in=roll["target_ids"],
+                    target_ious_in=roll["target_ious"])
+        beam_in = spk.caption.train_inputs(rows, None)[3:]
+    t_beam = cfg.data.max_spk_len + 1
+
+    def beam():
+        with torch.no_grad():
+            spk.caption.beam_decode(
+                lang["glove_embeddings"], *beam_in, kw["beam_size"],
+                group_size=spk.caption.beam_group_size,
+                diversity_lambda=spk.caption.diversity_lambda)
+
+    beam_kernels = phase_profile("joint_beam_profile", beam)
+    beam_launches = sum(r[2] for r in beam_kernels)
+    rollout_kernels = phase_profile("joint_rollout_profile", rollout)
+    gather_dev_ms = sum(r[1] for r in prof if "gather_rows_kernel" in r[0])
+    rep = st.report
+    o = cfg.train.optim
+    emit({"phase": "joint_train", "config": "conf/pointgroup_joint.yaml",
+          "widths": {"batch": cfg.data.batch_size,
+                     "max_num_point": cfg.data.max_num_point,
+                     "max_num_instance": cfg.data.max_num_instance,
+                     "m": cfg.model.m, "levels": len(cfg.model.blocks),
+                     "proposals": p, "description_rows": n_rows,
+                     "beam_size": kw["beam_size"],
+                     "beam_group_size": spk.caption.beam_group_size,
+                     "diversity_lambda": spk.caption.diversity_lambda,
+                     "sample_topn": topn, "beam_steps": t_beam,
+                     "sampled_rows": n_rows * topn,
+                     "num_caption_refs": cfg.train.num_caption_refs,
+                     "rl_xe_weight": kw["xe_weight"],
+                     "match_type": cfg.model.match_type,
+                     "freeze_detector": bool(cfg.model.freeze_detector),
+                     "optimizer": o.classname, "lr": o.lr,
+                     "num_workers": cfg.data.get("num_workers"),
+                     "activation_dtype": cfg.tpu.get("activation_dtype")},
+          "weights": "prepare_weights of the run phase's detector, the "
+                     "spk_train phase's speaker and the lis_train phase's "
+                     "listener",
+          **rep,
+          "joint_train_step_ms": med,
+          "rollout_ms": parts["rollout"],
+          "reward_ms": statistics.median(reward_s) * 1e3,
+          "spk_stream_ms": parts["spk_stream"],
+          "lis_stream_ms": parts["lis_stream"],
+          "timing_note": "joint_train_step_ms: CUDA events, median of 5 "
+                         "after 1 warm-up, both streams on the val batch; "
+                         "reward_ms on the host clock (one sync, two "
+                         "CIDEr calls); spk_stream_ms (rollout and reward "
+                         "included) and lis_stream_ms forward + backward",
+          "rollout_host_syncs": 0,
+          "rollout_launches": sum(r[2] for r in rollout_kernels),
+          "beam_launches": beam_launches,
+          "beam_launches_per_step": beam_launches / t_beam,
+          "step_peak": step_peak,
+          "kernel_launches_per_step": sum(r[2] for r in prof),
+          "gather_device_ms": gather_dev_ms,
+          "joint_train_bound_ms": rep["gather_bound_ms"],
+          "train_rewards": [r["train/ttl_rwd"] for r in st.train],
+          "captioning_losses": [r["train/captioning_loss"] for r in st.train],
+          "step_losses": losses,
+          "seconds": round(time.time() - t_phase, 3)})
+    for key in ("cider", "ref_iou_rate_0.5", "combined"):
+        if not math.isfinite(rep["val"][key]):
+            raise AssertionError(f"joint_train: val {key} not finite")
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"joint_train: step losses {losses}")
+    run_dir = st.run_dir
+    del fresh, batch, lang, data, out, rows, beam_in, roll, st, model, spk
+    torch.cuda.empty_cache()
+    return run_dir, {
+        "joint_train_launches_per_step": rep["gather_launches_per_step"],
+        "joint_train_max_abs_err": rep["gather_max_abs_err"],
+        "joint_train_bound_ms": rep["gather_bound_ms"],
+        "joint_train_device_ms": gather_dev_ms}
+
+
+def phase_joint_eval(run_dir, per_forward):
+    """The eval CLI's captioning and grounding tasks on the joint run dir,
+    one val batch each: finite metrics, the checkpoint stamped, 75
+    ``gather_rows`` launches a batch."""
+    t0 = time.time()
+    cfg = load_task_config(os.path.join(run_dir, "config.yaml"))
+    report = {}
+    for task, keys in (("captioning", ("bleu4", "cider", "rouge")),
+                       ("grounding", ("ref_iou_rate_0.25", "ref_iou_rate_0.5",
+                                      "iou_mean"))):
+        t1 = time.time()
+        with val_scenes(cfg.data.batch_size):
+            gather.gather_rows.launches = 0
+            eval_cli.main(["--folder", run_dir, "--task", task])
+            torch.cuda.synchronize()
+            launches = gather.gather_rows.launches
+        with open(os.path.join(run_dir, f"eval_{task}.json")) as f:
+            res = json.load(f)
+        if not all(math.isfinite(res[k]) for k in keys):
+            raise AssertionError(f"joint_eval {task}: non-finite {res}")
+        if res["checkpoint"] != {"kind": "best", "step": JOINT_STEPS}:
+            raise AssertionError(f"joint_eval {task}: {res['checkpoint']}")
+        if launches != per_forward:
+            raise AssertionError(f"joint_eval {task}: {launches} gathers")
+        report[task] = {**{k: res[k] for k in keys},
+                        "checkpoint": res["checkpoint"],
+                        "gather_launches": launches,
+                        "cli_s": round(time.time() - t1, 3)}
+    emit({"phase": "joint_eval", **report,
+          "reduced": [f"{cfg.data.batch_size} val scenes, one batch, of the "
+                      f"config's {max(2, cfg.data.synthetic.num_scenes // 8)}"],
+          "seconds": round(time.time() - t0, 3)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2174,6 +2451,13 @@ def main() -> int:
         lis = phase_lis_train(
             os.path.join(root, "lis"), run_dir, train["train_launches"],
             launches)
+        phase_joint_parity()
+        joint_run, joint = phase_joint_train(
+            os.path.join(root, "joint"), run_dir,
+            stage_run_dir(os.path.join(root, "spk"), CAPTION_CONFIG),
+            stage_run_dir(os.path.join(root, "lis"), GROUNDING_CONFIG),
+            train["train_launches"], launches)
+        phase_joint_eval(joint_run, launches)
     kernels[0]["run_launches_per_step"] = run_per_step
     kernels[0]["caption_launches_per_batch"] = caption_launches
     kernels[0]["caption_max_abs_err"] = caption_err
@@ -2181,10 +2465,12 @@ def main() -> int:
     kernels[0]["grounding_max_abs_err"] = grounding_err
     kernels[0].update(spk)
     kernels[0].update(lis)
+    kernels[0].update(joint)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], caption_err,
                                     spk["spk_train_max_abs_err"],
                                     grounding_err,
-                                    lis["lis_train_max_abs_err"])
+                                    lis["lis_train_max_abs_err"],
+                                    joint["joint_train_max_abs_err"])
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

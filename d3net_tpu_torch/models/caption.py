@@ -11,6 +11,12 @@ so one step launches the same kernels every time. The only change from the
 JAX step is that ``map_feat(obj_feats)``, the same product at every step,
 is computed once before the loop.
 
+Joint self-critical RL's modes: ``rl`` samples captions by (diverse) beam
+search with the beam folded into the batch (``beam_decode``) beside a
+greedy baseline; ``rl_tf`` teacher-forces a given rollout and takes its
+tokens' log-probabilities under grad. Both can reuse a rollout's target
+selection (``target_ids_in``).
+
 Semantics preserved, including the reference's attention-mask quirk
 (masked scores are set to 0, not -inf, before the softmax over all
 proposals: masked proposals still receive e^0 weight,
@@ -18,9 +24,6 @@ proposals: masked proposals still receive e^0 weight,
 
 The word embedding matrix arrives via ``data["glove_embeddings"]`` (V, E),
 E = ``emb_size``.
-
-Modes ``rl``/``rl_tf`` and the beam search belong to joint self-critical
-RL and are not ported yet (ROADMAP.md queue A item 15); they raise.
 """
 
 from __future__ import annotations
@@ -32,11 +35,12 @@ from torch import nn
 from torch.nn import functional as F
 
 from d3net_tpu_torch.models.graph import box_centers, query_locals, target_locals
+from d3net_tpu_torch.ops.cluster import topk_stable
 from d3net_tpu_torch.utils.bbox import aabb_iou_corners
 from d3net_tpu_torch.utils.nn_distance import nn_distance
 
-NOT_PORTED = ("belongs to joint self-critical RL, not ported yet "
-              "(ROADMAP.md, queue A item 15)")
+_NEG = -1e9
+MODES = ("eval", "tf", "free", "rl", "rl_tf")
 
 
 class GRUCell(nn.Module):
@@ -81,15 +85,21 @@ class GRUCell(nn.Module):
 
 class CaptionModule(nn.Module):
     """Speaker caption head over batched proposals. The arguments are the
-    JAX module's fields but the beam search's; a target whose IoU with its
-    GT box exceeds ``min_iou_threshold`` is a good box."""
+    JAX module's fields; a target whose IoU with its GT box exceeds
+    ``min_iou_threshold`` is a good box, and mode ``rl``'s beam search
+    splits its beams into ``beam_group_size`` groups with the same-step
+    word-repeat penalty ``diversity_lambda`` between them."""
 
     def __init__(self, num_vocabs: int, sos_id: int, eos_id: int,
                  pad_id: int = 0, emb_size: int = 300, feat_size: int = 128,
                  hidden_size: int = 512, num_locals: int = 10,
                  max_len: int = 30, min_iou_threshold: float = 0.25,
-                 use_relation: bool = True):
+                 use_relation: bool = True, beam_group_size: int = 1,
+                 diversity_lambda: float = 0.5):
         super().__init__()
+        self.num_vocabs = num_vocabs
+        self.beam_group_size = beam_group_size
+        self.diversity_lambda = diversity_lambda
         self.sos_id = sos_id
         self.eos_id = eos_id
         self.pad_id = pad_id
@@ -178,8 +188,95 @@ class CaptionModule(nn.Module):
         return (torch.stack(all_ids, 1).to(torch.int32),
                 torch.stack(all_logits, 1))
 
-    def beam_decode(self, *args, **kwargs):
-        raise NotImplementedError(f"beam_decode {NOT_PORTED}")
+    def beam_decode(self, embeddings, target_feat, obj_feats, valid_masks,
+                    beam_size: int, max_len: Optional[int] = None,
+                    group_size: int = 1, diversity_lambda: float = 0.5,
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(Diverse) beam search with the beam folded into the batch (ref
+        ``add_diversity`` and the beam of ``caption_module.py:139-156``,
+        614; the JAX module's ``beam_decode``).
+
+        ``beam_size`` splits into ``group_size`` groups of ``bd`` beams. At
+        every step group g's log-probs are penalised by ``diversity_lambda``
+        times the count of each word that groups < g chose at the same
+        step (finished beams are exempt); selection uses the penalised
+        scores, the recorded log-probs are the unpenalised ones. Each
+        group's top ``bd`` is a stable descending sort's (``lax.top_k``'s
+        order: ties to the lower index; they are real, as ``_NEG`` plus a
+        log-prob rounds to ``_NEG`` in f32). A finished beam is frozen on
+        pad with log-prob 0. The hidden states follow their source beams;
+        the sequences are traced back over reversed time by one gather a
+        step. The loops are static: no host sync.
+
+        Returns (seqs (N, bm, T) int32, logps (N, bm, T), scores (N, bm)),
+        T = ``max_len`` + 1, the groups concatenated in order, each sorted
+        best-first.
+        """
+        n = target_feat.shape[0]
+        t = (max_len or self.max_len) + 1
+        bm, g_n = beam_size, max(1, int(group_size))
+        if bm % g_n:
+            raise ValueError(f"beam_size {bm} is not a multiple of "
+                             f"group_size {g_n}")
+        bd, v = bm // g_n, self.num_vocabs
+        dev = target_feat.device
+
+        tf_b = target_feat.repeat_interleave(bm, 0)
+        of_b = obj_feats.repeat_interleave(bm, 0)
+        vm_b = valid_masks.repeat_interleave(bm, 0)
+        feat_proj = self.map_feat(of_b)           # the same at every step
+        h = target_feat.new_zeros(n * bm, self.hidden_size)
+        hiddens = (h, h)
+        last = torch.full((n * bm,), self.sos_id, dtype=torch.long,
+                          device=dev)
+        scores = torch.full((n, g_n, bd), _NEG, device=dev)
+        scores[:, :, 0] = 0.0
+        scores = scores.reshape(n, bm)
+        done = torch.zeros((n, bm), dtype=torch.bool, device=dev)
+        pad_only = torch.full((n, bd, v), _NEG, device=dev)
+        pad_only[:, :, self.pad_id] = 0.0
+        base = (torch.arange(n, device=dev) * bm)[:, None]
+        words, logps, srcs = [], [], []
+        for _ in range(t):
+            logits, (h1, h2), _ = self.step(hiddens, embeddings[last], tf_b,
+                                            of_b, vm_b, feat_proj)
+            logp_all = F.log_softmax(logits, -1).reshape(n, g_n, bd, v)
+            done_g = done.reshape(n, g_n, bd)
+            scores_g = scores.reshape(n, g_n, bd)
+            counts = logits.new_zeros(n, v)
+            parts = []
+            for g in range(g_n):          # groups see earlier groups' words
+                fin = done_g[:, g, :, None]
+                lp_un = torch.where(fin, pad_only, logp_all[:, g])
+                lp_aug = lp_un if g == 0 else torch.where(
+                    fin, lp_un, lp_un - diversity_lambda * counts[:, None, :])
+                cand = (scores_g[:, g, :, None] + lp_aug).reshape(n, bd * v)
+                top_scores, top_idx = topk_stable(cand, bd)
+                top_idx = top_idx.long()
+                src = top_idx // v
+                word = top_idx % v
+                step_lp = lp_un.reshape(n, bd * v).gather(1, top_idx)
+                dg = done_g[:, g].gather(1, src) | (word == self.eos_id)
+                counts = counts.scatter_add(1, word, torch.ones_like(
+                    step_lp))
+                parts.append((word, src + g * bd, step_lp, top_scores, dg))
+            word, src, step_lp, scores, done = (torch.cat(x, 1)
+                                                for x in zip(*parts))
+            gidx = (base + src).reshape(-1)
+            hiddens = (h1[gidx], h2[gidx])
+            last = word.reshape(-1)
+            words.append(word)
+            logps.append(step_lp)
+            srcs.append(src)
+
+        ptr = torch.arange(bm, device=dev).expand(n, bm)
+        seqs, lps = [None] * t, [None] * t
+        for i in range(t - 1, -1, -1):      # follow the pointers back
+            seqs[i] = words[i].gather(1, ptr)
+            lps[i] = logps[i].gather(1, ptr)
+            ptr = srcs[i].gather(1, ptr)
+        return (torch.stack(seqs, 2).to(torch.int32), torch.stack(lps, 2),
+                scores)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -251,23 +348,32 @@ class CaptionModule(nn.Module):
                 "edge_feature", "local_ids", "local_mask")), of)
         return target_feats, of, vm
 
-    def train_inputs(self, data: Dict[str, Any], gumbel: torch.Tensor):
+    def train_inputs(self, data: Dict[str, Any],
+                     gumbel: Optional[torch.Tensor]):
         """The training modes' targets and decoder inputs for description
         rows: (target ids, target IoUs, the random targets' GT ids, target
         feats (N, F), obj feats with the relation features (N, P, F), valid
-        masks (N, P))."""
-        if gumbel is None:
-            raise ValueError("modes 'tf' and 'free' need the Gumbel draw of "
-                             "select_target (N, P)")
+        masks (N, P)). A rollout's ``target_ids_in``/``target_ious_in`` in
+        ``data`` are taken as they are (the GT ids are then 0, as in the
+        JAX module); else ``select_target`` picks on the Gumbel draw."""
         obj_feats = data["bbox_feature"]            # (N, P, F)
         obj_masks = data["proposal_batch_mask"]     # (N, P)
         corners = data["proposal_bbox_batched"]     # (N, P, 8, 3)
         centers = box_centers(corners)
         with torch.no_grad():                       # integers and masks
-            target_ids, target_ious, assigned = self.select_target(
-                gumbel, obj_masks, centers, corners,
-                data["center_label_chunk"], data["gt_bbox_chunk"],
-                data["ref_box_corner_label"], data["annotated"])
+            if "target_ids_in" in data:
+                target_ids = data["target_ids_in"]
+                target_ious = data["target_ious_in"]
+                assigned = torch.zeros_like(target_ids)
+            elif gumbel is None:
+                raise ValueError("the training modes need the Gumbel draw "
+                                 "of select_target (N, P) or a rollout's "
+                                 "target_ids_in")
+            else:
+                target_ids, target_ious, assigned = self.select_target(
+                    gumbel, obj_masks, centers, corners,
+                    data["center_label_chunk"], data["gt_bbox_chunk"],
+                    data["ref_box_corner_label"], data["annotated"])
             vm = obj_masks if self.num_locals == -1 else query_locals(
                 corners, centers, target_ids, obj_masks, self.num_locals)
         rows = torch.arange(target_ids.shape[0], device=target_ids.device)
@@ -278,17 +384,58 @@ class CaptionModule(nn.Module):
                 obj_feats, target_ids)
         return target_ids, target_ious, assigned, target_feats, obj_feats, vm
 
+    def rollout_logits(self, sampled, embeddings, target_feats, obj_feats,
+                       valid_masks) -> torch.Tensor:
+        """The logits (N·topn, T, V) of teacher forcing a rollout's tokens
+        ``sampled`` (N, topn, T) from sos, each row's inputs repeated
+        ``topn`` times: step t predicts ``sampled[..., t]``."""
+        n, topn, t = sampled.shape
+        flat = sampled.reshape(n * topn, t).long()
+        full = torch.cat([flat.new_full((n * topn, 1), self.sos_id), flat], 1)
+        return self.teacher_forcing(
+            full, embeddings, target_feats.repeat_interleave(topn, 0),
+            obj_feats.repeat_interleave(topn, 0),
+            valid_masks.repeat_interleave(topn, 0))
+
+    def rollout_logps(self, sampled, embeddings, target_feats, obj_feats,
+                      valid_masks) -> torch.Tensor:
+        """The log-probs (N, topn, T) of a rollout's tokens ``sampled``
+        (N, topn, T) under grad: ``rollout_logits``' log-softmax at the
+        token taken, 0 at every position strictly after the first eos (a
+        finished beam emits pad with log-prob 0)."""
+        n, topn, t = sampled.shape
+        flat = sampled.reshape(n * topn, t).long()
+        logits = self.rollout_logits(sampled, embeddings, target_feats,
+                                     obj_feats, valid_masks)
+        step_lp = F.log_softmax(logits, -1).gather(-1, flat[..., None])[..., 0]
+        is_eos = (flat == self.eos_id).to(torch.int32)
+        after_eos = torch.cumsum(is_eos, -1) - is_eos
+        step_lp = torch.where(after_eos > 0, 0.0, step_lp)
+        return step_lp.reshape(n, topn, t)
+
     # ------------------------------------------------------------------
     def forward(self, data: Dict[str, Any], mode: str = "tf",
-                gumbel: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                gumbel: Optional[torch.Tensor] = None, beam_size: int = 1,
+                sample_topn: int = 1) -> Dict[str, Any]:
         """mode 'eval': caption every proposal greedily -> ``lang_cap``
-        (B, P, max_len + 1) int32 ids. Modes 'tf' and 'free': ``data`` holds
-        description rows (N = B·chunk) and ``gumbel`` (N, P) the draw of
-        ``select_target`` -> ``target_ids``, ``target_ious``,
-        ``assigned_bbox_id_labels``, ``good_bbox_masks`` and ``lang_cap``,
-        the logits (N, T-1, V) of ``teacher_forcing`` over ``lang_ids``."""
-        if mode not in ("eval", "tf", "free"):
-            raise NotImplementedError(f"CaptionModule mode {mode!r} {NOT_PORTED}")
+        (B, P, max_len + 1) int32 ids. The other modes run over description
+        rows (N = B·chunk) whose targets come from ``train_inputs`` (the
+        (N, P) draw ``gumbel``, or a rollout's ``target_ids_in``) ->
+        ``target_ids``, ``target_ious``, ``assigned_bbox_id_labels``,
+        ``good_bbox_masks`` and, by mode:
+
+        - 'tf' / 'free': ``lang_cap``, the logits (N, T-1, V) of
+          ``teacher_forcing`` over ``lang_ids``;
+        - 'rl': the first ``sample_topn`` sequences of ``beam_decode`` with
+          ``beam_size`` beams as ``sampled_cap`` (N, topn, max_len + 1) and
+          their ``sampled_logps``, and the greedy baseline ``baseline_cap``
+          (N, max_len + 2): one step longer than the beam, as in the JAX
+          module;
+        - 'rl_tf': the rollout ``sampled_cap_in`` teacher-forced under
+          grad (``rollout_logps``) as ``sampled_cap``/``sampled_logps``,
+          with ``baseline_cap_in`` passed through as ``baseline_cap``."""
+        if mode not in MODES:
+            raise ValueError(f"CaptionModule mode {mode!r}: one of {MODES}")
         out = dict(data)
         embeddings = data["glove_embeddings"]
         if mode == "eval":
@@ -304,7 +451,23 @@ class CaptionModule(nn.Module):
         out["target_ious"] = target_ious
         out["assigned_bbox_id_labels"] = assigned
         out["good_bbox_masks"] = target_ious > self.min_iou_threshold
-        out["lang_cap"] = self.teacher_forcing(
-            data["lang_ids"], embeddings, target_feats, obj_feats, vm,
-            use_tf=mode == "tf")
+        if mode in ("tf", "free"):
+            out["lang_cap"] = self.teacher_forcing(
+                data["lang_ids"], embeddings, target_feats, obj_feats, vm,
+                use_tf=mode == "tf")
+        elif mode == "rl":
+            seqs, lps, _ = self.beam_decode(
+                embeddings, target_feats, obj_feats, vm, beam_size,
+                group_size=self.beam_group_size,
+                diversity_lambda=self.diversity_lambda)
+            out["sampled_cap"] = seqs[:, :sample_topn]
+            out["sampled_logps"] = lps[:, :sample_topn]
+            out["baseline_cap"], _ = self.greedy_decode(
+                embeddings, target_feats, obj_feats, vm, self.max_len + 1)
+        else:
+            out["sampled_cap"] = data["sampled_cap_in"]
+            out["sampled_logps"] = self.rollout_logps(
+                data["sampled_cap_in"], embeddings, target_feats, obj_feats,
+                vm)
+            out["baseline_cap"] = data["baseline_cap_in"]
         return out

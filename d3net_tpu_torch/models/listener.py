@@ -27,32 +27,43 @@ class ListenerDraws:
     """The listener's draws for one training forward. ``masks``: keep masks
     by dropout path; ``copy_paste``: (apply, a 0-dim bool tensor; gumbel,
     (B, P, P)). What is not given is drawn from ``generator`` (torch's
-    default generator when None); the keep masks drawn stay in ``drawn``,
-    by path."""
+    default generator when None), but a dropout whose path has a mask of
+    the same shape in ``shared`` (an earlier forward's ``drawn``) takes
+    it: two forwards under one JAX key draw the same bits where the shapes
+    agree. The keep masks used stay in ``drawn``, by path, and the
+    copy-paste draw in ``copy_paste_draw``."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  masks: Optional[Mapping[str, torch.Tensor]] = None,
                  copy_paste: Optional[Tuple[torch.Tensor,
-                                            torch.Tensor]] = None):
+                                            torch.Tensor]] = None,
+                 shared: Optional[Mapping[str, torch.Tensor]] = None):
         self.generator = generator
         self.masks = masks
         self.copy_paste_draw = copy_paste
+        self.shared = shared or {}
         self.drawn: Dict[str, torch.Tensor] = {}
 
     def keep(self, path: str, shape, rate: float, device) -> torch.Tensor:
         if self.masks is not None:
             return self.masks[path].to(device)
-        self.drawn[path] = torch.rand(shape, generator=self.generator,
-                                      device=device) < 1.0 - rate
+        same = self.shared.get(path)
+        if same is not None and tuple(same.shape) == tuple(shape):
+            self.drawn[path] = same
+        else:
+            self.drawn[path] = torch.rand(shape, generator=self.generator,
+                                          device=device) < 1.0 - rate
         return self.drawn[path]
 
     def copy_paste(self, shape, prob: float, device
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.copy_paste_draw is not None:
-            apply, g = self.copy_paste_draw
-            return apply.to(device), g.to(device)
-        apply = torch.rand((), generator=self.generator, device=device) < prob
-        return apply, gumbel_draw(shape, self.generator, device)
+        if self.copy_paste_draw is None:
+            apply = torch.rand((), generator=self.generator,
+                               device=device) < prob
+            self.copy_paste_draw = (apply, gumbel_draw(shape, self.generator,
+                                                       device))
+        apply, g = self.copy_paste_draw
+        return apply.to(device), g.to(device)
 
 
 class ListenerNet(nn.Module):

@@ -8,7 +8,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from d3net_tpu_torch.models.caption import NOT_PORTED, CaptionModule
+from d3net_tpu_torch.models.caption import CaptionModule
 from d3net_tpu_torch.models.graph import GraphModule
 
 # the scene-level tensors that the training modes repeat per description
@@ -31,7 +31,8 @@ class SpeakerNet(nn.Module):
                  pad_id: int = 0, m: int = 16, feat_size: int = 128,
                  num_graph_steps: int = 2, num_locals: int = 10,
                  max_len: int = 30, min_iou_threshold: float = 0.25,
-                 use_relation: bool = True, use_orientation: bool = True):
+                 use_relation: bool = True, use_orientation: bool = True,
+                 beam_group_size: int = 1, diversity_lambda: float = 0.5):
         super().__init__()
         self.num_graph_steps = num_graph_steps
         if num_graph_steps > 0:
@@ -42,20 +43,20 @@ class SpeakerNet(nn.Module):
             num_vocabs=num_vocabs, sos_id=sos_id, eos_id=eos_id,
             pad_id=pad_id, feat_size=feat_size, num_locals=num_locals,
             max_len=max_len, min_iou_threshold=min_iou_threshold,
-            use_relation=use_relation)
+            use_relation=use_relation, beam_group_size=beam_group_size,
+            diversity_lambda=diversity_lambda)
 
     def forward(self, data: Dict[str, Any], mode: str = "tf",
-                chunk_size: int = 1,
-                gumbel: Optional[torch.Tensor] = None) -> Dict[str, Any]:
-        """The graph over the scenes' proposals, then the caption head. In
-        modes other than 'eval' the scene-level keys are repeated
-        ``chunk_size`` times each, one row per description; the graph's
-        other outputs (``edge_orientations``, ``adjacent_mat``) stay per
-        scene."""
-        if mode not in ("eval", "tf", "free"):
-            raise NotImplementedError(f"SpeakerNet mode {mode!r} {NOT_PORTED}")
+                chunk_size: int = 1, gumbel: Optional[torch.Tensor] = None,
+                beam_size: int = 1, sample_topn: int = 1) -> Dict[str, Any]:
+        """The graph over the scenes' proposals, then the caption head in
+        ``mode`` (``CaptionModule.forward``'s). In modes other than 'eval'
+        the scene-level keys are repeated ``chunk_size`` times each, one
+        row per description; the graph's other outputs
+        (``edge_orientations``, ``adjacent_mat``) stay per scene."""
         if self.num_graph_steps > 0:
             data = self.graph(data)
         if mode != "eval":
             data = expand_to_rows(data, chunk_size)
-        return self.caption(data, mode=mode, gumbel=gumbel)
+        return self.caption(data, mode=mode, gumbel=gumbel,
+                            beam_size=beam_size, sample_topn=sample_topn)

@@ -19,7 +19,8 @@ task's protocol over the val scenes:
   ``eval_grounding.json``.
 
 The pipeline tasks' checkpoint must hold the whole pipeline: a
-detector-only one fails to load. ``scannet`` is not ported and raises.
+detector-only one fails to load; a joint RL run's holds both submodules,
+so either task reads its run dir. ``scannet`` is not ported and raises.
 
 Each file is stamped with the checkpoint it used. Runs on CUDA unless
 ``--cpu`` is given; without a GPU and without ``--cpu`` it raises.

@@ -7,12 +7,12 @@ The task YAML is merged over ``path.yaml`` beside it, when there is one;
 the run goes to ``general.output_root/<folder or general.experiment>``
 and resumes from its last checkpoint. The detector (task mode (1, 0, 0))
 trains through ``run_detector_training``; the detector with the speaker
-((1, 1, 0), e.g. conf/pointgroup_captioning.yaml) or with the listener
-((1, 0, 1), e.g. conf/pointgroup_grounding.yaml), whose
-``model.pretrained_detector`` is written by ``prepare_weights``, through
-``run_pipeline_training``. Joint RL's (1, 1, 1) raises
-(``train.pipeline.task_mode``). Runs on CUDA unless ``--cpu`` is given;
-without a GPU and without ``--cpu`` it raises.
+((1, 1, 0), e.g. conf/pointgroup_captioning.yaml), with the listener
+((1, 0, 1), e.g. conf/pointgroup_grounding.yaml) or with both by joint
+self-critical RL ((1, 1, 1), conf/pointgroup_joint.yaml), whose
+``model.pretrained_<sub>`` pickles ``prepare_weights`` writes, through
+``run_pipeline_training``. Runs on CUDA unless ``--cpu`` is given; without
+a GPU and without ``--cpu`` it raises.
 """
 
 from __future__ import annotations

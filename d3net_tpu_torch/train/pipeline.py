@@ -1,11 +1,10 @@
 """The pipeline's training and validation for modes 1 (detector ->
-speaker) and 2 (detector -> listener) (counterpart of
-``d3net_tpu/train/pipeline_loop.py``; parity: ``PipelineNet.training_step``
-modes 1 and 2, ``model/pipeline.py:152-226``).
+speaker), 2 (detector -> listener) and 3 (joint speaker-listener
+self-critical RL) (counterpart of ``d3net_tpu/train/pipeline_loop.py``;
+parity: ``PipelineNet.training_step`` modes 1-3, ``model/pipeline.py:
+152-309``).
 
-- ``task_mode``: the config's (detection, captioning, grounding) flags,
-  the one place that refuses joint RL's (1, 1, 1) (ROADMAP.md queue A
-  item 15).
+- ``task_mode``: the config's (detection, captioning, grounding) flags.
 - ``speaker_train_step``: the detector in train mode (BN statistics
   updated) and ``detector_loss``, the speaker teacher-forced over the
   batch's description rows, caption XE over the good annotated rows (plus
@@ -24,15 +23,31 @@ modes 1 and 2, ``model/pipeline.py:152-226``).
 - ``apply_pretrained``: the JAX package's ``pretrained/<tag>_<sub>.pkl``
   (``{"params", "batch_stats"}`` Flax trees of numpy leaves, written by
   either package's ``prepare_weights``) into the named submodules.
+- ``joint_rl_train_step`` (mode 3): two batch streams. The speaker
+  stream's detector output feeds the rollout (``sample_caption_ids``:
+  diverse beam samples and a greedy baseline, detached, no grad), the
+  host CIDEr reward of both (``caption_scores`` over
+  ``make_caption_reward_fn``: the step's one host sync), then the
+  speaker teacher-forced on the rollout under grad (mode ``rl_tf``), the
+  moderator, the listener on the sampled captions (trained) and on the
+  baseline (no grad), the self-critical loss ``-reward x sum logp`` over
+  the good rows, an optional XE anchor; the listener stream's detector and
+  listener with the grounding and lang-cls losses; one backward. The
+  JAX package's phase A runs the speaker stream's detector a second time
+  with the same draws and throws its BN statistics away: its rollout is
+  this one, and the detector runs once a stream here.
 - ``run_pipeline_training``: the JAX loop's run dir, lang stream, step
-  seeds, validation cadence and checkpoints, with the detector loop's
-  timing hook and profile window.
+  seeds, validation cadence and checkpoints (mode 3: the listener stream
+  takes the previous batch, the first step after a start or a resume the
+  current one), with the detector loop's timing hook and profile window.
 - ``run_pipeline_validation``: mode 1 captions every val scene's
   proposals greedily, scored by ``CaptionEvaluator`` against several
   grammar descriptions of each GT object (CIDEr, BLEU-4, ROUGE-L and
   METEOR at ``eval.min_iou_threshold``); mode 2 grounds every description
   row, scored by ``GroundingEvaluator`` (Acc@0.25/0.5 as
-  ``ref_iou_rate_*``, with the unique/multiple and others breakdown).
+  ``ref_iou_rate_*``, with the unique/multiple and others breakdown);
+  mode 3 does both on the same detector output and adds ``combined`` =
+  ``cider`` + ``ref_iou_rate_0.5``.
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ from d3net_tpu_torch.data.language import (
 )
 from d3net_tpu_torch.data.vocab import Vocabulary, embedding_matrix
 from d3net_tpu_torch.device import DeviceLike, resolve_device
+from d3net_tpu_torch.eval import capeval
 from d3net_tpu_torch.eval.caption_eval import CaptionEvaluator, decode_captions
 from d3net_tpu_torch.eval.grounding_eval import GroundingEvaluator
 from d3net_tpu_torch.models.listener import ListenerDraws
@@ -100,20 +116,18 @@ def pipeline_from_cfg(cfg: Config, vocab: Vocabulary) -> PipelineNet:
         num_text_classes=cfg.model.num_bbox_class,
         no_captioning=bool(cfg.model.no_captioning),
         no_grounding=bool(cfg.model.no_grounding),
+        beam_group_size=int(cfg.train.get("beam_group_size", 1) or 1),
+        diversity_lambda=float(cfg.train.get("diversity_lambda", 0.5)),
     )
 
 
 def task_mode(cfg: Config) -> Tuple[int, int, int]:
     """The config's (detection, captioning, grounding) flags. (1, 0, 0)
     trains the detector alone, (1, 1, 0) the speaker (pipeline mode 1),
-    (1, 0, 1) the listener (mode 2); joint RL's (1, 1, 1) raises."""
-    mode = (int(not cfg.model.no_detection), int(not cfg.model.no_captioning),
+    (1, 0, 1) the listener (mode 2), (1, 1, 1) both by joint
+    self-critical RL (mode 3)."""
+    return (int(not cfg.model.no_detection), int(not cfg.model.no_captioning),
             int(not cfg.model.no_grounding))
-    if mode == (1, 1, 1):
-        raise NotImplementedError(
-            "task mode (1, 1, 1): joint speaker-listener RL is not ported "
-            "(ROADMAP.md, queue A item 15)")
-    return mode
 
 
 def build_vocab(cfg: Config) -> Tuple[Vocabulary, np.ndarray]:
@@ -296,6 +310,287 @@ def listener_train_step(state: TrainState, batch: Dict, lang: Dict,
 
 
 # ---------------------------------------------------------------------------
+# the mode-3 train step: joint speaker-listener self-critical RL
+# ---------------------------------------------------------------------------
+
+ROLLOUT_KEYS = ("sampled_cap", "baseline_cap", "target_ids", "target_ious")
+
+
+def make_caption_reward_fn(vocab: Vocabulary):
+    """The host reward (ref ``compute_caption_reward`` :15-96; the JAX
+    function with ``bleu_weight`` 0, as its loop calls it):
+    ``fn(cand_ids (N, T), gt_ids (N, T) or (N, R, T), annotated (N,))``
+    -> (N,) f32, the CIDEr of each annotated row's decoded candidate
+    against its references (every annotation of the target object when
+    ``gt_ids`` has R of them; an all-zero row is padding), each reference
+    deduplicated and every sentence ending in "eos". A row without
+    annotation or references scores 0. One ``Cider().compute_score`` a
+    call, so the corpus document frequencies are the call's."""
+
+    def host_fn(cand_ids: np.ndarray, gt_ids: np.ndarray,
+                annotated: np.ndarray) -> np.ndarray:
+        cand_ids, gt_ids = np.asarray(cand_ids), np.asarray(gt_ids)
+        n = cand_ids.shape[0]
+        gts, cands, keys = {}, {}, []
+        for i in range(n):
+            if annotated[i] <= 0:
+                continue
+            refs = []
+            for row in (gt_ids[i] if gt_ids.ndim == 3 else gt_ids[i][None]):
+                if not row.any():
+                    continue
+                sent = " ".join(vocab.decode(row, stop_at_eos=True) + ["eos"])
+                if sent not in refs:
+                    refs.append(sent)
+            if not refs:
+                continue
+            gts[str(i)] = refs
+            cands[str(i)] = [" ".join(vocab.decode(cand_ids[i],
+                                                   stop_at_eos=True)
+                                      + ["eos"])]
+            keys.append(i)
+        scores = np.zeros(n, np.float32)
+        if keys:
+            _, cider = capeval.Cider().compute_score(gts, cands)
+            scores[np.asarray(keys)] = np.asarray(cider, np.float32)
+        return scores
+
+    return host_fn
+
+
+def sample_caption_ids(model: PipelineNet, data: Dict, *, chunk_size: int,
+                       beam_size: int, sample_topn: int,
+                       gumbel: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The RL rollout (the JAX package's phase A) on the speaker stream's
+    detector outputs and description rows ``data``, without grad: the
+    targets on the (N, P) draw ``gumbel``, the speaker in mode ``rl``.
+    -> ``sampled_cap`` (N, topn, T), ``baseline_cap`` (N, T + 1),
+    ``target_ids``, ``target_ious`` and the beam's ``sampled_logps``. No
+    host sync."""
+    with torch.no_grad():
+        out = model.run_speaker(data, mode="rl", chunk_size=chunk_size,
+                                gumbel=gumbel, beam_size=beam_size,
+                                sample_topn=sample_topn)
+    return {k: out[k] for k in ROLLOUT_KEYS + ("sampled_logps",)}
+
+
+def caption_scores(reward_fn, rollout: Mapping[str, torch.Tensor],
+                   lang: Mapping[str, torch.Tensor], sample_topn: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host reward of the rollout's sampled captions and of its
+    baseline (repeated ``sample_topn`` times) against the rows'
+    references (``gt_refs`` where the lang batch has them, else
+    ``lang_ids``), each row repeated ``sample_topn`` times: two
+    ``reward_fn`` calls, each its own corpus. The ids, references and
+    annotation come to the host in one copy, the step's one host sync.
+    -> two (N·topn,) f32 tensors on the rollout's device."""
+    sampled, baseline = rollout["sampled_cap"], rollout["baseline_cap"]
+    n = sampled.shape[0]
+    gt = lang.get("gt_refs", lang["lang_ids"])
+    parts = [sampled.reshape(n, -1), baseline, gt.reshape(n, -1),
+             (lang["annotated"] > 0)[:, None]]
+    host = torch.cat([x.to(torch.int32) for x in parts], 1).cpu().numpy()
+    ids_s, ids_b, gt_np, ann = np.split(host, np.cumsum(
+        [x.shape[1] for x in parts[:-1]]), axis=1)
+
+    def rep(x):
+        return np.repeat(x, sample_topn, axis=0)
+
+    gt_np = rep(gt_np.reshape((n,) + tuple(gt.shape[1:])))
+    ann = rep(ann[:, 0])
+    return tuple(torch.from_numpy(reward_fn(ids, gt_np, ann)).to(
+        sampled.device) for ids in (ids_s.reshape(n * sample_topn, -1),
+                                    rep(ids_b)))
+
+
+def speaker_stream_losses(model: PipelineNet, batch: Dict, lang: Dict,
+                          reward_fn, *, chunk_size: int, beam_size: int,
+                          sample_topn: int,
+                          loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                          ref_reward_weight: float = 1.0,
+                          lang_reward_weight: float = 1.0,
+                          listener_reward_weight: float = 0.1,
+                          caption_reward_weight: float = 1.0,
+                          loss_type: str = "cross_entropy",
+                          xe_weight: float = 0.0,
+                          jitter_u: torch.Tensor, proposal_perm: torch.Tensor,
+                          gumbel: Optional[torch.Tensor],
+                          draws: ListenerDraws,
+                          rollout: Optional[Mapping[str, torch.Tensor]] = None,
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                     Dict]:
+    """The speaker stream of the mode-3 loss (ref :228-300) on ``batch``
+    and its rows ``lang`` -> (its part of the total, the JAX step's
+    speaker-stream metrics, the rollout with its ``sampled_scores`` and
+    ``baseline_scores``): the detector; the rollout (``sample_caption_ids``
+    on the detector's output, unless ``rollout`` is given) and its host
+    reward; the speaker teacher-forced on it; the moderator; the listener
+    on the sampled captions (train mode, ``draws``) and on the baseline
+    (eval mode on the statistics just written, no grad); the rewards
+    (CIDEr delta + ``listener_reward_weight`` x the listener's loss
+    deltas, no grad) and the self-critical loss over the good rows; the
+    sampled listener's losses, means over every row; with ``xe_weight``
+    the XE anchor, teacher-forcing the descriptions on the rollout's
+    targets."""
+    out = model.run_detector(batch, train=True, jitter_u=jitter_u,
+                             proposal_perm=proposal_perm)
+    det = detector_loss(out, batch, loss_weight=loss_weight)["total_loss"]
+    data = {**out, **lang, **expand_rows(out, batch, chunk_size)}
+    if rollout is None:
+        rollout = sample_caption_ids(model, data, chunk_size=chunk_size,
+                                     beam_size=beam_size,
+                                     sample_topn=sample_topn, gumbel=gumbel)
+    sampled_scores, baseline_scores = caption_scores(reward_fn, rollout, lang,
+                                                     sample_topn)
+    spk_in = {**data, **{f"{k}_in": rollout[k] for k in ROLLOUT_KEYS}}
+    data = model.run_speaker(spk_in, mode="rl_tf", chunk_size=chunk_size,
+                             sample_topn=sample_topn)
+    data["proposal_bbox_batched"] = data["proposal_bbox_rows"]
+    data = model.moderator(data, sample_topn)
+
+    props = {k: out[k] for k in ("proposal_feats_batched",
+                                 "proposal_batch_mask",
+                                 "proposal_center_batched")}
+    rows = chunk_size * sample_topn
+    prop_rows = data["proposal_bbox_rows"].repeat_interleave(sample_topn, 0)
+    ref_label, cat_label = (data["mod_ref_box_corner_label"],
+                            data["mod_ref_cat_label"])
+    s_out = model.run_listener(props, data["mod_sampled_embs"],
+                               data["mod_sampled_lens"], rows, train=True,
+                               draws=draws)
+    ref_sampled, _ = grounding_loss(s_out["cluster_ref"], prop_rows,
+                                    ref_label, reduce=False,
+                                    loss_type=loss_type)
+    lang_sampled, _ = lang_cls_loss(s_out["lang_scores"], cat_label,
+                                    reduce=False)
+    with torch.no_grad():                  # the reward's baseline only
+        b_out = model.run_listener(props, data["mod_baseline_embs"],
+                                   data["mod_baseline_lens"], rows)
+        ref_baseline, _ = grounding_loss(b_out["cluster_ref"], prop_rows,
+                                         ref_label, reduce=False,
+                                         loss_type=loss_type)
+        lang_baseline, _ = lang_cls_loss(b_out["lang_scores"], cat_label,
+                                         reduce=False)
+
+    caption_reward = sampled_scores - baseline_scores
+    listener_reward = (
+        ref_reward_weight * -(ref_sampled.detach() - ref_baseline)
+        + lang_reward_weight * -(lang_sampled.detach() - lang_baseline))
+    rewards = (caption_reward_weight * caption_reward
+               + listener_reward_weight * listener_reward)
+    n_rows = lang["lang_ids"].shape[0]
+    logps = data["sampled_logps"].reshape(n_rows * sample_topn, -1).sum(-1)
+    good = data["good_bbox_masks"].float().repeat_interleave(sample_topn, 0)
+    n_good = good.sum() + 1e-8
+    cap_loss_rl = -(rewards * logps * good).sum() / n_good
+    ann_mask = lang["annotated"].repeat_interleave(sample_topn, 0) * good
+    spk_ref_loss = ref_sampled.mean()
+    metrics = {
+        "cap_rwd": (caption_reward * good).sum() / n_good,
+        "loc_rwd": (listener_reward * good).sum() / n_good,
+        "ttl_rwd": (rewards * good).sum() / n_good,
+        "cap_acc": (sampled_scores * ann_mask).sum() / (ann_mask.sum()
+                                                        + 1e-8),
+        "spk_detect_loss": det, "captioning_loss": cap_loss_rl,
+        "spk_ref_loss": spk_ref_loss}
+    total = det + cap_loss_rl
+    if xe_weight > 0.0:
+        tf_out = model.run_speaker(spk_in, mode="tf", chunk_size=chunk_size)
+        xe, _ = caption_loss(tf_out["lang_cap"], lang["lang_ids"],
+                             tf_out["good_bbox_masks"]
+                             & (lang["annotated"] > 0),
+                             pad_id=model.pad_id)
+        metrics["cap_xe_loss"] = xe_weight * xe
+        total = total + metrics["cap_xe_loss"]
+    total = total + spk_ref_loss + lang_sampled.mean()
+    return total, metrics, {**rollout, "sampled_scores": sampled_scores,
+                            "baseline_scores": baseline_scores}
+
+
+def joint_rl_losses(model: PipelineNet, spk_batch: Dict, spk_lang: Dict,
+                    lis_batch: Dict, lis_lang: Dict, reward_fn, *,
+                    chunk_size: int, beam_size: int = 3, sample_topn: int = 3,
+                    loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                    loss_type: str = "cross_entropy",
+                    generator: Optional[torch.Generator] = None,
+                    jitter_u: Optional[torch.Tensor] = None,
+                    proposal_perm: Optional[torch.Tensor] = None,
+                    gumbel: Optional[torch.Tensor] = None,
+                    spk_draws: Optional[ListenerDraws] = None,
+                    lis_draws: Optional[ListenerDraws] = None,
+                    rollout: Optional[Mapping[str, torch.Tensor]] = None,
+                    **weights) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                        Dict]:
+    """The mode-3 loss (ref :228-309; the JAX package's
+    ``joint_rl_train_step`` with ``rollout=`` and ``caption_scores=``) of
+    ``model`` on the speaker stream (``spk_batch``, its rows ``spk_lang``:
+    ``speaker_stream_losses``, whose reward and XE weights are
+    ``weights``) and the listener stream (``lis_batch``, ``lis_lang``:
+    ``listener_losses``) -> (total, the JAX step's metrics, the rollout
+    with its scores).
+
+    Where the JAX step hands two calls the same key, they get the same
+    draw: both detectors the same jitter and proposal permutation, both
+    train-mode listeners the same copy-paste draw and, at a dropout whose
+    shape is the same in both (``ListenerDraws.shared``), the same keep
+    mask. The draws not given come from ``generator``: jitter,
+    permutation, the (N, P) Gumbel, then the listeners' draws in call
+    order. Call order is the BN statistics' order: the speaker stream's
+    detector, the listener on the sampled captions, the baseline listener,
+    then the listener stream's detector and listener."""
+    det = model.detector
+    dev = spk_lang["lang_ids"].device
+    b = spk_batch["point_mask"].shape[0]
+    p = det.max_num_proposal
+    if jitter_u is None:
+        jitter_u = torch.rand((b, 2 * det.clusters_per_pass, 3),
+                              generator=generator, device=dev)
+    if proposal_perm is None:
+        proposal_perm = torch.stack([
+            torch.randperm(p, generator=generator, device=dev)
+            for _ in range(b)])
+    if gumbel is None and rollout is None:
+        gumbel = gumbel_draw((b * chunk_size, p), generator, dev)
+    if spk_draws is None:
+        spk_draws = ListenerDraws(generator)
+    kw = dict(chunk_size=chunk_size, loss_weight=loss_weight,
+              loss_type=loss_type, jitter_u=jitter_u,
+              proposal_perm=proposal_perm)
+    total, metrics, rollout = speaker_stream_losses(
+        model, spk_batch, spk_lang, reward_fn, beam_size=beam_size,
+        sample_topn=sample_topn, gumbel=gumbel, draws=spk_draws,
+        rollout=rollout, **kw, **weights)
+    if lis_draws is None:
+        lis_draws = ListenerDraws(generator,
+                                  copy_paste=spk_draws.copy_paste_draw,
+                                  shared=spk_draws.drawn)
+    lis_total, lis, _ = listener_losses(model, lis_batch, lis_lang,
+                                        draws=lis_draws, **kw)
+    total = total + lis_total
+    metrics.update(loss=total, lis_detect_loss=lis["detect_loss"],
+                   lis_ref_loss=lis["grounding_loss"],
+                   lang_acc=lis["lang_acc"],
+                   **{f"lis_{k}": v for k, v in lis.items()
+                      if k.startswith(("ref_", "best_"))})
+    return total, metrics, rollout
+
+
+def joint_rl_train_step(state: TrainState, spk_batch: Dict, spk_lang: Dict,
+                        lis_batch: Dict, lis_lang: Dict, reward_fn,
+                        generator: Optional[torch.Generator] = None, **kw
+                        ) -> Tuple[TrainState, Dict[str, torch.Tensor], Dict]:
+    """One mode-3 optimization step of ``state.model`` (a ``PipelineNet``
+    with both submodules): ``joint_rl_losses`` (``kw`` are its keyword
+    arguments), then ``apply_gradients``. Returns the state (updated in
+    place), the metrics, detached, and the rollout with its scores."""
+    total, metrics, rollout = joint_rl_losses(
+        state.model, spk_batch, spk_lang, lis_batch, lis_lang, reward_fn,
+        generator=generator, **kw)
+    return (apply_gradients(state, total),
+            {k: v.detach() for k, v in metrics.items()}, rollout)
+
+
+# ---------------------------------------------------------------------------
 # freezing and pretrained weights
 # ---------------------------------------------------------------------------
 
@@ -342,9 +637,10 @@ def run_pipeline_training(cfg: Config, run_dir: str,
                           device: DeviceLike = None,
                           on_step: Optional[Callable[[Dict], None]] = None,
                           ) -> TrainState:
-    """Train the pipeline of ``cfg`` (mode 1: detector -> speaker, or mode
-    2: detector -> listener, by ``task_mode``) into ``run_dir``, resuming
-    from its last checkpoint; returns the train state.
+    """Train the pipeline of ``cfg`` (mode 1: detector -> speaker, mode 2:
+    detector -> listener, or mode 3: both by joint self-critical RL, by
+    ``task_mode``) into ``run_dir``, resuming from its last checkpoint;
+    returns the train state.
 
     The JAX loop's order: weights (seeded random, then the pretrained
     submodules), the lang stream from ``default_rng(manual_seed)`` (its
@@ -352,14 +648,19 @@ def run_pipeline_training(cfg: Config, run_dir: str,
     per-step generators from ``(manual_seed + 7, step)``, validation every
     ``check_val_every_n_epoch`` epochs, at the last and at ``max_steps``,
     and a checkpoint after each by the monitor (``val_score/cider`` ->
-    ``cider``; ``val_score/ref_iou_rate_0.5`` -> ``ref_iou_rate_0.5``).
-    ``freeze_detector`` freezes the detector; ``freeze_speaker`` and
-    ``freeze_listener`` freeze the submodule the mode does not train, a
-    no-op where the model lacks it. Runs on CUDA unless ``device`` says
-    otherwise; ``on_step`` is ``StepLoop``'s, with the card waited on
-    around each part of a step.
+    ``cider``; ``val_score/ref_iou_rate_0.5`` -> ``ref_iou_rate_0.5``;
+    ``val_score/combined`` -> ``combined``). ``freeze_detector`` freezes
+    the detector; ``freeze_speaker`` and ``freeze_listener`` freeze the
+    submodule the mode does not train (both apply in mode 3), a no-op
+    where the model lacks it. In mode 3 the listener stream takes the
+    previous step's batch and rows (the current ones at the first step of
+    the call) and the reward is ``train.caption_reward_weight``'s CIDEr
+    over ``train.num_caption_refs`` references. Runs on CUDA unless
+    ``device`` says otherwise; ``on_step`` is ``StepLoop``'s, with the
+    card waited on around each part of a step.
     """
-    mode = 1 if task_mode(cfg)[1] else 2     # 1 speaker, 2 listener
+    _, cap, grd = task_mode(cfg)
+    mode = 3 if cap and grd else 1 if cap else 2
     dev = resolve_device(device)
     os.makedirs(run_dir, exist_ok=True)
     save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
@@ -416,15 +717,35 @@ def run_pipeline_training(cfg: Config, run_dir: str,
                                      lang_rows(lang_np, emb, dev))
 
     kw = dict(chunk_size=chunk, loss_weight=tuple(cfg.train.loss_weight[:4]))
-    if mode == 2:
+    if mode != 1:
         kw["loss_type"] = str(cfg.model.get("loss_type", "cross_entropy"))
     seed = cfg.general.manual_seed + 7
     check_every = int(cfg.train.get("check_val_every_n_epoch", 1) or 1)
+    if mode == 3:
+        t = cfg.train
+        reward_fn = make_caption_reward_fn(vocab)
+        kw.update(beam_size=int(t.beam_size), sample_topn=int(t.sample_topn),
+                  ref_reward_weight=t.ref_reward_weight,
+                  lang_reward_weight=t.lang_reward_weight,
+                  listener_reward_weight=t.listener_reward_weight,
+                  caption_reward_weight=t.caption_reward_weight,
+                  xe_weight=float(t.get("rl_xe_weight", 0.0) or 0.0))
+        prev = []            # the listener stream: the previous pair
+
+        def train_step(pair, step):
+            lis_pair = prev[0] if prev else pair
+            prev[:] = [pair]
+            return joint_rl_train_step(
+                state, *pair, *lis_pair, reward_fn,
+                step_generator(seed, step, dev), **kw)[1]
+    else:
+        def train_step(pair, step):
+            return (speaker_train_step if mode == 1 else listener_train_step)(
+                state, *pair, step_generator(seed, step, dev), **kw)[1]
+
     for epoch in range(cfg.train.epochs):
         t_epoch = time.time()
-        loop.run_epoch(epoch, train_it, to_device, lambda pair, step: (
-            (speaker_train_step if mode == 1 else listener_train_step)(
-                state, *pair, step_generator(seed, step, dev), **kw)[1]))
+        loop.run_epoch(epoch, train_it, to_device, train_step)
         if ((epoch + 1) % check_every != 0 and epoch + 1 < cfg.train.epochs
                 and not loop.done):
             continue
@@ -475,12 +796,17 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
     given). Mode 2: grounding over every description row of
     ``build_lang_batch`` (from ``default_rng(0)``), the evaluator's
     ``acc@k`` named ``ref_iou_rate_k``, ``iou_mean`` and the breakdown
-    keys."""
-    sub = {1: "speaker", 2: "listener"}.get(mode)
-    if sub is None:
-        raise ValueError(f"pipeline validation mode {mode}: 1 or 2")
-    if not hasattr(model, sub):
-        raise ValueError(f"validation mode {mode} needs the {sub}")
+    keys. Mode 3: both on the same detector output (the rows drawn for
+    every batch before either task) and ``combined`` = ``cider`` +
+    ``ref_iou_rate_0.5``."""
+    subs = {1: ("speaker",), 2: ("listener",),
+            3: ("speaker", "listener")}.get(mode)
+    if subs is None:
+        raise ValueError(f"pipeline validation mode {mode}: 1, 2 or 3")
+    for sub in subs:
+        if not hasattr(model, sub):
+            raise ValueError(f"validation mode {mode} needs the {sub}")
+    captions, grounding = mode in (1, 3), mode in (2, 3)
     dev = next(model.parameters()).device
     model.eval()
     emb_t = torch.from_numpy(emb).to(dev)
@@ -494,7 +820,11 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
             det_out = model.run_detector(batch_to_torch(batch_np, dev))
             corners = det_out["proposal_bbox_batched"].cpu().numpy()
             mask = det_out["proposal_batch_mask"].cpu().numpy()
-            if mode == 1:
+            if grounding:
+                lang_np = build_lang_batch(scenes, vocab, chunk,
+                                           cfg.data.max_spk_len, rng_np,
+                                           val_it.spec.max_instances)
+            if captions:
                 data = model.run_speaker(
                     {**det_out, "glove_embeddings": emb_t}, mode="eval")
                 ids = data["lang_cap"].cpu().numpy()
@@ -508,10 +838,7 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
                         scene.scene_id, decode_captions(ids[i], vocab),
                         corners[i], mask[i], gt_c, np.ones(nb),
                         caption_references(scene, n_refs))
-            else:
-                lang_np = build_lang_batch(scenes, vocab, chunk,
-                                           cfg.data.max_spk_len, rng_np,
-                                           val_it.spec.max_instances)
+            if grounding:
                 lang = lang_rows(lang_np, emb, dev)
                 data = model.run_listener(
                     {**det_out, **lang}, emb_t[lang["lang_ids"].long()],
@@ -526,18 +853,22 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
                     unique_multiple=flat["unique_multiple"],
                     object_cat=flat["ref_cat_label"])
 
-    if mode == 2:
+    out: Dict[str, float] = {}
+    if captions:
+        out.update(cap_eval.compute())
+        diag = cap_eval.diagnostics()
+        if diag:
+            out["cap_frac_replaced"] = diag["frac_replaced"]
+            out["cap_assign_iou_mean"] = diag["assign_iou_mean"]
+            out["cider_raw"] = diag["cider_raw"]
+            if diag_path:
+                with open(diag_path, "w") as f:
+                    json.dump(diag, f, indent=1)
+    if grounding:
         # overall acc@K -> the reference's ref_iou_rate_K name; the
         # breakdown keys (unique_/multiple_/others_...) keep their prefix
-        return {f"ref_iou_rate_{k.split('@')[-1]}" if k.startswith("acc@")
-                else k: v for k, v in grd_eval.compute().items()}
-    out = dict(cap_eval.compute())
-    diag = cap_eval.diagnostics()
-    if diag:
-        out["cap_frac_replaced"] = diag["frac_replaced"]
-        out["cap_assign_iou_mean"] = diag["assign_iou_mean"]
-        out["cider_raw"] = diag["cider_raw"]
-        if diag_path:
-            with open(diag_path, "w") as f:
-                json.dump(diag, f, indent=1)
+        out.update({f"ref_iou_rate_{k.split('@')[-1]}" if k.startswith("acc@")
+                    else k: v for k, v in grd_eval.compute().items()})
+    if "cider" in out and "ref_iou_rate_0.5" in out:
+        out["combined"] = out["cider"] + out["ref_iou_rate_0.5"]
     return out

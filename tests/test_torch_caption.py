@@ -9,8 +9,9 @@ inputs made by numpy from a seed, same weights converted from the Flax tree
   (rtol 1e-4), ``add_relation_feat`` (rtol 1e-5).
 - ``CaptionModule`` and ``SpeakerNet`` in eval mode on the fake proposals
   of tests/test_speaker_listener.py: ``lang_cap`` ids equal.
-- Joint RL's modes and beam search raise, as does its task mode (1, 1, 1);
-  the training modes run.
+- The training modes run, joint RL's among them (tests/test_torch_beam.py
+  holds ``rl``, ``rl_tf`` and the beam search to JAX), and task mode
+  (1, 1, 1) is joint RL's.
 """
 
 import os
@@ -246,26 +247,20 @@ def _rows(rng, n=4, t=7):
 
 
 def test_training_path_raises():
-    """Joint RL's modes and beam search raise (queue A item 15); the
-    teacher-forced modes run (tests/test_torch_caption_train.py holds them
-    to JAX), given the target sampler's Gumbel draw."""
+    """The training modes run, joint RL's too: ``rl`` (beam samples and
+    the greedy baseline), ``rl_tf`` on that rollout, and the teacher-forced
+    modes (tests/test_torch_caption_train.py holds them to JAX), given the
+    target sampler's Gumbel draw or a rollout's targets; without either
+    they raise, as does an unknown mode. A pipeline holds the listener
+    beside the speaker and task mode (1, 1, 1) is joint RL's."""
     tm = CaptionModule(num_vocabs=V, sos_id=2, eos_id=3, feat_size=F,
-                       hidden_size=H, use_relation=False)
-    for mode in ("rl", "rl_tf"):
-        with pytest.raises(NotImplementedError, match="queue A item 15"):
-            tm({}, mode=mode)
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        tm.beam_decode()
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        SpeakerNet(V, 2, 3, num_graph_steps=0)({}, mode="rl")
-    # a pipeline holds the listener beside the speaker, but joint
-    # training's task mode (1, 1, 1) raises
+                       hidden_size=H, max_len=MAX_LEN, use_relation=False,
+                       beam_group_size=3)
     joint = PipelineNet(9, dict(m=4, blocks=(1, 2)), no_grounding=False)
     assert hasattr(joint, "speaker") and hasattr(joint, "listener")
     cfg = tcfg.load(TINY_CAPTION)
     cfg.model.no_grounding = False
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        task_mode(cfg)
+    assert task_mode(cfg) == (1, 1, 1)
     data = to_torch(_rows(np.random.default_rng(7)))
     gumbel = torch.from_numpy(np.random.default_rng(8).gumbel(
         size=(4, P)).astype(np.float32))
@@ -277,3 +272,18 @@ def test_training_path_raises():
         assert bool(torch.isfinite(out["lang_cap"]).all())
         with pytest.raises(ValueError, match="Gumbel"):
             tm(data, mode=mode)
+    with torch.no_grad():
+        rl = tm(data, mode="rl", gumbel=gumbel, beam_size=3, sample_topn=2)
+    assert rl["sampled_cap"].shape == (4, 2, MAX_LEN + 1)
+    assert rl["baseline_cap"].shape == (4, MAX_LEN + 2)
+    rollout = {f"{k}_in": rl[k] for k in ("sampled_cap", "baseline_cap",
+                                          "target_ids", "target_ious")}
+    out = tm({**data, **rollout}, mode="rl_tf")
+    assert out["sampled_logps"].requires_grad
+    assert torch.equal(out["target_ids"], rl["target_ids"])
+    with pytest.raises(ValueError, match="mode"):
+        tm(data, mode="sample")
+    with pytest.raises(ValueError, match="group_size"):
+        tm.beam_decode(data["glove_embeddings"], data["bbox_feature"][:, 0],
+                       data["bbox_feature"], data["proposal_batch_mask"], 4,
+                       group_size=3)

@@ -9,7 +9,10 @@ a pretrained pickle and ``train`` on conf/debug/tiny_captioning.yaml
 (mode (1, 1, 0)) loads it and leaves the same layout, validated by cider;
 the listener's stage likewise on conf/debug/tiny_grounding.yaml (mode
 (1, 0, 1)), validated by ``ref_iou_rate_0.5``, resumed, and evaluated by
-``--task grounding``. Without ``--cpu`` and without a GPU every call exits non-zero; the tasks
+``--task grounding``; joint RL's stage (mode (1, 1, 1)) on
+conf/debug/tiny_joint.yaml from the speaker's and the listener's pickles,
+validated by ``combined``, resumed, and evaluated by both tasks. Without
+``--cpu`` and without a GPU every call exits non-zero; the tasks
 and trainers that are not ported raise ``NotImplementedError`` naming
 their ROADMAP item (``--task captioning`` is held in
 tests/test_torch_pipeline.py).
@@ -148,13 +151,6 @@ def test_captioning_train_cli_with_prepared_detector(tmp_path):
 
 
 def test_modes_not_ported_raise(tmp_path):
-    joint = tmp_path / "joint.yaml"
-    joint.write_text(open(os.path.join(
-        ROOT, "conf", "debug", "tiny_grounding.yaml")).read().replace(
-            "no_captioning: true", "no_captioning: false"))
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        train_cli.main(["--config", str(joint), "--cpu", "--folder",
-                        str(tmp_path / "c")])
     cfg_path = tmp_path / "scan.yaml"
     cfg_path.write_text(open(os.path.join(ROOT, TINY)).read()
                         + "  steps_per_dispatch: 4\n")
@@ -204,3 +200,69 @@ def test_grounding_train_resume_and_eval_cli(tmp_path, capsys):
     assert res["checkpoint"] == {"kind": "best", "step": best["step"]}
     for key in ("ref_iou_rate_0.25", "ref_iou_rate_0.5", "iou_mean"):
         assert math.isfinite(res[key]) and 0.0 <= res[key] <= 1.0, key
+
+
+def test_joint_train_resume_and_eval_cli(tmp_path, capsys):
+    """The curriculum's stage 4 in-process: ``prepare_weights`` on a
+    speaker run and a listener run (checkpoints of seeded pipelines at
+    conf/debug/tiny_joint.yaml's widths), joint RL for 2 steps validated by
+    ``combined``, a resume to 3, then ``eval --task captioning`` and
+    ``--task grounding`` on the joint run dir."""
+    from d3net_tpu_torch.params import flax_to_state_dict, init_flax_variables
+    from d3net_tpu_torch.scripts import prepare_weights
+    from d3net_tpu_torch.train import pipeline as tpl
+
+    joint = tcfg.load(os.path.join(ROOT, "conf", "debug", "tiny_joint.yaml"))
+    pre = str(tmp_path / "pretrained")
+    for stage, off, seed in (("speaker", "no_grounding", 5),
+                             ("listener", "no_captioning", 6)):
+        cfg = tcfg.load(os.path.join(ROOT, "conf", "debug",
+                                     "tiny_joint.yaml"))
+        setattr(cfg.model, off, True)
+        run = str(tmp_path / stage)
+        os.makedirs(run)
+        tcfg.save(cfg, os.path.join(run, "config.yaml"))
+        model = tpl.pipeline_from_cfg(cfg, tpl.build_vocab(cfg)[0])
+        model.load_state_dict(flax_to_state_dict(
+            init_flax_variables(model, seed), model))
+        tloop.Checkpointer(run, "cider").save(1, create_train_state(model),
+                                              {"cider": 0.0})
+        prepare_weights.main(["--folder", run, "--name", stage, "--out",
+                              pre])
+    joint.model.pretrained_detector = os.path.join(pre,
+                                                   "speaker_detector.pkl")
+    joint.model.pretrained_speaker = os.path.join(pre, "speaker_speaker.pkl")
+    joint.model.pretrained_listener = os.path.join(pre,
+                                                   "listener_listener.pkl")
+    joint.general.monitor = "val_score/combined"
+    config = str(tmp_path / "joint.yaml")
+    tcfg.save(joint, config)
+    run = str(tmp_path / "run")
+    capsys.readouterr()
+    train_cli.main(["--config", config, "--cpu", "--max_steps", "2",
+                    "--folder", run])
+    out = capsys.readouterr().out
+    for sub in ("detector", "speaker", "listener"):
+        assert f"loaded pretrained {sub} from" in out, sub
+    assert _steps(run) == [(1, "train"), (2, "train"), (2, "val")]
+    best = json.load(open(os.path.join(run, "ckpt_best", "best.json")))
+    assert best["monitor"] == "combined" and best["mode"] == "max"
+    train_cli.main(["--config", config, "--cpu", "--max_steps", "3",
+                    "--folder", run])
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert _steps(run)[3:] == [(3, "train"), (3, "val")]
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    assert all(math.isfinite(v) for r in recs for v in r.values())
+    assert {"train/ttl_rwd", "train/cap_rwd", "train/lis_ref_loss"} <= set(
+        recs[0])
+
+    best = json.load(open(os.path.join(run, "ckpt_best", "best.json")))
+    for task, keys in (("captioning", ("cider", "bleu4", "rouge")),
+                       ("grounding", ("ref_iou_rate_0.25",
+                                      "ref_iou_rate_0.5"))):
+        eval_cli.main(["--folder", run, "--task", task, "--cpu"])
+        res = json.load(open(os.path.join(run, f"eval_{task}.json")))
+        assert res["checkpoint"] == {"kind": "best", "step": best["step"]}
+        for key in keys:
+            assert math.isfinite(res[key]), (task, key)

@@ -10,7 +10,9 @@ greedy decode) on cuda against cpu, its train step (detector trained and
 frozen) on cuda against cpu, and the captioning eval CLI on cuda against
 the same on cpu; the listener (eval and train forward) on cuda against
 cpu, its train step (detector trained and frozen) and the grounding eval
-CLI likewise.
+CLI likewise; joint RL's beam search (the all-ties case too), its train
+step (detector trained and frozen) and the joint train CLI on cuda
+against cpu.
 
 This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -579,3 +581,137 @@ def test_grounding_eval_cli_cuda_matches_cpu(card, tmp_path):
     for k, v in res["cpu"].items():
         if k != "checkpoint":
             np.testing.assert_allclose(res["cuda"][k], v, rtol=1e-4, err_msg=k)
+
+
+def _beam_case(zero_output: bool):
+    """A seeded caption decoder (output layer zeroed: every logit equal)
+    and decoder inputs for 6 rows."""
+    from d3net_tpu_torch.models.caption import CaptionModule
+
+    torch.manual_seed(0)
+    cap = CaptionModule(num_vocabs=40, sos_id=2, eos_id=3, feat_size=32,
+                        hidden_size=64, num_locals=4, max_len=12)
+    with torch.no_grad():
+        for p in cap.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+        if zero_output:
+            cap.cls_fc2.weight.zero_()
+            cap.cls_fc2.bias.zero_()
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn(40, 300, generator=g) * 0.3,
+         torch.randn(6, 32, generator=g), torch.randn(6, 16, 32, generator=g),
+         (torch.rand(6, 16, generator=g) < 0.6).float())
+    return cap, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero_output", [False, True],
+                         ids=["random", "all_ties"])
+@pytest.mark.parametrize("bm,groups", [(3, 1), (3, 3), (6, 3)])
+def test_beam_decode_cuda_matches_cpu(card, zero_output, bm, groups):
+    """``beam_decode`` on cuda against cpu: sequences equal (with every
+    logit equal, the tie rule alone picks), log-probs and scores rtol 1e-4
+    / atol 1e-5; the cuda search makes no host sync."""
+    cap, x = _beam_case(zero_output)
+    out = {}
+    with torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            c = cap.to(dev)
+            args = [a.to(dev) for a in x]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = c.beam_decode(*args, bm, group_size=groups,
+                                    diversity_lambda=0.5)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            out[dev] = [r.cpu() for r in res]
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    for g, c in zip(out["cuda"][1:], out["cpu"][1:]):
+        np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def _tiny_joint_cfg():
+    from d3net_tpu_torch import config
+    from d3net_tpu_torch.checks import joint_parity_config
+
+    return joint_parity_config(config.load(os.path.join(
+        ROOT, "conf", "debug", "tiny_joint.yaml")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [False, True],
+                         ids=["trained_detector", "frozen_detector"])
+def test_joint_step_cuda_matches_cpu(card, freeze):
+    """One mode-3 train step at the tiny joint widths (the published beam,
+    the XE anchor, the same draws) on cuda against cpu: the rollout ids
+    equal (its search without a host sync), then on the cpu's rollout the
+    metrics rtol 1e-4, every gradient 1e-3 / 1e-6 (or within 4x its own
+    one-ulp movement, for under 1% of a tensor), new BN statistics 1e-4 /
+    1e-5, the host scores equal; ``gather_rows`` launched on cuda only
+    (``checks.joint_step_cuda_vs_cpu``, which chip_smoke.py also runs)."""
+    from d3net_tpu_torch.checks import joint_step_case, joint_step_cuda_vs_cpu
+    from d3net_tpu_torch.models.blocks import SubmConv
+    from d3net_tpu_torch.train import pipeline
+
+    cfg = _tiny_joint_cfg()
+    vocab, emb = pipeline.build_vocab(cfg)
+    case = joint_step_case(cfg, vocab, emb, seed=1)
+    report = joint_step_cuda_vs_cpu(cfg, vocab, emb, case, freeze)
+    assert report["ok"], {k: report[k] for k in (
+        "outside_tolerance", "grad_detail", "rollout_ids_equal",
+        "first_difference", "relu_kink_crossings", "grad_max_abs_err")}
+    n_conv = sum(isinstance(m, SubmConv) for m in pipeline.pipeline_from_cfg(
+        cfg, vocab).detector.modules())
+    forward = n_conv + 4
+    assert report["gather_launches_cpu"] == 0
+    assert report["gather_launches_cuda"] == 2 * (
+        forward if freeze else forward + n_conv + n_conv - 1)
+
+
+@pytest.mark.cuda
+def test_joint_train_cli_cuda_matches_cpu(card, tmp_path, monkeypatch):
+    """``python -m d3net_tpu_torch.scripts.train`` on a tiny joint config
+    (SGD, 2 steps and a validation) on cuda and on cpu with the same draws
+    at every step (a case's, as tensors: the devices' generators differ):
+    the train records' losses and rewards rtol 1e-4, the same val keys with
+    ``combined``, and ``gather_rows`` launched on cuda only."""
+    import json
+
+    from d3net_tpu_torch import config
+    from d3net_tpu_torch.checks import joint_step_case, joint_step_kwargs
+    from d3net_tpu_torch.scripts import train as train_cli
+    from d3net_tpu_torch.train import pipeline
+
+    cfg = _tiny_joint_cfg()
+    cfg.general.output_root = str(tmp_path)
+    cfg.general.monitor = "val_score/combined"
+    cfg.train.optim.classname = "SGD"
+    path = str(tmp_path / "joint.yaml")
+    config.save(cfg, path)
+    vocab, emb = pipeline.build_vocab(cfg)
+    case = joint_step_case(cfg, vocab, emb, seed=2)
+    real = pipeline.joint_rl_train_step
+
+    def step(state, *args, **kw):
+        dev = args[0]["point_xyz"].device
+        return real(state, *args[:5], **joint_step_kwargs(case, dev), **kw)
+
+    monkeypatch.setattr(pipeline, "joint_rl_train_step", step)
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        before = gather.gather_rows.launches
+        train_cli.main(["--config", path, "--max_steps", "2", "--folder",
+                        dev] + (["--cpu"] if dev == "cpu" else []))
+        assert (gather.gather_rows.launches > before) == (dev == "cuda")
+        with open(os.path.join(str(tmp_path), dev, "metrics.jsonl")) as f:
+            recs[dev] = [json.loads(line) for line in f if line.strip()]
+    assert [r["step"] for r in recs["cuda"]] == [1, 2, 2]
+    for c, g in zip(recs["cpu"], recs["cuda"]):
+        assert set(c) == set(g) and c["step"] == g["step"]
+        for k, v in c.items():
+            if k.startswith("train/") and k.endswith(("_loss", "rwd")):
+                np.testing.assert_allclose(g[k], v, rtol=1e-4, err_msg=k)
+    assert "val/combined" in recs["cuda"][-1]
