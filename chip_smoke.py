@@ -188,7 +188,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               ``prepare_weights`` on the run phase's detector and on the
               ``spk_train`` and ``lis_train`` run dirs, then the train CLI
               on conf/pointgroup_joint.yaml pointed at those pickles for
-              one epoch of 16 steps (``_stage_train``: per-step times and
+              8 steps, half an epoch (``_stage_train``: per-step times and
               peaks, step 2's 432 gathers, two detector passes with their
               backward, checked bit-exact, one val batch with ``cider``,
               ``ref_iou_rate_0.5`` and ``combined``, the restored state
@@ -202,6 +202,40 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 26. joint_eval — the eval CLI's ``captioning`` and ``grounding`` tasks on
               that run dir, one val batch each: finite metrics, the
               checkpoint stamped, 75 gathers a batch.
+27. enet_parity — ENet's eval forward (light and full layouts, f32) and
+              one ``train_enet`` step (f64, same dropout masks) at tiny
+              size on uniform-noise images, cuda against cpu inside
+              ``device.parity_precision()`` (``checks.enet_cuda_vs_cpu``,
+              shared with the card test).
+28. multiview — the flagship recipe's first two commands in process:
+              ``train_enet`` at its published size (16 scenes x 8
+              frames, 256x328, batch 8) for ENET_STEPS steps, its peak,
+              a step timed alone (``enet_train_step_ms``, CUDA events) and
+              profiled; then ``compute_multiview_features --config
+              conf/flagship_converge.yaml --weights
+              outputs/enet/enet_weights.pkl`` into a temporary store: its
+              24 scenes (140-232k points), seconds a scene split into
+              render, ENet and projection, the share of points seen,
+              finite (N, 128) features.
+29. flagship_train — the train CLI on a copy of
+              conf/flagship_converge.yaml pointed at that store (published
+              widths: 131,072 points, 7 levels, 134 channels, bf16, 128
+              clusters a pass, 16 + 8 scenes, 12 steps a dispatch, 2
+              augmented variants) for SCAN_DISPATCHES dispatches through
+              ``run_detector_training_scan``: ``scan_step_ms`` (the last
+              dispatch's CUDA-event ms / 12) and ``steps_per_sec``, the
+              host syncs of dispatch 2's steps (sync debug "warn") and
+              their call sites, the peak by dispatch (dispatch 1 holds the
+              checked step) and the resident stack's bytes, 216
+              ``gather_rows`` launches every
+              step with step SCAN_CHECKED_STEP's held bit-exact against
+              ``gather_rows_plain`` (their bytes: ``scan_train_bound_ms``),
+              finite losses, the restored state bit-exact, one step
+              profiled (``scan_train_device_ms``).
+30. scannet_eval — ``eval --task detection`` and ``--task scannet`` on
+              that run dir, one val batch each: finite metrics, the
+              checkpoint stamped, the ``split_pred/val`` txt tree, 75
+              gathers a batch.
 
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
@@ -210,7 +244,8 @@ version's and the library call's time (``library_ms``,
 blocks move (``moved_bytes``), and ``gather_rows`` its launches per step
 of the ``run``, ``spk_train``, ``lis_train`` and ``joint_train`` phases
 and per batch of the ``caption`` and ``grounding`` phases, with the three
-train stages' bounds and device times (its ``max_abs_err`` covers every checked
+train stages' bounds and device times, and the same three for the
+``flagship_train`` scan step (its ``max_abs_err`` covers every checked
 gather). The last two
 lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
@@ -238,9 +273,9 @@ import torch
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch.checks import (
-    joint_parity_config, joint_step_case, joint_step_cuda_vs_cpu,
-    joint_step_kw, listener_cuda_vs_cpu, listener_step_case,
-    listener_step_cuda_vs_cpu, randomize, relu_sides, speaker_cuda_vs_cpu,
+    enet_cuda_vs_cpu, joint_parity_config, joint_step_case,
+    joint_step_cuda_vs_cpu, joint_step_kw, listener_cuda_vs_cpu,
+    listener_step_case, listener_step_cuda_vs_cpu, randomize, relu_sides, speaker_cuda_vs_cpu,
     speaker_step_case, speaker_step_cuda_vs_cpu,
 )
 from d3net_tpu_torch.config import save as save_cfg
@@ -309,10 +344,20 @@ LIS_CHECKED_STEP = 2    # the step whose gathers are held to the plain version
 LIS_REPS = 5
 JOINT_CONFIG = os.path.join(ROOT, "conf", "pointgroup_joint.yaml")
 TINY_JOINT_CONFIG = os.path.join(ROOT, "conf", "debug", "tiny_joint.yaml")
-JOINT_STEPS = 16        # one epoch: the joint config's 64 scenes at B=4
+JOINT_STEPS = 8         # half an epoch of the joint config's 64 scenes at
+                        # B=4 (cut from one epoch to keep the smoke near 9
+                        # minutes)
 JOINT_CHECKED_STEP = 2  # the step whose gathers are held to the plain version
 JOINT_REPS = 5
 
+FLAGSHIP_CONFIG = os.path.join(ROOT, "conf", "flagship_converge.yaml")
+ENET_WEIGHTS = os.path.join(ROOT, "outputs", "enet", "enet_weights.pkl")
+ENET_STEPS = 20         # of train_enet's 400 (TRAINING.md's recipe)
+ENET_REPS = 5
+SCAN_DISPATCHES = 3     # of the flagship config's 64 epochs of 8 batches:
+                        # the checked step in the first, the host syncs
+                        # counted in the second, the third timed clean
+SCAN_CHECKED_STEP = 6   # the step (1-based) whose gathers are checked
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
                  cluster_npoint_thre=30, test_npoint_thresh=30,
@@ -2389,6 +2434,349 @@ def phase_joint_eval(run_dir, per_forward):
           "seconds": round(time.time() - t0, 3)})
 
 
+# --------------------------------------------------------------------------
+def phase_enet_parity():
+    """ENet's eval forward (light and full layouts) and one ``train_enet``
+    step at tiny size, cuda against cpu (``checks.enet_cuda_vs_cpu``)."""
+    t0 = time.time()
+    res = enet_cuda_vs_cpu()
+    emit({"phase": "enet_parity", **res,
+          "seconds": round(time.time() - t0, 3)})
+    if not res["ok"]:
+        raise AssertionError(f"enet_parity: {res['outside_tolerance']}")
+
+
+def phase_multiview(root):
+    """The flagship recipe's first two commands as users run them, in
+    process: ``train_enet`` at its published size for ENET_STEPS steps
+    (then a step timed alone), and ``compute_multiview_features --config
+    conf/flagship_converge.yaml --weights outputs/enet/enet_weights.pkl``
+    into a store under ``root``. Returns the store's path."""
+    from d3net_tpu_torch.data.multiview import read_multiview_store
+    from d3net_tpu_torch.models.listener import ListenerDraws
+    from d3net_tpu_torch.scripts import compute_multiview_features as cmf
+    from d3net_tpu_torch.scripts import train_enet
+
+    os.makedirs(root, exist_ok=True)
+    t_phase = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pkl = os.path.join(root, "enet_weights.pkl")
+    t0 = time.time()
+    hist = train_enet.main(["--steps", str(ENET_STEPS), "--output", pkl])
+    torch.cuda.synchronize()
+    enet_main_s = time.time() - t0
+    enet_peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"multiview: train_enet losses {hist}")
+    # one step timed alone at the published batch (8 frames, 256x328)
+    t0 = time.time()
+    colors, labels = train_enet.build_frame_dataset(16, 8, 256, 328)
+    render_s = time.time() - t0
+    model = train_enet.make_model(20, 0, "cuda")
+    opt = train_enet.make_optimizer(model, 1e-3)
+    imgs = torch.from_numpy(colors[:8]).cuda()
+    labs = torch.from_numpy(labels[:8]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    def step():
+        return train_enet.enet_train_step(model, opt, imgs, labs,
+                                          ListenerDraws(gen))
+
+    step_ms = time_ms({"step": step}, ENET_REPS, inner=1)["step"]
+    step_peak = torch.cuda.max_memory_allocated()
+    prof = phase_profile("enet_train_profile", step)
+    enet_fwd_ms = time_ms({"fwd": lambda: model.ENetEncoder_0(
+        imgs, train=False)}, ENET_REPS, inner=1)["fwd"]
+    del model, opt, imgs, labs, colors, labels
+    torch.cuda.empty_cache()
+
+    store_key = os.path.join(root, "multiview_flagship.hdf5")
+    t0 = time.time()
+    report = cmf.main(["--config", FLAGSHIP_CONFIG, "--weights",
+                       ENET_WEIGHTS, "--output", store_key])
+    features_s = time.time() - t0
+    store = os.path.splitext(store_key)[0] + ".mvstore"
+    points, bad = [], []
+    for scene_id, r in report.items():
+        feats = read_multiview_store(store, scene_id)
+        points.append(len(feats))
+        if feats.shape[1] != 128 or not np.isfinite(feats).all():
+            bad.append(scene_id)
+    if bad or len(report) != 24:
+        raise AssertionError(f"multiview: {len(report)} scenes, non-finite "
+                             f"or misshapen features in {bad}")
+    n = len(report)
+    parts = {k: sum(r[k] for r in report.values()) / n
+             for k in ("render_s", "enet_s", "project_s")}
+    emit({"phase": "multiview",
+          "train_enet": {"scenes": 16, "frames": 8, "height": 256,
+                         "width": 328, "batch": 8, "steps": ENET_STEPS,
+                         "losses": [h["loss"] for h in hist],
+                         "pix_acc": [h["acc"] for h in hist],
+                         "main_s": round(enet_main_s, 3),
+                         "peak_bytes": enet_peak,
+                         "allocated_before": base},
+          "frame_render_s": round(render_s, 3),
+          "enet_train_step_ms": step_ms, "enet_train_step_peak": step_peak,
+          "enet_train_launches": sum(r[2] for r in prof),
+          "enet_fwd_ms_8_frames": enet_fwd_ms,
+          "features": {"config": "conf/flagship_converge.yaml",
+                       "weights": "outputs/enet/enet_weights.pkl",
+                       "scenes": n, "frames_per_scene": 8,
+                       "points_min": min(points), "points_max": max(points),
+                       "seconds": round(features_s, 3),
+                       "s_per_scene": features_s / n,
+                       **{f"{k[:-2]}_s_per_scene": v for k, v in
+                          parts.items()},
+                       "seen_share_min": min(r["seen"]
+                                             for r in report.values()),
+                       "seen_share_mean": sum(r["seen"] for r in
+                                              report.values()) / n,
+                       "finite": True},
+          "reduced": [f"train_enet {ENET_STEPS} steps of the recipe's 400"],
+          "seconds": round(time.time() - t_phase, 3)})
+    return store
+
+
+def phase_flagship_train(root, store, per_step, per_forward):
+    """The flagship recipe's third command: the train CLI in process on a
+    copy of conf/flagship_converge.yaml whose ``data.multiview_hdf5`` names
+    the ``multiview`` phase's store, for SCAN_DISPATCHES dispatches of its
+    12 steps (``run_detector_training_scan``). Dispatch times by CUDA
+    events (``scan_step_ms`` from the last dispatch, which nothing
+    instruments), the host syncs of dispatch 2's steps (sync debug "warn")
+    and their call sites, the peak by dispatch and the resident stack's
+    bytes, every step's ``gather_rows`` launches and step
+    SCAN_CHECKED_STEP's gathers held bit-exact, finite losses, a bit-exact
+    restore, then one step profiled. Returns the run dir and the
+    ``kernels`` line's additions."""
+    import warnings
+
+    from d3net_tpu_torch.train import loop
+
+    t_phase = time.time()
+    cfg = load_task_config(FLAGSHIP_CONFIG)
+    cfg.general.output_root = root
+    cfg.data.multiview_hdf5 = store
+    spd = int(cfg.tpu.steps_per_dispatch)
+    steps_n = SCAN_DISPATCHES * spd
+    os.makedirs(root, exist_ok=True)
+    config_path = os.path.join(root, "flagship_converge.yaml")
+    save_cfg(cfg, config_path)
+    run_dir = os.path.join(root, cfg.general.experiment)
+
+    dispatches, states, stacks, per, syncs = [], [], [], [], []
+    sync_sites = {}
+    seen = [0, 0]
+    rec = GatherRecorder(gather, check=True, where="the flagship scan step")
+    real_step, real_stack = loop.detector_train_step, loop.build_scan_stack
+    real_run = loop.run_detector_training_scan
+
+    def step(*a, **kw):
+        seen[1] += 1
+        seen[0] = gather.gather_rows.launches
+        mod = rec if seen[1] == SCAN_CHECKED_STEP else gather
+        sparse_conv.gather, segment.gather = mod, mod
+        count = spd < seen[1] <= 2 * spd
+        try:
+            if count:
+                with warnings.catch_warnings(record=True) as w:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        return real_step(*a, **kw)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                        hits = [x for x in w
+                                if "synchroniz" in str(x.message)]
+                        syncs.append(len(hits))
+                        for x in hits:
+                            site = (f"{os.path.relpath(x.filename, ROOT)}:"
+                                    f"{x.lineno}")
+                            sync_sites[site] = sync_sites.get(site, 0) + 1
+            return real_step(*a, **kw)
+        finally:
+            sparse_conv.gather, segment.gather = gather, gather
+            per.append(gather.gather_rows.launches - seen[0])
+
+    def stack(*a):
+        stacks.append(real_stack(*a))
+        return stacks[-1]
+
+    def on_dispatch(r):
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dispatches.append(r)
+
+    def run(*args, **kw):
+        states.append(real_run(*args, on_dispatch=on_dispatch, **kw))
+        return states[-1]
+
+    loop.detector_train_step, loop.build_scan_stack = step, stack
+    loop.run_detector_training_scan = run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    try:
+        gather.gather_rows.launches = 0  # the main path, counted from here
+        train_cli.main(["--config", config_path, "--max_steps",
+                        str(steps_n)])
+        torch.cuda.synchronize()
+    finally:
+        loop.detector_train_step, loop.build_scan_stack = real_step, \
+            real_stack
+        loop.run_detector_training_scan = real_run
+        sparse_conv.gather, segment.gather = gather, gather
+    run_s = time.time() - t0
+    launches = gather.gather_rows.launches
+    recs = _metrics(run_dir)
+    train = [r for r in recs if "train/total_loss" in r]
+    val = [r for r in recs if "val/total_loss" in r]
+    bad = [(r["step"], k) for r in recs for k, v in r.items()
+           if not math.isfinite(v)]
+    if [r["step"] for r in train] != [spd * (i + 1) for i in
+                                      range(SCAN_DISPATCHES)] \
+            or len(val) != SCAN_DISPATCHES or bad:
+        raise AssertionError(f"flagship_train: metrics {recs}")
+    if len(per) != steps_n or any(n != per_step for n in per):
+        raise AssertionError(f"flagship_train: gather_rows launches per "
+                             f"step {per} (train phase: {per_step})")
+    if launches != sum(per) + SCAN_DISPATCHES * per_forward:
+        raise AssertionError(f"flagship_train: {launches} launches in all")
+    if rec.checked != per_step:
+        raise AssertionError(f"flagship_train: {rec.checked} gathers checked")
+    stack_tree, nb = stacks[0]
+    stack_bytes = sum(t.numel() * t.element_size()
+                      for t in _tensors(stack_tree))
+    state = states[0]
+    saved = _state_copy(state)
+
+    # a fresh state restored from the run dir equals the run's final state
+    o = cfg.train.optim
+    fresh = create_train_state(
+        init_detector(detector_from_cfg(cfg), 1).cuda(), lr=o.lr,
+        optim=o.classname, weight_decay=o.weight_decay,
+        step_epoch=cfg.train.step_epoch, multiplier=cfg.train.multiplier,
+        steps_per_epoch=nb)
+    if Checkpointer(run_dir, "total_loss", "min").restore_last(fresh) is None:
+        raise AssertionError("flagship_train: no checkpoint in the run dir")
+    diff = _first_difference(_state_copy(fresh), saved)
+    if diff is not None:
+        raise AssertionError(f"flagship_train: restored state differs at "
+                             f"{diff}")
+    del fresh, saved
+    torch.cuda.empty_cache()
+
+    # one step of the run's state on stack batch 0, profiled
+    batch0 = loop.stack_batch(stack_tree, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prof = phase_profile("flagship_train_profile", lambda: detector_train_step(
+        state, batch0, gen)[1])
+    gather_dev_ms = sum(r[1] for r in prof if "gather_rows_kernel" in r[0])
+    disp_ms = [r["device_ms"] for r in dispatches]
+    report = {
+        "config": "conf/flagship_converge.yaml",
+        "widths": {"batch": cfg.data.batch_size,
+                   "max_num_point": cfg.data.max_num_point,
+                   "voxel_caps": list(cfg.tpu.voxel_caps),
+                   "levels": len(cfg.model.blocks),
+                   "max_num_instance": cfg.data.max_num_instance,
+                   "in_channels": loop.in_channels_from_cfg(cfg),
+                   "clusters_per_pass": cfg.tpu.clusters_per_pass,
+                   "activation_dtype": cfg.tpu.activation_dtype,
+                   "train_scenes": cfg.data.synthetic.num_scenes,
+                   "val_scenes": cfg.data.synthetic.num_val_scenes,
+                   "steps_per_dispatch": spd,
+                   "augment_variants": cfg.tpu.augment_variants,
+                   "stack_batches": nb,
+                   "conv_impl_requested": cfg.tpu.conv_impl},
+        "features": "the multiview phase's store (outputs/enet/"
+                    "enet_weights.pkl through compute_multiview_features)",
+        "dispatch_device_ms": disp_ms,
+        "dispatch_wall_s": [r["wall_s"] for r in dispatches],
+        "scan_step_ms": disp_ms[-1] / spd,
+        "scan_step_ms_by_dispatch": [ms / spd for ms in disp_ms],
+        "dispatch_roles": ["warm-up, checked step", "host syncs counted",
+                           "timed"],
+        "steps_per_sec": [r["train/steps_per_sec"] for r in train],
+        "host_syncs_per_dispatch": sum(syncs),
+        "host_syncs_by_step": syncs,
+        "host_sync_sites": sync_sites,
+        "readbacks_per_dispatch": 1,
+        "peak_bytes_by_dispatch": [r["peak_bytes"] for r in dispatches],
+        "allocated_before_run": base, "stack_bytes": stack_bytes,
+        "gather_launches": launches, "gather_launches_per_step": per[0],
+        "gathers_checked_exact": rec.checked,
+        "gather_max_abs_err": rec.max_abs_err,
+        "gather_rows_by_dtype_width": rec.rows_by_dtype_width,
+        "gather_bytes_needed": rec.bytes_needed,
+        "scan_train_bound_ms": rec.bytes_needed / HBM_BYTES_PER_S * 1e3,
+        "gather_device_ms": gather_dev_ms,
+        "losses_finite": True,
+        "train": [{k.split("/")[-1]: v for k, v in r.items()} for r in train],
+        "val": [{k.split("/")[-1]: v for k, v in r.items()} for r in val],
+        "restored_bit_exact": ["model", "optimizer", "scheduler", "step"],
+        "run_s": round(run_s, 3),
+        "reduced": [f"{steps_n} steps ({SCAN_DISPATCHES} dispatches) of the "
+                    f"config's {cfg.train.epochs} epochs of {nb} batches "
+                    f"({cfg.train.epochs * nb} steps)",
+                    "features from the committed ENet weights (the recipe "
+                    "retrains them; train_enet is timed for "
+                    f"{ENET_STEPS} steps in the multiview phase)"],
+        "seconds": round(time.time() - t_phase, 3)}
+    emit({"phase": "flagship_train", **report})
+    del state, states[:], stacks[:], stack_tree, batch0
+    torch.cuda.empty_cache()
+    return run_dir, {"scan_train_launches_per_step": per[0],
+                     "scan_train_max_abs_err": rec.max_abs_err,
+                     "scan_train_bound_ms": report["scan_train_bound_ms"],
+                     "scan_train_device_ms": gather_dev_ms}
+
+
+def phase_scannet_eval(run_dir, per_forward):
+    """``eval --task detection`` and ``--task scannet`` on the flagship
+    run dir, one val batch each (``D3NET_VAL_SCENES``): finite metrics,
+    the checkpoint stamped, the txt tree written, 75 gathers a batch."""
+    t0 = time.time()
+    cfg = load_task_config(os.path.join(run_dir, "config.yaml"))
+    out = {}
+    with val_scenes(cfg.data.batch_size):
+        for task, keys in (("detection", ("mAP@0.25", "mAP@0.5", "AR@0.25",
+                                          "AR@0.5")),
+                           ("scannet", ("mIoU", "accuracy", "AP", "AP@50",
+                                        "AP@25"))):
+            gather.gather_rows.launches = 0
+            t1 = time.time()
+            eval_cli.main(["--folder", run_dir, "--task", task])
+            torch.cuda.synchronize()
+            with open(os.path.join(run_dir, f"eval_{task}.json")) as f:
+                res = json.load(f)
+            if not all(math.isfinite(res[k]) for k in keys):
+                raise AssertionError(f"scannet_eval: {task} {res}")
+            if res["checkpoint"].get("kind") not in ("best", "last"):
+                raise AssertionError(f"scannet_eval: checkpoint {res}")
+            if gather.gather_rows.launches != per_forward:
+                raise AssertionError(
+                    f"scannet_eval: {task} ran {gather.gather_rows.launches} "
+                    f"gathers")
+            out[task] = {**{k: res[k] for k in keys},
+                         "checkpoint": res["checkpoint"],
+                         "seconds": round(time.time() - t1, 3)}
+    pred = os.path.join(run_dir, "split_pred", "val")
+    sem = sorted(os.listdir(os.path.join(pred, "semantic")))
+    masks = os.listdir(os.path.join(pred, "instance", "predicted_masks"))
+    if len(sem) != cfg.data.batch_size:
+        raise AssertionError(f"scannet_eval: semantic files {sem}")
+    emit({"phase": "scannet_eval", **out, "semantic_files": len(sem),
+          "instance_masks": len(masks),
+          "reduced": [f"{cfg.data.batch_size} val scenes, one batch, of the "
+                      f"config's {cfg.data.synthetic.num_val_scenes}"],
+          "seconds": round(time.time() - t0, 3)})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2458,6 +2846,12 @@ def main() -> int:
             stage_run_dir(os.path.join(root, "lis"), GROUNDING_CONFIG),
             train["train_launches"], launches)
         phase_joint_eval(joint_run, launches)
+        phase_enet_parity()
+        store = phase_multiview(os.path.join(root, "mv"))
+        flagship_run, scan = phase_flagship_train(
+            os.path.join(root, "flagship"), store, train["train_launches"],
+            launches)
+        phase_scannet_eval(flagship_run, launches)
     kernels[0]["run_launches_per_step"] = run_per_step
     kernels[0]["caption_launches_per_batch"] = caption_launches
     kernels[0]["caption_max_abs_err"] = caption_err
@@ -2466,11 +2860,13 @@ def main() -> int:
     kernels[0].update(spk)
     kernels[0].update(lis)
     kernels[0].update(joint)
+    kernels[0].update(scan)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], caption_err,
                                     spk["spk_train_max_abs_err"],
                                     grounding_err,
                                     lis["lis_train_max_abs_err"],
-                                    joint["joint_train_max_abs_err"])
+                                    joint["joint_train_max_abs_err"],
+                                    scan["scan_train_max_abs_err"])
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

@@ -1,12 +1,12 @@
-"""The speaker, the listener and the joint RL step on cuda against the
-same on cpu, shared by ``chip_smoke.py`` (phases ``caption_parity``,
+"""The speaker, the listener, the joint RL step and ENet on cuda against
+the same on cpu, shared by ``chip_smoke.py`` (phases ``caption_parity``,
 ``spk_train_parity``, ``grounding_parity``, ``lis_train_parity``,
-``joint_parity``) and the card tests
+``joint_parity``, ``enet_parity``) and the card tests
 ``tests/test_torch_cuda.py::test_speaker_cuda_matches_cpu``,
 ``test_speaker_train_step_cuda_matches_cpu``,
 ``test_listener_cuda_matches_cpu``,
-``test_listener_train_step_cuda_matches_cpu`` and
-``test_joint_step_cuda_matches_cpu``.
+``test_listener_train_step_cuda_matches_cpu``,
+``test_joint_step_cuda_matches_cpu`` and ``test_enet_cuda_matches_cpu``.
 
 The greedy decode is a chain of argmaxes: where f32 sums reorder on the
 card, a near-tie can flip a token and the rest of its row with it. So the
@@ -870,3 +870,109 @@ def joint_step_cuda_vs_cpu(cfg, vocab, emb, case: Dict[str, Any],
             "relu_kink_crossings": kinks, "outside_tolerance": bad,
             "gather_launches_cuda": gpu["launches"],
             "gather_launches_cpu": cpu["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# ENet (the multiview encoder) and its train step
+# ---------------------------------------------------------------------------
+
+# the initial block's conv bias only shifts a train-mode BatchNorm's input
+ENET_BN_FED = ("ENetEncoder_0.InitialBlock_0.Conv_0.bias",)
+
+
+def enet_cuda_vs_cpu(shape=(2, 64, 80, 3), classes: int = 20, seed: int = 0,
+                     rtol: float = 1e-4, atol: float = 1e-5,
+                     grad_rtol: float = 1e-3, grad_atol: float = 1e-6
+                     ) -> Dict[str, Any]:
+    """The ENet encoder's eval forward (light and full layouts, random BN
+    statistics, biases and slopes; f32) and one ``train_enet`` step (the
+    same dropout masks, Adam) on cpu and on cuda inside
+    ``device.parity_precision()``: forward outputs, the step's loss,
+    accuracy and new BN statistics within ``rtol``/``atol``, every
+    gradient within ``grad_rtol``/``grad_atol`` (``ENET_BN_FED`` has a zero
+    gradient: both devices under 1e-5 of the largest). ``ok`` when all
+    hold.
+
+    The step runs in float64 on both devices (its f32 loss and accuracy
+    are compared too): in f32 the backward is ill-conditioned where a
+    PReLU input sits within rounding of its kink on these small maps (on
+    the cpu, the f32 step's first conv kernel gradient lands 3.6e-3 off
+    the f64 step's, 0.4% of its largest element, and a one-ulp move of
+    the weights moves it by 9.5e-4). The images are uniform noise, with
+    no ties in the max-pools."""
+    from d3net_tpu_torch.models.enet import ENetEncoder
+    from d3net_tpu_torch.models.listener import ListenerDraws
+    from d3net_tpu_torch.params import (
+        enet_flax_to_state_dict, init_enet_flax_variables,
+    )
+    from d3net_tpu_torch.scripts.train_enet import (
+        enet_train_step, make_model, make_optimizer,
+    )
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, shape).astype(np.float32)
+    labels = rng.integers(-1, classes, (shape[0], shape[1] // 8,
+                                        shape[2] // 8)).astype(np.int32)
+    bad, report = [], {}
+    with device.parity_precision():
+        for full in (False, True):
+            model = ENetEncoder(full)
+            v = randomize(init_enet_flax_variables(model, seed), rng)
+            out = {}
+            for dev in ("cpu", "cuda"):
+                model.load_state_dict(enet_flax_to_state_dict(v, model))
+                model.to(dev).eval()
+                with torch.no_grad():
+                    out[dev] = model(torch.from_numpy(x).to(dev)).cpu().numpy()
+            err = float(np.abs(out["cuda"] - out["cpu"]).max())
+            report[f"forward_{'full' if full else 'light'}_max_abs_err"] = err
+            if not np.allclose(out["cuda"], out["cpu"], rtol=rtol, atol=atol):
+                bad.append(f"forward_{'full' if full else 'light'}")
+
+        masks = None
+        res = {}
+        for run, dev, dtype in (("cpu", "cpu", torch.float64),
+                                ("cuda", "cuda", torch.float64),
+                                ("cpu_f32", "cpu", torch.float32),
+                                ("cuda_f32", "cuda", torch.float32)):
+            model = make_model(classes, seed, "cpu").to(dev, dtype)
+            draws = ListenerDraws(torch.Generator().manual_seed(seed),
+                                  masks)
+            loss, acc = enet_train_step(
+                model, make_optimizer(model, 1e-3),
+                torch.from_numpy(x).to(dev, dtype),
+                torch.from_numpy(labels).to(dev), draws)
+            if masks is None:
+                masks = {k: m.cpu() for k, m in draws.drawn.items()}
+            res[run] = {
+                "loss": float(loss), "acc": float(acc),
+                "grads": {k: v.astype(np.float64) for k, v in flatten(
+                    state_dict_to_flax(model, {
+                        n: p.grad for n, p in model.named_parameters()})[
+                            "params"]).items()},
+                "stats": flatten(state_dict_to_flax(model)["batch_stats"])}
+    cpu, gpu = res["cpu"], res["cuda"]
+    for a, b in (("cuda", "cpu"), ("cuda_f32", "cpu_f32")):
+        for k in ("loss", "acc"):
+            if not np.isclose(res[a][k], res[b][k], rtol=rtol, atol=0):
+                bad.append(f"{a}:{k}")
+    grads_bad, _ = grad_mismatches(gpu["grads"], cpu["grads"], None,
+                                   grad_rtol, grad_atol,
+                                   zero_grads=ENET_BN_FED)
+    bad += [f"grad:{k}" for k in grads_bad]
+    for k, want in cpu["stats"].items():
+        if not np.allclose(gpu["stats"][k], want, rtol=rtol, atol=atol):
+            bad.append(f"bn:{k}")
+    return {"ok": not bad, "shape": list(shape), **report,
+            "step_dtype": "float64",
+            **{f"loss_{r}": res[r]["loss"] for r in res},
+            **{f"acc_{r}": res[r]["acc"] for r in res},
+            "gradients": len(cpu["grads"]),
+            "grad_max_abs_err": max(float(np.abs(gpu["grads"][k] - v).max())
+                                    for k, v in cpu["grads"].items()),
+            "grad_max_abs_err_f32": max(
+                float(np.abs(res["cuda_f32"]["grads"][k] - v).max())
+                for k, v in res["cpu_f32"]["grads"].items()),
+            "bn_max_abs_err": max(float(np.abs(gpu["stats"][k] - v).max())
+                                  for k, v in cpu["stats"].items()),
+            "outside_tolerance": bad}

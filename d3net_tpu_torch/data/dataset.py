@@ -9,8 +9,10 @@ and the C++ host library, releases the GIL). Each batch draws from its own
 generator seeded by ``(seed, epoch, batch)``, so batches do not depend on
 the worker count and equal the JAX package's byte for byte.
 
-``MultiviewAttached`` and ``NpzScenes``' HDF5 multiview option (h5py) are
-not ported.
+Multiview features come from the scene source (the synthetic scenes' noise,
+an npz's own ``multiview``) or from a feature store
+(:mod:`d3net_tpu_torch.data.multiview`, in place of JAX's HDF5) through
+``MultiviewAttached`` or ``NpzScenes(multiview_store=)``.
 """
 
 from __future__ import annotations
@@ -18,11 +20,14 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import replace
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
 from d3net_tpu_torch.data.collate import BatchSpec, build_batch
+from d3net_tpu_torch.data.multiview import (
+    open_multiview_store, read_multiview_store,
+)
 from d3net_tpu_torch.data.synthetic import Scene, make_scene
 from d3net_tpu_torch.utils import transform as T
 
@@ -44,26 +49,57 @@ class SyntheticScenes:
 
 class NpzScenes:
     """ScanNet scenes preprocessed by ``scripts/prepare_scannet.py`` (one
-    npz file each); multiview features only from the npz itself."""
+    npz file each). ``multiview_store`` (a ``data.multiview_hdf5`` value:
+    the store, or the HDF5 path it stands for) attaches per-point ENet
+    features by scene id, in place of the npz's own ``multiview``."""
 
-    def __init__(self, paths: Sequence[str]):
+    def __init__(self, paths: Sequence[str],
+                 multiview_store: Optional[str] = None):
         self.paths = list(paths)
+        self.multiview_store = (open_multiview_store(multiview_store)
+                                if multiview_store else None)
 
     def __len__(self):
         return len(self.paths)
 
     def __getitem__(self, i) -> Scene:
         d = np.load(self.paths[i], allow_pickle=False)
+        scene_id = str(d.get("scene_id", "scan"))
+        mv = d["multiview"] if "multiview" in d else None
+        if self.multiview_store:
+            mv = read_multiview_store(self.multiview_store, scene_id)
         return Scene(
             xyz=d["xyz"],
             rgb=d["rgb"],
             normal=d["normal"],
-            multiview=d["multiview"] if "multiview" in d else None,
+            multiview=mv,
             sem_labels=d["sem_labels"],
             instance_ids=d["instance_ids"],
             instance_bboxes=d["instance_bboxes"],
-            scene_id=str(d.get("scene_id", "scan")),
+            scene_id=scene_id,
         )
+
+
+class MultiviewAttached:
+    """Wrap any scene source, swapping in a feature store's multiview
+    features by scene id (``scripts/compute_multiview_features.py``'s
+    output). ``store`` is a ``data.multiview_hdf5`` value."""
+
+    def __init__(self, scenes, store: str):
+        self.scenes = scenes
+        self.store = open_multiview_store(store)
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def __getitem__(self, i) -> Scene:
+        s = self.scenes[i]
+        mv = read_multiview_store(self.store, s.scene_id)
+        if len(mv) != len(s.xyz):
+            raise ValueError(
+                f"{s.scene_id}: {len(mv)} feature rows in {self.store} for "
+                f"{len(s.xyz)} points (a store of other scenes)")
+        return replace(s, multiview=mv)
 
 
 def augment_scene(scene: Scene, rng: np.random.Generator, *, jitter=True,

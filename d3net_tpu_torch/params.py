@@ -23,6 +23,11 @@ to a ``state_dict`` key by joining with dots. Layout changes:
   ``PReLU`` (``alpha``) stay as they are; the port's modules carry the
   same names (``listener.match.self_attn_0.LayerNorm_0.scale``).
 
+- ENet's 2D ``nn.Conv`` kernel HWIO -> ``Conv2d.weight`` OIHW; its
+  BatchNorm and PReLU leaves stay as they are (``enet_flax_to_state_dict``;
+  ``load_enet_pickle`` reads a pickled tree, ``jax.Array`` leaves
+  included, without JAX).
+
 The conversion fails if any Flax leaf is left unused or any port
 parameter or buffer is left unset. It covers the detector alone
 (``load_detector``) and the pipeline's whole ``{detector, speaker,
@@ -35,6 +40,7 @@ carries optax's ``mu``/``nu``/``count`` into ``exp_avg``/``exp_avg_sq``/
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -45,6 +51,7 @@ from d3net_tpu_torch.data.collate import BatchSpec
 from d3net_tpu_torch.device import DeviceLike, resolve_device
 from d3net_tpu_torch.models.blocks import MaskedBatchNorm, SubmConv
 from d3net_tpu_torch.models.caption import GRUCell
+from d3net_tpu_torch.models.enet import BatchNorm2d, Conv2d, PReLU2d
 from d3net_tpu_torch.models.match import BatchNorm, PReLU
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.models.scorenet import Conv, ConvTranspose
@@ -80,6 +87,8 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
 _T = lambda a: a.T                                          # noqa: E731
 _CONV = lambda a: a.transpose(4, 3, 0, 1, 2)                # noqa: E731
 _CONV_INV = lambda a: a.transpose(2, 3, 4, 1, 0)            # noqa: E731
+_CONV2 = lambda a: a.transpose(3, 2, 0, 1)               # noqa: E731
+_CONV2_INV = lambda a: a.transpose(2, 3, 1, 0)           # noqa: E731
 _CONVT = lambda a: a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)    # noqa: E731
 _CONVT_INV = lambda a: a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]  # noqa: E731
 _SAME = lambda a: a                                         # noqa: E731
@@ -107,8 +116,11 @@ _LEAVES = {
               ("params", _GATES_H, "weight_hh", _STACK_T, _SPLIT_T),
               ("params", "hn.bias", "bias_hn", _SAME, _SAME)],
 }
-# the listener's Flax BatchNorm has MaskedBatchNorm's leaves
-_LEAVES[BatchNorm] = _LEAVES[MaskedBatchNorm]
+# the listener's Flax BatchNorm and ENet's have MaskedBatchNorm's leaves
+_LEAVES[BatchNorm] = _LEAVES[BatchNorm2d] = _LEAVES[MaskedBatchNorm]
+_LEAVES[PReLU2d] = _LEAVES[PReLU]
+_LEAVES[Conv2d] = [("params", "kernel", "weight", _CONV2, _CONV2_INV),
+                   ("params", "bias", "bias", _SAME, _SAME)]
 
 
 def _leaf_modules(model: nn.Module):
@@ -192,7 +204,8 @@ def state_dict_to_flax(model: nn.Module,
             used.add(k)
             value = tensors[k].detach().to("cpu", torch.float32).numpy()
             for leaf, part in zip(leaves, inv(value)):
-                flat[coll][f"{name}{leaf}"] = np.ascontiguousarray(part)
+                # a copy: a CPU tensor's numpy view would follow later steps
+                flat[coll][f"{name}{leaf}"] = np.array(part, order="C")
     left = set(tensors) - used
     if left:
         raise ValueError(f"entries with no Flax leaf: {sorted(left)}")
@@ -238,10 +251,12 @@ def optax_adam_state_to_torch(opt_state: Any, model: nn.Module,
         }
 
 
-def init_flax_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
+def init_flax_variables(model: nn.Module, seed: int,
+                        conv_gain: float = 2.0) -> Dict[str, Any]:
     """Random Flax-layout variables for ``model``, made with numpy.
 
-    Kernels are He-normal for the sparse and dense convs, LeCun-normal for
+    Kernels are He-normal for the sparse and dense convs (``conv_gain``
+    2; 1 is LeCun-normal, Flax's ``nn.Conv`` default), LeCun-normal for
     the Dense layers and a GRU's input gates, orthogonal for its recurrent
     gates (Flax's initializers, untruncated); biases and BN shifts 0, BN
     and LayerNorm scales 1, running mean 0 and var 1, PReLU slopes 0.25 —
@@ -261,7 +276,7 @@ def init_flax_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
                 elif leaf.endswith("kernel"):
                     fan_in = math.prod(shape[:-1])
                     gain = 1.0 if isinstance(mod, (nn.Linear, GRUCell)) \
-                        else 2.0
+                        else conv_gain
                     v = rng.normal(0.0, math.sqrt(gain / fan_in), shape)
                 elif leaf in ("scale", "var"):
                     v = np.ones(shape)
@@ -271,6 +286,58 @@ def init_flax_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
                     v = np.zeros(shape)
                 flat[coll][f"{name}{leaf}"] = v.astype(np.float32)
     return {c: _unflatten(f) for c, f in flat.items()}
+
+
+def enet_flax_to_state_dict(variables: Mapping[str, Any],
+                            model: nn.Module) -> Dict[str, torch.Tensor]:
+    """ENet Flax variables (``ENetEncoder``'s or ``ENetSemantic``'s tree)
+    -> ``model``'s state_dict: HWIO kernels to OIHW, ``scale``/``bias``/
+    ``mean``/``var`` and ``alpha`` as they are."""
+    return flax_to_state_dict(variables, model)
+
+
+def enet_state_dict_to_flax(model: nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`enet_flax_to_state_dict`: numpy Flax trees
+    (the pickle ``compute_multiview_features --weights`` reads)."""
+    return state_dict_to_flax(model)
+
+
+def init_enet_flax_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
+    """Random ENet variables drawn with numpy: LeCun-normal kernels (Flax's
+    ``nn.Conv`` default), zero biases, BN scale 1, PReLU 0.25."""
+    return init_flax_variables(model, seed, conv_gain=1.0)
+
+
+def _jax_array(fun, args, arr_state, aval_state):
+    """``jax._src.array._reconstruct_array`` without JAX: the numpy array
+    the pickled ``jax.Array`` holds."""
+    arr = fun(*args)
+    arr.__setstate__(arr_state)
+    return arr
+
+
+class _NoJaxUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if (module, name) == ("jax._src.array", "_reconstruct_array"):
+            return _jax_array
+        if module.split(".")[0] in ("jax", "jaxlib", "flax"):
+            raise pickle.UnpicklingError(
+                f"{module}.{name}: only jax.Array leaves load without JAX")
+        return super().find_class(module, name)
+
+
+def load_enet_pickle(path: str) -> Dict[str, Any]:
+    """A pickled ENet variable tree, JAX's (``jax.Array`` leaves) or the
+    port's (numpy), as nested dicts of numpy arrays; JAX is not imported."""
+    with open(path, "rb") as f:
+        tree = _NoJaxUnpickler(f).load()
+
+    def to_numpy(t):
+        if isinstance(t, Mapping):
+            return {k: to_numpy(v) for k, v in t.items()}
+        return np.asarray(t)
+
+    return to_numpy(tree)
 
 
 def load_detector(variables: Mapping[str, Any], cfg: Mapping[str, Any],

@@ -1,7 +1,8 @@
 """Eval entry point of the port (the JAX package's ``scripts/eval.py``).
 
     python -m d3net_tpu_torch.scripts.eval --folder <run_dir> \
-        --task detection|captioning|grounding [--set KEY=VALUE ...] [--cpu]
+        --task detection|captioning|grounding|scannet [--set KEY=VALUE ...] \
+        [--cpu]
 
 Reloads the run dir's ``config.yaml``, restores its best checkpoint (else
 its last; with none it warns and evaluates random weights) and runs the
@@ -18,9 +19,14 @@ task's protocol over the val scenes:
   others breakdown, averaged over ``eval.repeat`` runs ->
   ``eval_grounding.json``.
 
-The pipeline tasks' checkpoint must hold the whole pipeline: a
-detector-only one fails to load; a joint RL run's holds both submodules,
-so either task reads its run dir. ``scannet`` is not ported and raises.
+- ``scannet``: the detector's ScanNet-benchmark txt tree under
+  ``split_pred/val`` and its mIoU, accuracy, AP, AP@50 and AP@25 ->
+  ``eval_scannet.json`` (``eval/scannet_eval.py``).
+
+The captioning and grounding tasks' checkpoint must hold the whole
+pipeline: a detector-only one fails to load; a joint RL run's holds both
+submodules, so either task reads its run dir. ``scannet`` reads a
+pipeline's or a detector run's checkpoint.
 
 Each file is stamped with the checkpoint it used. Runs on CUDA unless
 ``--cpu`` is given; without a GPU and without ``--cpu`` it raises.
@@ -41,21 +47,37 @@ from d3net_tpu_torch.device import DeviceLike, resolve_device
 
 
 def restore_for_eval(model: nn.Module, cfg: cfg_lib.Config,
-                     run_dir: str) -> Tuple[object, Dict]:
+                     run_dir: str, detector_alone: bool = False
+                     ) -> Tuple[object, Dict]:
     """``model``'s train state with the run dir's best weights (else its
     last) loaded strictly: (state, checkpoint stamp). With no checkpoint
-    it warns and keeps the model's weights."""
+    it warns and keeps the model's weights. With ``detector_alone``, a
+    checkpoint that holds a detector alone (the detector run loops') loads
+    into the pipeline's ``detector``, and the state is the detector's."""
     from d3net_tpu_torch.train.loop import Checkpointer
     from d3net_tpu_torch.train.trainer import create_train_state
 
-    state = create_train_state(model, lr=cfg.train.optim.lr)
     ckpt = Checkpointer(run_dir, "total_loss", "min")
+    if detector_alone and _holds_detector_alone(ckpt):
+        model = model.detector
+    state = create_train_state(model, lr=cfg.train.optim.lr)
     if ckpt.restore_weights(state) is None:
         print("WARNING: no checkpoint found, evaluating random weights")
         return state, {"kind": "none", "step": -1}
     info = dict(ckpt.restored_from or {})
     print(f"evaluating {info.get('kind')} checkpoint (step {info.get('step')})")
     return state, info
+
+
+def _holds_detector_alone(ckpt) -> bool:
+    """Whether the checkpoint ``restore_weights`` would read (best, else
+    last) is a detector's alone: no ``detector.`` prefix on its keys."""
+    for mgr in (ckpt.best_mgr, ckpt.mgr):
+        step = mgr.latest_step()
+        if step is not None:
+            return not any(k.startswith("detector.")
+                           for k in mgr.restore(step)["model"])
+    return False
 
 
 def _write(run_dir: str, task: str, results: Dict, ckpt_info: Dict) -> None:
@@ -113,9 +135,11 @@ def eval_detection(cfg: cfg_lib.Config, run_dir: str,
     return results
 
 
-def _pipeline_for_eval(cfg: cfg_lib.Config, run_dir: str, dev):
-    """The config's ``PipelineNet`` on ``dev`` with the run dir's weights,
-    its val loader, vocabulary, embeddings and checkpoint stamp."""
+def _pipeline_for_eval(cfg: cfg_lib.Config, run_dir: str, dev,
+                       detector_alone: bool = False):
+    """The config's ``PipelineNet`` on ``dev`` with the run dir's weights
+    (``restore_for_eval``'s ``detector_alone``), its val loader,
+    vocabulary, embeddings and checkpoint stamp."""
     from d3net_tpu_torch.params import flax_to_state_dict, init_flax_variables
     from d3net_tpu_torch.train.loop import make_val_loader, spec_from_cfg
     from d3net_tpu_torch.train.pipeline import build_vocab, pipeline_from_cfg
@@ -126,7 +150,7 @@ def _pipeline_for_eval(cfg: cfg_lib.Config, run_dir: str, dev):
                                              model))
     model.to(dev)
     val_it = make_val_loader(cfg, spec_from_cfg(cfg), return_scenes=True)
-    _, ckpt_info = restore_for_eval(model, cfg, run_dir)
+    _, ckpt_info = restore_for_eval(model, cfg, run_dir, detector_alone)
     return model, val_it, vocab, emb, ckpt_info
 
 
@@ -200,11 +224,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     cfg = cfg_lib.load(os.path.join(args.folder, "config.yaml"))
     apply_overrides(cfg, args.set)
-    if args.task == "scannet":
-        raise NotImplementedError(
-            "--task scannet is not ported (ROADMAP.md, queue A item 16)")
+    from d3net_tpu_torch.eval.scannet_eval import eval_scannet
+
     run = {"detection": eval_detection, "captioning": eval_captioning,
-           "grounding": eval_grounding}[args.task]
+           "grounding": eval_grounding, "scannet": eval_scannet}[args.task]
     run(cfg, args.folder, device)
 
 

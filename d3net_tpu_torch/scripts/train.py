@@ -6,7 +6,9 @@
 The task YAML is merged over ``path.yaml`` beside it, when there is one;
 the run goes to ``general.output_root/<folder or general.experiment>``
 and resumes from its last checkpoint. The detector (task mode (1, 0, 0))
-trains through ``run_detector_training``; the detector with the speaker
+trains through ``run_detector_training``, or with ``tpu.steps_per_dispatch``
+(e.g. conf/flagship_converge.yaml) through ``run_detector_training_scan``;
+the detector with the speaker
 ((1, 1, 0), e.g. conf/pointgroup_captioning.yaml), with the listener
 ((1, 0, 1), e.g. conf/pointgroup_grounding.yaml) or with both by joint
 self-critical RL ((1, 1, 1), conf/pointgroup_joint.yaml), whose
@@ -49,11 +51,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                            args.folder or cfg.general.experiment)
     if task_mode(cfg) == (1, 0, 0):
         if cfg.tpu.get("steps_per_dispatch"):
-            raise NotImplementedError(
-                "tpu.steps_per_dispatch: the scan trainer "
-                "(run_detector_training_scan) is not ported (ROADMAP.md, "
-                "queue A item 19)")
-        from d3net_tpu_torch.train.loop import run_detector_training as run
+            from d3net_tpu_torch.train.loop import (
+                run_detector_training_scan as run,
+            )
+        else:
+            from d3net_tpu_torch.train.loop import run_detector_training as run
     else:
         from d3net_tpu_torch.train.pipeline import run_pipeline_training as run
     run(cfg, run_dir, max_steps=args.max_steps, device=device)

@@ -1,8 +1,9 @@
 """Training orchestration for the detector: epochs, validation,
 checkpoints, logging.
 
-Counterpart of ``d3net_tpu/train/loop.py`` (the non-scan detector loop),
-with the same run-dir layout and semantics:
+Counterpart of ``d3net_tpu/train/loop.py`` (the detector loop and its
+scan trainer, ``run_detector_training_scan``), with the same run-dir
+layout and semantics:
 
 - ``config.yaml`` (the merged config), ``run_meta.json`` (git SHA, config
   hash, time; here also the framework and the conv layout that ran),
@@ -42,7 +43,9 @@ import torch
 
 from d3net_tpu_torch.config import Config, save as save_cfg
 from d3net_tpu_torch.data.collate import CAP_STATS, BatchSpec, batch_to_torch
-from d3net_tpu_torch.data.dataset import BatchIterator, SyntheticScenes
+from d3net_tpu_torch.data.dataset import (
+    BatchIterator, MultiviewAttached, SyntheticScenes,
+)
 from d3net_tpu_torch.device import DeviceLike, resolve_device
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.params import flax_to_state_dict, init_flax_variables
@@ -325,10 +328,6 @@ def init_detector(model: PointGroup, seed: int) -> PointGroup:
 
 
 def _scene_kw(cfg: Config) -> Dict[str, Any]:
-    if cfg.data.get("multiview_hdf5"):
-        raise NotImplementedError(
-            "data.multiview_hdf5: MultiviewAttached (h5py) is not ported "
-            "(ROADMAP.md, queue A item 16)")
     syn = cfg.data.synthetic
     return dict(
         num_instances=syn.num_instances,
@@ -341,18 +340,29 @@ def _scene_kw(cfg: Config) -> Dict[str, Any]:
     )
 
 
+def num_val_scenes(cfg: Config) -> int:
+    """The val split's size: ``D3NET_VAL_SCENES``, else the config's."""
+    syn = cfg.data.synthetic
+    return int(os.environ.get("D3NET_VAL_SCENES", 0)
+               or syn.get("num_val_scenes", 0)
+               or max(2, syn.num_scenes // 8))
+
+
+def scenes_from_cfg(cfg: Config, split: str, num_scenes: int):
+    """The synthetic scenes of ``split``, with the feature store of
+    ``data.multiview_hdf5`` attached when the config names one (as JAX's
+    ``make_dataloaders`` attaches its HDF5)."""
+    scenes = SyntheticScenes(num_scenes, split, **_scene_kw(cfg))
+    store = cfg.data.get("multiview_hdf5")
+    return MultiviewAttached(scenes, store) if store else scenes
+
+
 def make_val_loader(cfg: Config, spec: BatchSpec,
                     return_scenes: bool = False) -> BatchIterator:
     """The val split's iterator alone (the evals need no train scenes,
     which are made when their list is)."""
-    syn = cfg.data.synthetic
-    n_val = int(
-        os.environ.get("D3NET_VAL_SCENES", 0)
-        or syn.get("num_val_scenes", 0)
-        or max(2, syn.num_scenes // 8)
-    )
     return BatchIterator(
-        SyntheticScenes(n_val, "val", **_scene_kw(cfg)), spec,
+        scenes_from_cfg(cfg, "val", num_val_scenes(cfg)), spec,
         cfg.data.batch_size, shuffle=False, augment=False, seed=0,
         drop_last=False, return_scenes=return_scenes,
         workers=int(cfg.data.get("num_workers", 1) or 1),
@@ -360,10 +370,9 @@ def make_val_loader(cfg: Config, spec: BatchSpec,
 
 
 def make_dataloaders(cfg: Config, spec: BatchSpec, return_scenes: bool = False):
-    kw = _scene_kw(cfg)
     tr = cfg.data.transform
     train_it = BatchIterator(
-        SyntheticScenes(cfg.data.synthetic.num_scenes, "train", **kw), spec,
+        scenes_from_cfg(cfg, "train", cfg.data.synthetic.num_scenes), spec,
         cfg.data.batch_size,
         shuffle=True, augment=bool(tr.jitter or tr.flip or tr.rot),
         elastic=bool(cfg.data.get("elastic", False)),
@@ -602,6 +611,146 @@ def run_detector_training(cfg: Config, run_dir: str,
         if loop.done:
             break
     loop.finish()
+    return state
+
+
+SCAN_KEYS = ("total_loss", "semantic_loss", "offset_norm_loss",
+             "offset_dir_loss", "score_loss", "gt_iou_mean")
+
+
+def _stack(batches: List[Any], dev: torch.device, bf16_feats: bool):
+    """numpy batches of one layout -> one tree of (nb, ...) tensors on
+    ``dev`` (``point_feats`` in bf16 when asked)."""
+    first = batches[0]
+    if isinstance(first, dict):
+        return {k: _stack([b[k] for b in batches], dev,
+                          bf16_feats and k == "point_feats")
+                for k in first}
+    if isinstance(first, list):
+        return [_stack([b[i] for b in batches], dev, bf16_feats)
+                for i in range(len(first))]
+    t = torch.from_numpy(np.stack(batches)).to(dev)
+    return t.to(torch.bfloat16) if bf16_feats else t
+
+
+def stack_batch(tree, i: int):
+    """Batch ``i`` of a stacked tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: stack_batch(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [stack_batch(v, i) for v in tree]
+    return tree[i]
+
+
+def build_scan_stack(cfg: Config, train_it: BatchIterator,
+                     dev: torch.device):
+    """The scan trainer's device-resident stack: ``tpu.augment_variants``
+    epochs of ``train_it`` (augmented when the config's transform is on,
+    each epoch seeded by its index) as one tree of (nb, ...) tensors, with
+    ``point_feats`` in bf16 under ``tpu.activation_dtype: bfloat16`` (the
+    model casts it at the voxel scatter anyway). Returns (stack, nb)."""
+    tr = cfg.data.transform
+    aug_on = bool(tr.jitter or tr.flip or tr.rot)
+    n_var = max(1, int(cfg.tpu.get("augment_variants", 4))) if aug_on else 1
+    train_it.augment = aug_on
+    batches = []
+    for e in range(n_var):
+        train_it.epoch = e
+        batches.extend(list(train_it))
+    bf16 = str(cfg.tpu.get("activation_dtype", "")) in ("bfloat16", "bf16")
+    return _stack(batches, dev, bf16), len(batches)
+
+
+def run_detector_training_scan(cfg: Config, run_dir: str,
+                               max_steps: Optional[int] = None,
+                               device: DeviceLike = None,
+                               on_dispatch: Optional[Callable[[Dict], None]]
+                               = None) -> TrainState:
+    """Detector training in dispatches of ``tpu.steps_per_dispatch`` steps
+    (the JAX package's ``run_detector_training_scan``, whose dispatch is
+    one ``lax.scan``), resuming from the run dir's last checkpoint.
+
+    The batches of ``tpu.augment_variants`` epochs live on the device as
+    one stack (:func:`build_scan_stack`); step ``i`` of a dispatch takes
+    batch ``i % nb``, and StepLR counts ``nb`` steps an epoch. Inside a
+    dispatch the host reads nothing back: each step's six ``SCAN_KEYS``
+    metrics go into a device tensor, read once at its end. The train log
+    gets the dispatch's last step with ``steps_per_sec``; then one
+    resident val batch is evaluated, logged and checkpointed. Runs
+    ``max_steps`` or ``train.epochs · nb`` steps, rounded up to a whole
+    dispatch. Each step draws from ``step_generator(manual_seed + 1,
+    step)``, as the eager loop does.
+
+    ``on_dispatch``, if given, is called after each dispatch with its
+    ``step``, ``wall_s`` (the host's clock, the read-back included) and,
+    on CUDA, ``device_ms`` (CUDA events around its steps). Runs on CUDA
+    unless ``device`` says otherwise.
+    """
+    dev = resolve_device(device)
+    os.makedirs(run_dir, exist_ok=True)
+    save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
+    ckpt = Checkpointer(run_dir, cfg.general.monitor.replace("val_loss/", ""),
+                        cfg.general.monitor_mode)
+    spec = spec_from_cfg(cfg)
+    model = init_detector(detector_from_cfg(cfg),
+                          cfg.general.manual_seed).to(dev)
+    train_it, val_it = make_dataloaders(cfg, spec)
+    stack, nb = build_scan_stack(cfg, train_it, dev)
+    state = create_train_state(
+        model, lr=cfg.train.optim.lr, optim=cfg.train.optim.classname,
+        weight_decay=cfg.train.optim.weight_decay,
+        step_epoch=cfg.train.step_epoch, multiplier=cfg.train.multiplier,
+        steps_per_epoch=nb)
+    if ckpt.restore_last(state) is not None:
+        print(f"resumed from step {state.step}")
+    write_run_meta(run_dir, cfg, {
+        "framework": f"torch {torch.__version__}", "device": str(dev),
+        "conv_impl": "gather",
+        "conv_impl_requested": cfg.tpu.get("conv_impl") or "gather"})
+    log_cfg = cfg.get("log")
+    logger = MetricLogger(run_dir, tensorboard=bool(
+        log_cfg is not None and log_cfg.get("tensorboard", False)))
+    logger.begin(state.step)
+
+    lw = tuple(cfg.train.loss_weight[:4])
+    spd = int(cfg.tpu.get("steps_per_dispatch", 64))
+    seed = cfg.general.manual_seed + 1
+    total = max_steps or cfg.train.epochs * nb
+    val_batch = None
+    metrics = torch.empty(spd, len(SCAN_KEYS), device=dev)
+    while state.step < total:
+        t0 = time.perf_counter()
+        if dev.type == "cuda" and on_dispatch is not None:
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+        for i in range(spd):
+            _, m = detector_train_step(
+                state, stack_batch(stack, i % nb),
+                step_generator(seed, state.step, dev), loss_weight=lw)
+            metrics[i] = torch.stack([m[k].float() for k in SCAN_KEYS])
+        if dev.type == "cuda" and on_dispatch is not None:
+            events[1].record()
+        last = dict(zip(SCAN_KEYS, metrics[-1].tolist()))
+        dt = time.perf_counter() - t0
+        last["steps_per_sec"] = spd / dt
+        logger.log(state.step, last, "train")
+        print(f"step {state.step} "
+              + " ".join(f"{k}={v:.4f}" for k, v in last.items()))
+        if on_dispatch is not None:
+            rec = {"step": state.step, "wall_s": dt}
+            if dev.type == "cuda":
+                rec["device_ms"] = events[0].elapsed_time(events[1])
+            on_dispatch(rec)
+
+        # one resident val batch, every dispatch
+        if val_batch is None:
+            val_batch = batch_to_torch(next(iter(val_it)), dev)
+        _, losses = detector_eval_step(state, val_batch)
+        agg = {k: float(v) for k, v in losses.items()}
+        logger.log(state.step, agg, "val")
+        print(f"step {state.step} VAL "
+              + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
+        ckpt.save(state.step, state, agg)
     return state
 
 

@@ -11,10 +11,11 @@ the listener's stage likewise on conf/debug/tiny_grounding.yaml (mode
 (1, 0, 1)), validated by ``ref_iou_rate_0.5``, resumed, and evaluated by
 ``--task grounding``; joint RL's stage (mode (1, 1, 1)) on
 conf/debug/tiny_joint.yaml from the speaker's and the listener's pickles,
-validated by ``combined``, resumed, and evaluated by both tasks. Without
-``--cpu`` and without a GPU every call exits non-zero; the tasks
-and trainers that are not ported raise ``NotImplementedError`` naming
-their ROADMAP item (``--task captioning`` is held in
+validated by ``combined``, resumed, and evaluated by both tasks. The scan
+trainer (``tpu.steps_per_dispatch``) trains through the train CLI, resumes,
+and ``--task scannet`` scores its run dir. Without ``--cpu`` and without a
+GPU every call exits non-zero, ``train_enet`` and
+``compute_multiview_features`` included (``--task captioning`` is held in
 tests/test_torch_pipeline.py).
 """
 
@@ -102,16 +103,27 @@ def test_train_resume_and_eval_cli(tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["train", "eval", "train_captioning",
-                                 "train_grounding", "eval_grounding"])
+                                 "train_grounding", "eval_grounding",
+                                 "eval_scannet", "train_enet",
+                                 "compute_multiview_features"])
 def test_cli_without_cpu_fails_without_gpu(cli, tmp_path):
     run = str(tmp_path / "r")
     config = {"train_captioning": TINY_CAPTION,
               "train_grounding": TINY_GROUNDING}.get(cli, TINY)
-    task = "grounding" if cli == "eval_grounding" else "detection"
-    args = (("--folder", ROOT, "--task", task) if cli.startswith("eval")
-            else ("--config", config, "--max_steps", "1", "--folder", run))
-    out = _run(f"d3net_tpu_torch.scripts.{cli.split('_')[0]}", *args,
-               gpu_hidden=True)
+    module = {"train_enet": "train_enet",
+              "compute_multiview_features": "compute_multiview_features"
+              }.get(cli, cli.split("_")[0])
+    if module == "eval":
+        task = cli.split("_")[1] if "_" in cli else "detection"
+        args = ("--folder", ROOT, "--task", task)
+    elif module == "train":
+        args = ("--config", config, "--max_steps", "1", "--folder", run)
+    else:
+        args = ("--synthetic", "1", "--output", run) \
+            if module == "compute_multiview_features" else (
+                "--scenes", "1", "--frames", "1", "--steps", "1",
+                "--output", os.path.join(run, "enet.pkl"))
+    out = _run(f"d3net_tpu_torch.scripts.{module}", *args, gpu_hidden=True)
     assert out.returncode != 0
     assert "no CUDA device is available" in out.stderr
     assert not os.path.exists(run)
@@ -151,15 +163,36 @@ def test_captioning_train_cli_with_prepared_detector(tmp_path):
 
 
 def test_modes_not_ported_raise(tmp_path):
-    cfg_path = tmp_path / "scan.yaml"
-    cfg_path.write_text(open(os.path.join(ROOT, TINY)).read()
-                        + "  steps_per_dispatch: 4\n")
-    with pytest.raises(NotImplementedError, match="scan trainer"):
-        train_cli.main(["--config", str(cfg_path), "--cpu"])
-    (tmp_path / "config.yaml").write_text(open(os.path.join(ROOT, TINY)).read())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eval_cli.main(["--folder", str(tmp_path), "--task", "scannet",
-                       "--cpu"])
+    """Once the two guards of the unported modes: now the scan trainer
+    (``tpu.steps_per_dispatch``) trains a tiny detector config through the
+    train CLI, a second call resumes it, and ``eval --task scannet`` on its
+    run dir writes the ScanNet txt tree and ``eval_scannet.json``.
+    (conf/debug/tiny_captioning.yaml with the speaker off: a detector run
+    whose config has the keys the eval's pipeline model reads.)"""
+    cfg = tcfg.load(os.path.join(ROOT, TINY_CAPTION))
+    cfg.model.no_captioning = True
+    cfg.general.monitor = "val_loss/total_loss"
+    cfg.general.monitor_mode = "min"
+    cfg.tpu.steps_per_dispatch = 2
+    cfg.tpu.augment_variants = 1
+    cfg_path = str(tmp_path / "scan.yaml")
+    tcfg.save(cfg, cfg_path)
+    run = str(tmp_path / "run")
+    train_cli.main(["--config", cfg_path, "--cpu", "--max_steps", "2",
+                    "--folder", run])
+    train_cli.main(["--config", cfg_path, "--cpu", "--max_steps", "4",
+                    "--folder", run])
+    assert _steps(run) == [(2, "train"), (2, "val"), (4, "train"),
+                           (4, "val")]
+    assert tloop.StepDir(os.path.join(run, "ckpt"), 3).all_steps() == [2, 4]
+    eval_cli.main(["--folder", run, "--task", "scannet", "--cpu"])
+    res = json.load(open(os.path.join(run, "eval_scannet.json")))
+    best = json.load(open(os.path.join(run, "ckpt_best", "best.json")))
+    assert res["checkpoint"] == {"kind": "best", "step": best["step"]}
+    for key in ("mIoU", "accuracy", "AP", "AP@50", "AP@25"):
+        assert math.isfinite(res[key]) and 0.0 <= res[key] <= 1.0, key
+    sem = os.listdir(os.path.join(run, "split_pred", "val", "semantic"))
+    assert len(sem) == tloop.num_val_scenes(cfg)
 
 
 def test_grounding_train_resume_and_eval_cli(tmp_path, capsys):

@@ -12,7 +12,8 @@ the same on cpu; the listener (eval and train forward) on cuda against
 cpu, its train step (detector trained and frozen) and the grounding eval
 CLI likewise; joint RL's beam search (the all-ties case too), its train
 step (detector trained and frozen) and the joint train CLI on cuda
-against cpu.
+against cpu; ENet's forward and train step, the scan trainer and
+``compute_multiview_features`` on cuda against cpu.
 
 This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -715,3 +716,82 @@ def test_joint_train_cli_cuda_matches_cpu(card, tmp_path, monkeypatch):
             if k.startswith("train/") and k.endswith(("_loss", "rwd")):
                 np.testing.assert_allclose(g[k], v, rtol=1e-4, err_msg=k)
     assert "val/combined" in recs["cuda"][-1]
+
+
+@pytest.mark.cuda
+def test_enet_cuda_matches_cpu(card):
+    """ENet's eval forward (both layouts) and one ``train_enet`` step on
+    cuda against cpu (``checks.enet_cuda_vs_cpu``, which ``chip_smoke.py``'s
+    ``enet_parity`` also runs)."""
+    from d3net_tpu_torch.checks import enet_cuda_vs_cpu
+
+    res = enet_cuda_vs_cpu()
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_scan_trainer_cuda_matches_cpu(card, tmp_path, monkeypatch):
+    """Two dispatches of 2 steps of the scan trainer on cuda against the
+    same on cpu, the same fixed cluster jitter and proposal shuffle in
+    every step (the two devices' generators draw different streams):
+    train and val records within rtol 1e-4, ``gather_rows`` launched on
+    cuda in every dispatch."""
+    import json
+
+    from d3net_tpu_torch.train import loop
+
+    cfg = _tiny_run_cfg(tmp_path)
+    cfg.tpu.steps_per_dispatch = 2
+    cfg.tpu.augment_variants = 2
+    rng = np.random.default_rng(11)
+    jitter = rng.random((cfg.data.batch_size, 2 * cfg.tpu.clusters_per_pass,
+                         3)).astype(np.float32)
+    perm = rng.permutation(cfg.model.max_num_proposal)
+    real = loop.detector_train_step
+
+    def step(state, batch, generator=None, **kw):
+        dev = batch["point_mask"].device
+        b = batch["point_mask"].shape[0]
+        return real(state, batch, jitter_u=torch.from_numpy(jitter).to(dev),
+                    proposal_perm=torch.from_numpy(perm).long()[None].expand(
+                        b, -1).to(dev), **kw)
+
+    monkeypatch.setattr(loop, "detector_train_step", step)
+    recs, launches = {}, []
+    for dev in ("cpu", "cuda"):
+        run = str(tmp_path / dev)
+        loop.run_detector_training_scan(
+            cfg, run, max_steps=4, device=dev,
+            on_dispatch=lambda r: launches.append(gather.gather_rows.launches))
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            recs[dev] = [json.loads(line) for line in f if line.strip()]
+    assert launches[0] == launches[1] < launches[2] < launches[3]
+    assert [r["step"] for r in recs["cuda"]] == [2, 2, 4, 4]
+    for c, g in zip(recs["cpu"], recs["cuda"]):
+        assert set(c) == set(g) and c["step"] == g["step"]
+        for k, v in c.items():
+            if k.endswith(("_loss", "gt_iou_mean")):
+                np.testing.assert_allclose(g[k], v, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_compute_multiview_features_cuda_matches_cpu(card, tmp_path):
+    """``compute_multiview_features`` on two small synthetic scenes with the
+    committed ENet weights, ENet on cuda against ENet on cpu: the same
+    scenes and seen masks, features within rtol 1e-4 / atol 1e-5."""
+    from d3net_tpu_torch.data.multiview import read_multiview_store
+    from d3net_tpu_torch.scripts import compute_multiview_features as cmf
+
+    args = ["--synthetic", "2", "--width", "80", "--height", "64",
+            "--weights", os.path.join(ROOT, "outputs", "enet",
+                                      "enet_weights.pkl")]
+    cpu = cmf.main(args + ["--cpu", "--output", str(tmp_path / "cpu.hdf5")])
+    gpu = cmf.main(args + ["--output", str(tmp_path / "cuda.hdf5")])
+    assert sorted(cpu) == sorted(gpu) and len(cpu) == 2
+    for scene_id in cpu:
+        want = read_multiview_store(str(tmp_path / "cpu.mvstore"), scene_id)
+        got = read_multiview_store(str(tmp_path / "cuda.mvstore"), scene_id)
+        np.testing.assert_array_equal(np.any(got != 0, 1),
+                                      np.any(want != 0, 1))
+        assert gpu[scene_id]["seen"] == cpu[scene_id]["seen"] > 0.2
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)

@@ -1,7 +1,7 @@
 """The port stands alone: no module of d3net_tpu_torch, nor chip_smoke.py,
 imports JAX, Flax, optax, the JAX package or the repo's scripts (the probe
 keeps its own copy of what it needs from scripts/pallas_probe.py), nor
-PyYAML, orbax, TensorFlow or h5py, which the card's machine lacks; entry
+PyYAML, orbax, TensorFlow, h5py or PIL, which the card's machine lacks; entry
 points refuse to fall back to the CPU quietly."""
 
 import os
@@ -26,7 +26,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "d3net_tpu", "scripts", "pallas_probe",
-                                    "yaml", "orbax", "tensorflow", "h5py"))
+                                    "yaml", "orbax", "tensorflow", "h5py",
+                                    "PIL"))
 print(json.dumps({{"modules": names, "bad": bad}}))
 """
 
@@ -62,7 +63,14 @@ def test_port_imports_no_jax_flax_or_reference():
                 "d3net_tpu_torch.models.pipeline",
                 "d3net_tpu_torch.eval.capeval",
                 "d3net_tpu_torch.eval.caption_eval",
-                "d3net_tpu_torch.train.pipeline", "d3net_tpu_torch.checks"):
+                "d3net_tpu_torch.train.pipeline", "d3net_tpu_torch.checks",
+                "d3net_tpu_torch.models.enet", "d3net_tpu_torch.data.frames",
+                "d3net_tpu_torch.data.multiview",
+                "d3net_tpu_torch.eval.segmentation",
+                "d3net_tpu_torch.eval.scannet_eval",
+                "d3net_tpu_torch.scripts.train_enet",
+                "d3net_tpu_torch.scripts.compute_multiview_features",
+                "d3net_tpu_torch.scripts.convert_multiview_hdf5"):
         assert mod in res["modules"]
     assert os.path.exists(os.path.join(ROOT, "d3net_tpu_torch", "train",
                                        "__init__.py"))
