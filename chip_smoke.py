@@ -202,12 +202,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 26. joint_eval — the eval CLI's ``captioning`` and ``grounding`` tasks on
               that run dir, one val batch each: finite metrics, the
               checkpoint stamped, 75 gathers a batch.
-27. enet_parity — ENet's eval forward (light and full layouts, f32) and
+27. tools   — the user-facing tools after training, in process on the
+              card (``main([...])``) on that run dir, one val batch of 4
+              scenes: ``benchmark_captioning`` (every scene in the JSON,
+              well-formed entries, the proposals kept at the config's
+              ``TEST_SCORE_THRESH``), ``benchmark_grounding`` (every scene,
+              well-formed entries), ``visualize_captioning`` and
+              ``visualize_grounding`` (every PLY read back through
+              ``utils/ply.read_ply`` with its vertex count), each with its
+              seconds and 75 ``gather_rows`` launches; then
+              ``visualize_scannet --synthetic 2 --pred <dir>`` (numpy).
+28. tools_parity — ``benchmark_captioning`` and ``benchmark_grounding`` on
+              a tiny joint run dir (seeded weights) and ``port_enet_weights
+              --selftest``, cuda against cpu inside
+              ``device.parity_precision()``: captions, classes and ids
+              equal, boxes, scores and the selftest forward within rtol
+              1e-4 / atol 1e-5 (``checks.tools_cuda_vs_cpu``, shared with
+              the card test).
+29. enet_parity — ENet's eval forward (light and full layouts, f32) and
               one ``train_enet`` step (f64, same dropout masks) at tiny
               size on uniform-noise images, cuda against cpu inside
               ``device.parity_precision()`` (``checks.enet_cuda_vs_cpu``,
               shared with the card test).
-28. multiview — the flagship recipe's first two commands in process:
+30. multiview — the flagship recipe's first two commands in process:
               ``train_enet`` at its published size (16 scenes x 8
               frames, 256x328, batch 8) for ENET_STEPS steps, its peak,
               a step timed alone (``enet_train_step_ms``, CUDA events) and
@@ -217,7 +234,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               24 scenes (140-232k points), seconds a scene split into
               render, ENet and projection, the share of points seen,
               finite (N, 128) features.
-29. flagship_train — the train CLI on a copy of
+31. flagship_train — the train CLI on a copy of
               conf/flagship_converge.yaml pointed at that store (published
               widths: 131,072 points, 7 levels, 134 channels, bf16, 128
               clusters a pass, 16 + 8 scenes, 12 steps a dispatch, 2
@@ -232,7 +249,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               ``gather_rows_plain`` (their bytes: ``scan_train_bound_ms``),
               finite losses, the restored state bit-exact, one step
               profiled (``scan_train_device_ms``).
-30. scannet_eval — ``eval --task detection`` and ``--task scannet`` on
+32. scannet_eval — ``eval --task detection`` and ``--task scannet`` on
               that run dir, one val batch each: finite metrics, the
               checkpoint stamped, the ``split_pred/val`` txt tree, 75
               gathers a batch.
@@ -243,11 +260,10 @@ version's and the library call's time (``library_ms``,
 ``library_device_ms``) and the bound; the two rings add the bytes their
 blocks move (``moved_bytes``), and ``gather_rows`` its launches per step
 of the ``run``, ``spk_train``, ``lis_train`` and ``joint_train`` phases
-and per batch of the ``caption`` and ``grounding`` phases, with the three
-train stages' bounds and device times, and the same three for the
-``flagship_train`` scan step (its ``max_abs_err`` covers every checked
-gather). The last two
-lines are
+and per batch of the ``caption``, ``grounding`` and ``tools`` phases, with
+the three train stages' bounds and device times, and the same three for
+the ``flagship_train`` scan step (its ``max_abs_err`` covers every checked
+gather). The last two lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, the script exits non-zero
 and prints no result. It imports nothing of JAX or of the JAX package.
@@ -276,7 +292,7 @@ from d3net_tpu_torch.checks import (
     enet_cuda_vs_cpu, joint_parity_config, joint_step_case,
     joint_step_cuda_vs_cpu, joint_step_kw, listener_cuda_vs_cpu,
     listener_step_case, listener_step_cuda_vs_cpu, randomize, relu_sides, speaker_cuda_vs_cpu,
-    speaker_step_case, speaker_step_cuda_vs_cpu,
+    speaker_step_case, speaker_step_cuda_vs_cpu, tools_cuda_vs_cpu,
 )
 from d3net_tpu_torch.config import save as save_cfg
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
@@ -296,6 +312,10 @@ from d3net_tpu_torch.params import (
     flagship_config, flatten, flax_to_state_dict, init_flax_variables,
     load_detector, load_pipeline, state_dict_to_flax,
 )
+from d3net_tpu_torch.scripts import (
+    benchmark_captioning, benchmark_grounding, visualize_captioning,
+    visualize_grounding, visualize_scannet,
+)
 from d3net_tpu_torch.scripts import eval as eval_cli
 from d3net_tpu_torch.scripts import prepare_weights
 from d3net_tpu_torch.scripts import train as train_cli
@@ -312,6 +332,7 @@ from d3net_tpu_torch.train.trainer import (
     create_train_state, detector_train_step,
 )
 from d3net_tpu_torch.utils.bbox import box_corners
+from d3net_tpu_torch.utils.ply import read_ply
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5
@@ -2435,6 +2456,157 @@ def phase_joint_eval(run_dir, per_forward):
 
 
 # --------------------------------------------------------------------------
+def _ply_vertices(path, want):
+    """The PLY at ``path``, read back through the port's ``read_ply``,
+    must hold ``want`` finite vertices."""
+    v = read_ply(path)["vertex"]
+    if len(v) != want or not np.isfinite(v["x"]).all():
+        raise AssertionError(f"tools: {path} holds {len(v)} vertices, "
+                             f"not {want}")
+
+
+def _box(box, where):
+    if np.shape(box) != (8, 3) or not np.isfinite(box).all():
+        raise AssertionError(f"tools: {where} box {box}")
+
+
+def phase_tools(run_dir, per_forward):
+    """The submission writers and the visualize scripts as users run them
+    (``main([...])``, on the card) on the joint run dir, one val batch of
+    the config's scenes: 75 ``gather_rows`` launches each, every scene in
+    both JSONs with well-formed entries, every PLY read back with its
+    vertex count; then ``visualize_scannet`` on ``--synthetic 2`` with a
+    ``--pred`` dir. Returns the launches a batch (each CLI's, all equal)."""
+    t0 = time.time()
+    cfg = load_task_config(os.path.join(run_dir, "config.yaml"))
+    n = cfg.data.batch_size
+    with val_scenes(n):
+        scenes = {s.scene_id: s for s in make_val_loader(
+            cfg, spec_from_cfg(cfg), return_scenes=True).scenes}
+    if len(scenes) != n:
+        raise AssertionError(f"tools: val scenes {sorted(scenes)}")
+    chunk = int(cfg.data.num_des_per_scene)
+    report = {}
+
+    def run(name, module, args):
+        gather.gather_rows.launches = 0
+        t1 = time.time()
+        with val_scenes(n):
+            res = module.main(["--folder", run_dir] + args)
+        torch.cuda.synchronize()
+        launches = gather.gather_rows.launches
+        if launches != per_forward:
+            raise AssertionError(f"tools: {name} made {launches} "
+                                 f"gather_rows launches, not {per_forward}")
+        report[name] = {"gather_launches": launches,
+                        "seconds": round(time.time() - t1, 3)}
+        return res
+
+    sub = run("benchmark_captioning", benchmark_captioning, [])
+    if sorted(sub) != sorted(scenes):
+        raise AssertionError(f"tools: captioning scenes {sorted(sub)}")
+    for sid, entries in sub.items():
+        for e in entries:
+            words = e["caption"].split()
+            if set(e) != {"caption", "box", "sem_cls", "obj_prob"} \
+                    or words[:1] != ["sos"] or words[-1:] != ["eos"] \
+                    or not 0 <= e["sem_cls"] < cfg.model.num_bbox_class \
+                    or not cfg.test.TEST_SCORE_THRESH < e["obj_prob"] <= 1:
+                raise AssertionError(f"tools: captioning entry {e}")
+            _box(e["box"], sid)
+    report["benchmark_captioning"]["kept_proposals"] = {
+        sid: len(v) for sid, v in sub.items()}
+
+    sub = run("benchmark_grounding", benchmark_grounding, [])
+    if {e["scene_id"] for e in sub} != set(scenes) \
+            or not 0 < len(sub) <= n * chunk:
+        raise AssertionError(f"tools: grounding covers "
+                             f"{sorted({e['scene_id'] for e in sub})}")
+    for e in sub:
+        if set(e) != {"scene_id", "object_id", "bbox"} \
+                or not 0 <= e["object_id"] < cfg.data.max_num_instance:
+            raise AssertionError(f"tools: grounding entry {e}")
+        _box(e["bbox"], e["scene_id"])
+    report["benchmark_grounding"]["entries"] = len(sub)
+
+    out = run("visualize_captioning", visualize_captioning,
+              ["--scenes", str(n)])
+    plys = kept = 0
+    for sid, scene in scenes.items():
+        sdir = os.path.join(out, sid)
+        with open(os.path.join(sdir, "captions.txt")) as f:
+            lines = f.read().splitlines()
+        kept += len(lines)
+        _ply_vertices(os.path.join(sdir, "scene.ply"), len(scene.xyz))
+        boxes = os.path.join(sdir, "pred_boxes.ply")
+        if lines:
+            _ply_vertices(boxes, len(lines) * 12 * 20)
+        plys += 1 + bool(lines)
+    report["visualize_captioning"].update(plys=plys,
+                                          proposals_captioned=kept)
+
+    out = run("visualize_grounding", visualize_grounding,
+              ["--scenes", str(n)])
+    plys = queries = 0
+    for sid, scene in scenes.items():
+        sdir = os.path.join(out, sid)
+        _ply_vertices(os.path.join(sdir, "scene.ply"), len(scene.xyz))
+        with open(os.path.join(sdir, "queries.txt")) as f:
+            rows = [int(line.split()[1].rstrip(":"))
+                    for line in f.read().splitlines()]
+        for c in rows:
+            for side in ("pred", "gt"):
+                _ply_vertices(os.path.join(sdir, f"query{c}_{side}.ply"),
+                              12 * 20)
+        plys += 1 + 2 * len(rows)
+        queries += len(rows)
+    report["visualize_grounding"].update(plys=plys, queries=queries)
+
+    t1 = time.time()
+    vis = os.path.join(os.path.dirname(run_dir), "vis_scannet")
+    pred = os.path.join(vis, "pred")
+    os.makedirs(pred)
+    syn = [make_scene(seed=i) for i in range(2)]
+    np.savez(os.path.join(pred, f"{syn[0].scene_id}.npz"),
+             sem_pred=syn[0].sem_labels, inst_pred=syn[0].instance_ids)
+    visualize_scannet.main(["--synthetic", "2", "--pred", pred, "--output",
+                            os.path.join(vis, "out")])
+    plys = 0
+    for scene, tasks in zip(syn, (5, 3)):
+        names = sorted(f for f in os.listdir(os.path.join(vis, "out"))
+                       if f.startswith(scene.scene_id))
+        if len(names) != tasks:
+            raise AssertionError(f"tools: visualize_scannet wrote {names}")
+        for name in names:
+            _ply_vertices(os.path.join(vis, "out", name), len(scene.xyz))
+        plys += len(names)
+    with open(os.path.join(vis, "out", "index.html")) as f:
+        index = f.read()
+    if not all(s.scene_id in index for s in syn):
+        raise AssertionError("tools: index.html misses a scene")
+    report["visualize_scannet"] = {"plys": plys,
+                                   "seconds": round(time.time() - t1, 3)}
+    emit({"phase": "tools", **report,
+          "test_score_thresh": cfg.test.TEST_SCORE_THRESH,
+          "reduced": [f"{n} val scenes, one batch, of the config's "
+                      f"{max(2, cfg.data.synthetic.num_scenes // 8)}"],
+          "seconds": round(time.time() - t0, 3)})
+    return per_forward
+
+
+def phase_tools_parity(root):
+    """The submission writers on a tiny joint run dir (seeded weights) and
+    ``port_enet_weights``' selftest, cuda against cpu
+    (``checks.tools_cuda_vs_cpu``)."""
+    t0 = time.time()
+    res = tools_cuda_vs_cpu(TINY_JOINT_CONFIG, root)
+    emit({"phase": "tools_parity", **res,
+          "seconds": round(time.time() - t0, 3)})
+    if not res["ok"]:
+        raise AssertionError(f"tools_parity: {res['outside_tolerance']}")
+
+
+# --------------------------------------------------------------------------
 def phase_enet_parity():
     """ENet's eval forward (light and full layouts) and one ``train_enet``
     step at tiny size, cuda against cpu (``checks.enet_cuda_vs_cpu``)."""
@@ -2846,6 +3018,8 @@ def main() -> int:
             stage_run_dir(os.path.join(root, "lis"), GROUNDING_CONFIG),
             train["train_launches"], launches)
         phase_joint_eval(joint_run, launches)
+        tools_launches = phase_tools(joint_run, launches)
+        phase_tools_parity(os.path.join(root, "tools"))
         phase_enet_parity()
         store = phase_multiview(os.path.join(root, "mv"))
         flagship_run, scan = phase_flagship_train(
@@ -2857,6 +3031,7 @@ def main() -> int:
     kernels[0]["caption_max_abs_err"] = caption_err
     kernels[0]["grounding_launches_per_batch"] = grounding_launches
     kernels[0]["grounding_max_abs_err"] = grounding_err
+    kernels[0]["tools_launches_per_batch"] = tools_launches
     kernels[0].update(spk)
     kernels[0].update(lis)
     kernels[0].update(joint)

@@ -1,12 +1,14 @@
-"""The speaker, the listener, the joint RL step and ENet on cuda against
-the same on cpu, shared by ``chip_smoke.py`` (phases ``caption_parity``,
-``spk_train_parity``, ``grounding_parity``, ``lis_train_parity``,
-``joint_parity``, ``enet_parity``) and the card tests
+"""The speaker, the listener, the joint RL step, ENet and the submission
+tools on cuda against the same on cpu, shared by ``chip_smoke.py``
+(phases ``caption_parity``, ``spk_train_parity``, ``grounding_parity``,
+``lis_train_parity``, ``joint_parity``, ``enet_parity``, ``tools_parity``)
+and the card tests
 ``tests/test_torch_cuda.py::test_speaker_cuda_matches_cpu``,
 ``test_speaker_train_step_cuda_matches_cpu``,
 ``test_listener_cuda_matches_cpu``,
 ``test_listener_train_step_cuda_matches_cpu``,
-``test_joint_step_cuda_matches_cpu`` and ``test_enet_cuda_matches_cpu``.
+``test_joint_step_cuda_matches_cpu``, ``test_enet_cuda_matches_cpu`` and
+``test_tools_cuda_matches_cpu``.
 
 The greedy decode is a chain of argmaxes: where f32 sums reorder on the
 card, a near-tie can flip a token and the rest of its row with it. So the
@@ -37,6 +39,7 @@ devices' noise must stay under 1e-5 of the largest gradient.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -975,4 +978,107 @@ def enet_cuda_vs_cpu(shape=(2, 64, 80, 3), classes: int = 20, seed: int = 0,
                 for k, v in res["cpu_f32"]["grads"].items()),
             "bn_max_abs_err": max(float(np.abs(gpu["stats"][k] - v).max())
                                   for k, v in cpu["stats"].items()),
+            "outside_tolerance": bad}
+
+
+def _entries_differ(got: List[Dict], want: List[Dict], equal: Tuple[str, ...],
+                    close: Tuple[str, ...], rtol: float, atol: float
+                    ) -> Tuple[List[str], float]:
+    """Submission entries compared key by key: (what differs, the largest
+    abs error of the ``close`` keys)."""
+    bad, err = [], 0.0
+    if len(got) != len(want):
+        return [f"{len(got)} entries against {len(want)}"], float("inf")
+    for n, (g, w) in enumerate(zip(got, want)):
+        if set(g) != set(w):
+            bad.append(f"{n}: keys {sorted(g)}")
+            continue
+        bad += [f"{n}:{k}" for k in equal if g[k] != w[k]]
+        for k in close:
+            a, b = np.asarray(g[k]), np.asarray(w[k])
+            err = max(err, float(np.abs(a - b).max()))
+            if a.shape != b.shape or not np.allclose(a, b, rtol=rtol,
+                                                     atol=atol):
+                bad.append(f"{n}:{k}")
+    return bad, err
+
+
+def tools_cuda_vs_cpu(config: str, root: str, seed: int = 2,
+                      rtol: float = 1e-4, atol: float = 1e-5
+                      ) -> Dict[str, Any]:
+    """The ScanRefer submission writers and the ENet weight port's
+    selftest, cuda against cpu inside ``device.parity_precision()``: a run
+    dir under ``root`` holds ``config`` (a pipeline with the speaker and
+    the listener) and one checkpoint of seeded weights (nonzero biases and
+    BN statistics); ``benchmark_captioning`` and ``benchmark_grounding``
+    run on it on each device, and ``port_enet_weights.selftest`` on each.
+    Captions, ``sem_cls``, scene and object ids equal, boxes and
+    ``obj_prob`` within ``rtol``/``atol``, the selftest forward likewise;
+    ``gather_rows`` launched on cuda only. ``ok`` when all hold."""
+    from d3net_tpu_torch import config as cfg_lib
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.params import init_flax_variables
+    from d3net_tpu_torch.scripts import (
+        benchmark_captioning, benchmark_grounding, port_enet_weights,
+    )
+    from d3net_tpu_torch.train.loop import Checkpointer
+    from d3net_tpu_torch.train.pipeline import build_vocab, pipeline_from_cfg
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    cfg = cfg_lib.load(config)
+    cfg.general.output_root = root
+    run = os.path.join(root, "tools_parity")
+    os.makedirs(run)
+    cfg_lib.save(cfg, os.path.join(run, "config.yaml"))
+    vocab, _ = build_vocab(cfg)
+    variables = randomize(init_flax_variables(pipeline_from_cfg(cfg, vocab),
+                                              seed),
+                          np.random.default_rng(seed))
+    model = load_pipeline(variables, cfg, vocab, device="cpu")
+    Checkpointer(run, "cider", "max").save(1, create_train_state(model),
+                                           {"cider": 0.0})
+    del model
+    out: Dict[str, Dict[str, Any]] = {}
+    launches: Dict[str, int] = {}
+    with device.parity_precision():
+        for dev in ("cpu", "cuda"):
+            flag = ["--cpu"] if dev == "cpu" else []
+            before = gather.gather_rows.launches
+            out[dev] = {
+                "captioning": benchmark_captioning.main(
+                    ["--folder", run, "--out",
+                     os.path.join(run, f"captioning_{dev}.json")] + flag),
+                "grounding": benchmark_grounding.main(
+                    ["--folder", run, "--out",
+                     os.path.join(run, f"grounding_{dev}.json")] + flag),
+                "enet": port_enet_weights.selftest(dev)}
+            launches[dev] = gather.gather_rows.launches - before
+    cpu, gpu = out["cpu"], out["cuda"]
+    bad = []
+    if list(gpu["captioning"]) != list(cpu["captioning"]):
+        bad.append("captioning scenes")
+    cap_err, n_cap = 0.0, 0
+    for scene, want in cpu["captioning"].items():
+        b, e = _entries_differ(gpu["captioning"].get(scene, []), want,
+                               ("caption", "sem_cls"), ("box", "obj_prob"),
+                               rtol, atol)
+        bad += [f"captioning {scene} {x}" for x in b]
+        cap_err, n_cap = max(cap_err, e), n_cap + len(want)
+    b, grd_err = _entries_differ(gpu["grounding"], cpu["grounding"],
+                                 ("scene_id", "object_id"), ("bbox",),
+                                 rtol, atol)
+    bad += [f"grounding {x}" for x in b]
+    enet_err = float(np.abs(gpu["enet"] - cpu["enet"]).max())
+    if not np.allclose(gpu["enet"], cpu["enet"], rtol=rtol, atol=atol):
+        bad.append("enet selftest forward")
+    if launches["cpu"] != 0 or launches["cuda"] == 0:
+        bad.append(f"gather_rows launches {launches}")
+    return {"ok": not bad, "scenes": len(cpu["captioning"]),
+            "caption_entries": n_cap,
+            "grounding_entries": len(cpu["grounding"]),
+            "captioning_max_abs_err": cap_err,
+            "grounding_max_abs_err": grd_err,
+            "enet_selftest_max_abs_err": enet_err,
+            "gather_launches_cpu": launches["cpu"],
+            "gather_launches_cuda": launches["cuda"],
             "outside_tolerance": bad}

@@ -11,10 +11,11 @@ Parity targets: the COCO-caption ports vendored by the reference in
   over n-grams 1..4, length gaussian penalty (sigma 6), x10 scale
   (``lib/capeval/cider``),
 - ROUGE-L F-measure with beta=1.2 (``lib/capeval/rouge``),
-- METEOR in pure Python (exact and Porter-stem matches), computed only
-  where nltk is importable: without it ``meteor_available()`` is False and
-  the caption evaluator reports 0.0. The reference's meteor-1.5.jar
-  wrapper is not ported.
+- METEOR through the official meteor-1.5.jar where java and the jar exist
+  (:class:`MeteorJar`, the reference wrapper's stdio protocol), else in
+  pure Python (exact and Porter-stem matches). The caption evaluator
+  scores it only where nltk is importable, as the JAX package's does:
+  without nltk ``meteor_available()`` is False and it reports 0.0.
 
 All operate on {key: [sentence strings]} dicts like the originals.
 """
@@ -22,8 +23,11 @@ All operate on {key: [sentence strings]} dicts like the originals.
 from __future__ import annotations
 
 import math
+import os
+import shutil
+import subprocess
 from collections import Counter, defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 def _ngrams(tokens: List[str], n: int) -> Counter:
@@ -264,7 +268,15 @@ def _meteor_segment(cand: List[str], ref: List[str], alpha: float,
 
 def meteor(gts: Dict, cands: Dict, alpha: float = 0.9, beta: float = 3.0,
            gamma: float = 0.5) -> Tuple[float, List[float]]:
-    """Corpus METEOR of the Python scorer (needs nltk)."""
+    """Corpus METEOR: the official jar when :meth:`MeteorJar.maybe` finds
+    one (its scores compare with the reference's), else the Python scorer
+    (needs nltk), whose scores compare only with themselves."""
+    jar = MeteorJar.maybe()
+    if jar is not None:
+        try:
+            return jar.compute_score(gts, cands)
+        finally:
+            jar.close()
     scores = []
     for k in cands.keys():
         cand = cands[k][0].split()
@@ -276,3 +288,66 @@ def meteor(gts: Dict, cands: Dict, alpha: float = 0.9, beta: float = 3.0,
         scores.append(best)
     mean = sum(scores) / max(len(scores), 1)
     return mean, scores
+
+
+class MeteorJar:
+    """meteor-1.5.jar stdio wrapper, protocol-exact with the reference's
+    ``lib/capeval/meteor/meteor.py:12-44``:
+
+      command:  java -jar -Xmx2G <jar> - - -stdio -l en -norm
+      per segment:  "SCORE ||| ref1 ||| ref2 ... ||| candidate" -> stats
+      batch:        "EVAL ||| stats1 ||| stats2 ..." -> per-segment scores,
+                    then the aggregate corpus score.
+
+    Activated when java is on PATH and a jar is found via D3NET_METEOR_JAR
+    or next to this file.  D3NET_METEOR_CMD overrides the full command (the
+    protocol test drives a mock scorer through it). The JAX package's
+    wrapper, line for line; ``close`` also reaps the process.
+    """
+
+    def __init__(self, cmd: List[str], cwd: Optional[str] = None):
+        self.proc = subprocess.Popen(
+            cmd, cwd=cwd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL,
+        )
+
+    @staticmethod
+    def maybe() -> Optional["MeteorJar"]:
+        cmd_override = os.environ.get("D3NET_METEOR_CMD")
+        if cmd_override:
+            return MeteorJar(cmd_override.split())
+        jar = os.environ.get("D3NET_METEOR_JAR") or os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "meteor-1.5.jar"
+        )
+        if not (os.path.exists(jar) and shutil.which("java")):
+            return None
+        return MeteorJar(
+            ["java", "-jar", "-Xmx2G", jar, "-", "-", "-stdio", "-l", "en",
+             "-norm"],
+            cwd=os.path.dirname(jar),
+        )
+
+    def compute_score(self, gts: Dict, cands: Dict) -> Tuple[float, List[float]]:
+        keys = list(cands.keys())
+        eval_line = "EVAL"
+        for k in keys:
+            refs = [r.replace("|||", "").replace("\n", " ") for r in gts[k]]
+            cand = cands[k][0].replace("|||", "").replace("\n", " ")
+            score_line = " ||| ".join(("SCORE", " ||| ".join(refs), cand))
+            self.proc.stdin.write((score_line + "\n").encode())
+            self.proc.stdin.flush()
+            eval_line += " ||| " + self.proc.stdout.readline().decode().strip()
+        self.proc.stdin.write((eval_line + "\n").encode())
+        self.proc.stdin.flush()
+        scores = [float(self.proc.stdout.readline().strip())
+                  for _ in keys]
+        mean = float(self.proc.stdout.readline().strip())
+        return mean, scores
+
+    def close(self) -> None:
+        try:
+            self.proc.stdin.close()
+        except OSError:     # the scorer has already gone
+            pass
+        self.proc.kill()
+        self.proc.wait()

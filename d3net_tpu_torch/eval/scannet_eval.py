@@ -14,7 +14,7 @@ class is its points' majority semantic prediction. The same predictions
 give mIoU and accuracy (``semantic_iou``) and AP, AP@50 and AP@25
 (``InstanceEvaluator``) on the synthetic val split ->
 ``eval_scannet.json``, stamped with the checkpoint. The model comes from
-``scripts.eval._pipeline_for_eval``, which also takes a detector-only
+``scripts.eval.pipeline_for_eval``, which also takes a detector-only
 checkpoint (the detector run loops') into the pipeline's detector.
 """
 
@@ -47,11 +47,11 @@ def eval_scannet(cfg, run_dir: str, device: DeviceLike = None) -> Dict:
     from d3net_tpu_torch.eval.segmentation import (
         InstanceEvaluator, semantic_confusion, semantic_iou,
     )
-    from d3net_tpu_torch.scripts.eval import _pipeline_for_eval, _write
+    from d3net_tpu_torch.scripts.eval import pipeline_for_eval, _write
     from d3net_tpu_torch.utils.nms import nms_matrix
 
     dev = resolve_device(device)
-    model, val_it, _, _, ckpt_info = _pipeline_for_eval(
+    model, val_it, _, _, ckpt_info = pipeline_for_eval(
         cfg, run_dir, dev, detector_alone=True)
     model.eval()
 

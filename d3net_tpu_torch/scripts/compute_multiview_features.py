@@ -54,7 +54,9 @@ def make_encoder(weights_path: Optional[str] = None, seed: int = 0,
 
     dev = resolve_device(device)
     if weights_path:
-        variables = load_enet_pickle(weights_path)
+        # port_enet_weights' pickle also holds a "full": True flag
+        variables = {c: v for c, v in load_enet_pickle(weights_path).items()
+                     if c in ("params", "batch_stats")}
         model = ENetEncoder(full="Bottleneck_21" in variables["params"])
         print(f"loaded ENet weights from {weights_path}")
     else:

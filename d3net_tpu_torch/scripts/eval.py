@@ -135,7 +135,7 @@ def eval_detection(cfg: cfg_lib.Config, run_dir: str,
     return results
 
 
-def _pipeline_for_eval(cfg: cfg_lib.Config, run_dir: str, dev,
+def pipeline_for_eval(cfg: cfg_lib.Config, run_dir: str, dev,
                        detector_alone: bool = False):
     """The config's ``PipelineNet`` on ``dev`` with the run dir's weights
     (``restore_for_eval``'s ``detector_alone``), its val loader,
@@ -160,7 +160,7 @@ def eval_captioning(cfg: cfg_lib.Config, run_dir: str,
     run dir's pipeline."""
     from d3net_tpu_torch.train.pipeline import run_pipeline_validation
 
-    model, val_it, vocab, emb, ckpt_info = _pipeline_for_eval(
+    model, val_it, vocab, emb, ckpt_info = pipeline_for_eval(
         cfg, run_dir, resolve_device(device))
     metrics = run_pipeline_validation(cfg, model, val_it, vocab, emb, mode=1)
     _write(run_dir, "captioning", metrics, ckpt_info)
@@ -173,7 +173,7 @@ def eval_grounding(cfg: cfg_lib.Config, run_dir: str,
     run dir's pipeline, each metric the mean of ``eval.repeat`` runs."""
     from d3net_tpu_torch.train.pipeline import run_pipeline_validation
 
-    model, val_it, vocab, emb, ckpt_info = _pipeline_for_eval(
+    model, val_it, vocab, emb, ckpt_info = pipeline_for_eval(
         cfg, run_dir, resolve_device(device))
     runs: Dict[str, list] = {}
     for _ in range(int(cfg.eval.get("repeat", 1))):

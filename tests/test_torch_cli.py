@@ -14,9 +14,11 @@ conf/debug/tiny_joint.yaml from the speaker's and the listener's pickles,
 validated by ``combined``, resumed, and evaluated by both tasks. The scan
 trainer (``tpu.steps_per_dispatch``) trains through the train CLI, resumes,
 and ``--task scannet`` scores its run dir. Without ``--cpu`` and without a
-GPU every call exits non-zero, ``train_enet`` and
-``compute_multiview_features`` included (``--task captioning`` is held in
-tests/test_torch_pipeline.py).
+GPU every call exits non-zero, ``train_enet``,
+``compute_multiview_features``, the submission writers
+(``benchmark_captioning``, ``benchmark_grounding``), the visualize
+scripts and ``port_enet_weights --selftest`` included (``--task
+captioning`` is held in tests/test_torch_pipeline.py).
 """
 
 import json
@@ -102,18 +104,28 @@ def test_train_resume_and_eval_cli(tmp_path):
     assert set(res) >= {"per_class@0.25", "per_class@0.5"}
 
 
+# the submission and inspection tools: their arguments without --cpu
+TOOLS = {"benchmark_captioning": ("--folder", ROOT),
+         "benchmark_grounding": ("--folder", ROOT),
+         "visualize_captioning": ("--folder", ROOT),
+         "visualize_grounding": ("--folder", ROOT),
+         "port_enet_weights": ("--selftest",)}
+
+
 @pytest.mark.parametrize("cli", ["train", "eval", "train_captioning",
                                  "train_grounding", "eval_grounding",
                                  "eval_scannet", "train_enet",
-                                 "compute_multiview_features"])
+                                 "compute_multiview_features", *TOOLS])
 def test_cli_without_cpu_fails_without_gpu(cli, tmp_path):
     run = str(tmp_path / "r")
     config = {"train_captioning": TINY_CAPTION,
               "train_grounding": TINY_GROUNDING}.get(cli, TINY)
     module = {"train_enet": "train_enet",
               "compute_multiview_features": "compute_multiview_features"
-              }.get(cli, cli.split("_")[0])
-    if module == "eval":
+              }.get(cli, cli if cli in TOOLS else cli.split("_")[0])
+    if module in TOOLS:
+        args = TOOLS[module]
+    elif module == "eval":
         task = cli.split("_")[1] if "_" in cli else "detection"
         args = ("--folder", ROOT, "--task", task)
     elif module == "train":

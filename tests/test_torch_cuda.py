@@ -13,7 +13,9 @@ cpu, its train step (detector trained and frozen) and the grounding eval
 CLI likewise; joint RL's beam search (the all-ties case too), its train
 step (detector trained and frozen) and the joint train CLI on cuda
 against cpu; ENet's forward and train step, the scan trainer and
-``compute_multiview_features`` on cuda against cpu.
+``compute_multiview_features`` on cuda against cpu; the ScanRefer
+submission writers and ``port_enet_weights --selftest`` on cuda against
+cpu.
 
 This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -795,3 +797,19 @@ def test_compute_multiview_features_cuda_matches_cpu(card, tmp_path):
                                       np.any(want != 0, 1))
         assert gpu[scene_id]["seen"] == cpu[scene_id]["seen"] > 0.2
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_tools_cuda_matches_cpu(card, tmp_path):
+    """``benchmark_captioning`` and ``benchmark_grounding`` on one tiny
+    joint run dir (seeded weights), and ``port_enet_weights``' selftest,
+    on cuda against cpu: captions, classes and ids equal, boxes, scores
+    and the selftest forward within rtol 1e-4 / atol 1e-5, ``gather_rows``
+    launched on cuda only (``checks.tools_cuda_vs_cpu``, which
+    ``chip_smoke.py``'s ``tools_parity`` also runs)."""
+    from d3net_tpu_torch.checks import tools_cuda_vs_cpu
+
+    res = tools_cuda_vs_cpu(os.path.join(ROOT, "conf", "debug",
+                                         "tiny_joint.yaml"), str(tmp_path))
+    assert res["ok"], res
+    assert res["caption_entries"] > 0 and res["grounding_entries"] > 0

@@ -70,7 +70,14 @@ def test_port_imports_no_jax_flax_or_reference():
                 "d3net_tpu_torch.eval.scannet_eval",
                 "d3net_tpu_torch.scripts.train_enet",
                 "d3net_tpu_torch.scripts.compute_multiview_features",
-                "d3net_tpu_torch.scripts.convert_multiview_hdf5"):
+                "d3net_tpu_torch.scripts.convert_multiview_hdf5",
+                "d3net_tpu_torch.utils.ply", "d3net_tpu_torch.data.scanrefer",
+                "d3net_tpu_torch.scripts.benchmark_captioning",
+                "d3net_tpu_torch.scripts.benchmark_grounding",
+                "d3net_tpu_torch.scripts.visualize_captioning",
+                "d3net_tpu_torch.scripts.visualize_grounding",
+                "d3net_tpu_torch.scripts.visualize_scannet",
+                "d3net_tpu_torch.scripts.port_enet_weights"):
         assert mod in res["modules"]
     assert os.path.exists(os.path.join(ROOT, "d3net_tpu_torch", "train",
                                        "__init__.py"))

@@ -30,8 +30,9 @@ weights moved by one ulp, on the same rollout and scores, and JAX's moves
 new BN statistics rtol 1e-4 / atol 1e-5.
 
 The detector frozen on GT proposals (``data.requires_gt_mask``) is the
-same step with another detector path: tests/test_torch_joint_training.py
-holds it port-only, as a JAX compile of it would double this file's time.
+same step with another detector path, held to JAX in a file of its own
+(tests/test_torch_joint_gt_proposals.py), as a JAX compile of it would
+double this file's time.
 """
 
 import contextlib
@@ -122,10 +123,12 @@ def setup():
                 case=joint_step_case(cfg, vocab, emb, seed=0))
 
 
-def jax_joint_step(cfg, vocab, emb, case, mp, variables, moved=None):
+def jax_joint_step(cfg, vocab, emb, case, mp, variables, moved=None,
+                   freeze=False):
     """The JAX package's two-phase step on ``case``: (rollout, host scores,
     new state, metrics, and with ``moved`` the gradients of the same step,
-    on the same rollout and scores, from the variables ``moved``)."""
+    on the same rollout and scores, from the variables ``moved``); with
+    ``freeze`` the optimizer masks the detector."""
     from d3net_tpu.data.collate import build_batch
     from d3net_tpu.train import loop as jloop
     from d3net_tpu.train import pipeline_loop as jpl
@@ -148,7 +151,7 @@ def jax_joint_step(cfg, vocab, emb, case, mp, variables, moved=None):
         tx = jpl.make_frozen_optimizer(
             make_optimizer(lr=o.lr, optim=o.classname,
                            weight_decay=o.weight_decay),
-            v["params"], {"detector": False})
+            v["params"], {"detector": freeze})
         return TrainState(step=jnp.zeros((), jnp.int32), params=v["params"],
                           batch_stats=v["batch_stats"],
                           opt_state=tx.init(v["params"]), tx=tx)
@@ -193,8 +196,10 @@ def jax_grads(state):
                                                ).items()}
 
 
-def port_joint_step(cfg, vocab, emb, case, variables, rollout=None):
+def port_joint_step(cfg, vocab, emb, case, variables, rollout=None,
+                    freeze=False):
     model = params.load_pipeline(variables, cfg, vocab, device="cpu")
+    tpl.freeze_submodules(model, {"detector": freeze})
     before = {k: v.clone() for k, v in model.state_dict().items()}
     o = cfg.train.optim
     state = create_train_state(model, lr=o.lr, optim=o.classname,

@@ -168,3 +168,33 @@ def test_load_detector_on_cpu_and_flagship_config():
     assert flag.spec.feat_dim() + 3 == 134
     assert flag.spec.caps() == [131072 >> i for i in range(7)]
     assert flag.model == {"compute_dtype": "bfloat16"}
+
+
+def test_state_dict_to_flax_is_a_copy():
+    """The tree taken before an optimizer step keeps its values after it:
+    no leaf is a view of a parameter or a BN buffer (a CPU tensor's numpy
+    view would follow later steps)."""
+    model = PointGroup(9, m=4, blocks=(1, 2), cluster_blocks=(1, 2))
+    model.load_state_dict(params.flax_to_state_dict(
+        params.init_flax_variables(model, seed=1), model))
+    tree = params.state_dict_to_flax(model)
+    before = {k: v.copy() for k, v in params.flatten(tree).items()}
+    opt = torch.optim.SGD(model.parameters(), lr=0.5)
+    for p in model.parameters():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if buf.is_floating_point():
+                buf.add_(1.0)
+    after = params.flatten(tree)
+    assert list(after) == list(before)
+    for k, v in before.items():
+        np.testing.assert_array_equal(after[k], v, err_msg=k)
+    live = [t.detach().numpy() for t in list(model.parameters())
+            + [b for b in model.buffers() if b.is_floating_point()]]
+    assert not any(np.shares_memory(leaf, t)
+                   for leaf in after.values() for t in live)
+    # the step moved every parameter, so a view would have shown it
+    moved = params.flatten(params.state_dict_to_flax(model))
+    assert all(not np.array_equal(moved[k], v) for k, v in before.items())
