@@ -2,6 +2,13 @@
 """Drive the PyTorch/CUDA port (``d3net_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards N
+
+With ``--cards N`` it runs only the train entry (``scripts.train.train``)
+on conf/pointgroup.yaml for CARDS_STEPS steps on one card and then over N
+cards (one NCCL process a card), after the host's cost of a rank's batch
+build: lines ``cards_collate`` and ``cards_run`` (rank 0's ``iter_time``
+a step, its traced device and NCCL ms a step), then ``nvidia-smi``'s line.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -49,7 +56,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               finite outputs, and the gather launches of one forward
               (counts reset just before).
 8. profile  — device time by kernel and by op over one flagship forward
-              (torch.profiler) and the device's idle share.
+              (torch.profiler), the host's self time by op, and the
+              device's idle share.
 9. kernels  — every gather of that forward replayed through the kernel,
               its plain version and ``torch.index_select`` (the library
               yardstick; the port never calls it); any call whose kernel
@@ -253,6 +261,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               that run dir, one val batch each: finite metrics, the
               checkpoint stamped, the ``split_pred/val`` txt tree, 75
               gathers a batch.
+33. dist    — data-parallel training (``parallel/mesh.py``) in three
+              lines. ``dist_step`` (right after ``train``, on its flagship
+              batch and weights): the detector train step through the
+              distributed path on a one-rank NCCL group against the
+              ``train`` phase's step with no group on the same draws
+              (``checks.world1_group_step``: bit-equal where that step is
+              bit-reproducible; the card's atomic adds make it not, and
+              then within 4x the step's own run-to-run difference,
+              tensor by tensor), its 216 gathers checked exact; then ``dist_step_ms`` (2 warm-up + 5 timed, CUDA
+              events) beside ``train``'s, the all-reduces a step and
+              their device ms in one profiled step, the peak.
+              ``dist_ranks``: two ranks on cuda:0 over gloo (NCCL takes
+              one rank a card) against world size 1 on the card at
+              conf/debug/ widths, TF32 off: the detector step with and
+              without clustering and the mode-3 joint step (rollout ids,
+              host scores, losses), parameters bit-identical across the
+              ranks, every gather of every rank exact
+              (``checks.dist_ranks_on_one_card``), and
+              ``MaskedBatchNorm`` in bf16 at counts bf16 rounds.
+              ``dist_dryrun``: ``parallel/dryrun.py``'s two steps in the
+              same two ranks (one start of the ranks for both), its two
+              lines printed, finite losses.
 
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
@@ -263,7 +293,7 @@ of the ``run``, ``spk_train``, ``lis_train`` and ``joint_train`` phases
 and per batch of the ``caption``, ``grounding`` and ``tools`` phases, with
 the three train stages' bounds and device times, and the same three for
 the ``flagship_train`` scan step (its ``max_abs_err`` covers every checked
-gather). The last two lines are
+gather), and the ``dist_step``'s launches per step. The last two lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, the script exits non-zero
 and prints no result. It imports nothing of JAX or of the JAX package.
@@ -271,6 +301,7 @@ and prints no result. It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import math
@@ -289,10 +320,12 @@ import torch
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch.checks import (
-    enet_cuda_vs_cpu, joint_parity_config, joint_step_case,
+    GatherRecorder, detector_case, dist_ranks_on_one_card, enet_cuda_vs_cpu,
+    joint_parity_config, joint_step_case,
     joint_step_cuda_vs_cpu, joint_step_kw, listener_cuda_vs_cpu,
     listener_step_case, listener_step_cuda_vs_cpu, randomize, relu_sides, speaker_cuda_vs_cpu,
     speaker_step_case, speaker_step_cuda_vs_cpu, tools_cuda_vs_cpu,
+    world1_group_step,
 )
 from d3net_tpu_torch.config import save as save_cfg
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
@@ -308,6 +341,7 @@ from d3net_tpu_torch.models.speaker import expand_to_rows
 from d3net_tpu_torch.models.pointgroup import PointGroup
 from d3net_tpu_torch.ops import native, segment, sparse_conv
 from d3net_tpu_torch.ops import voxelize as vox
+from d3net_tpu_torch.parallel import dryrun
 from d3net_tpu_torch.params import (
     flagship_config, flatten, flax_to_state_dict, init_flax_variables,
     load_detector, load_pipeline, state_dict_to_flax,
@@ -322,8 +356,8 @@ from d3net_tpu_torch.scripts import train as train_cli
 from d3net_tpu_torch.scripts.train import load_task_config
 from d3net_tpu_torch.train import pipeline
 from d3net_tpu_torch.train.loop import (
-    Checkpointer, detector_from_cfg, init_detector, make_val_loader,
-    run_detector_training, spec_from_cfg,
+    Checkpointer, detector_cfg_dict, detector_from_cfg, init_detector,
+    make_dataloaders, make_val_loader, run_detector_training, spec_from_cfg,
 )
 from d3net_tpu_torch.train.losses_slt import (
     caption_loss, grounding_loss, lang_cls_loss,
@@ -346,6 +380,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RUN_CONFIG = os.path.join(ROOT, "conf", "pointgroup.yaml")
 RUN_STEPS = 16          # one epoch: the config's 64 train scenes at B=4
 RUN_RESUME_STEPS = 16   # one more epoch after the resume
+CARDS_STEPS = 10        # --cards: steps of the config's 16-step epoch
+CARDS_PROFILE_STEP = 2  # --cards: rank 0 traces steps 3-5
 COLLATE_BUSY = 0.5      # batch builds in flight, on average, that make a
                         # step one "with collate"
 CAPTION_CONFIG = os.path.join(ROOT, "conf", "pointgroup_captioning.yaml")
@@ -728,49 +764,6 @@ def phase_train_parity():
                              f"{held_bad}")
 
 
-class GatherRecorder:
-    """Stands in for the ``gather`` module inside the ops that call it; the
-    real wrapper (and its launch count) still runs every call. It keeps
-    each call's tensors for the kernel replay, or with ``check`` holds each
-    call's output against the plain version on the same tensors as the
-    call happens (in the backward too) and keeps only a count, the largest
-    error, the rows gathered by dtype and width, and the bytes the calls
-    need (``probe.gather_bytes``: distinct source rows reached, output,
-    index)."""
-
-    def __init__(self, real, check=False, where="the train step"):
-        self.real = real
-        self.check = check
-        self.where = where
-        self.calls = []
-        self.checked = 0
-        self.max_abs_err = 0.0
-        self.rows_by_dtype_width = {}
-        self.bytes_needed = 0
-
-    def gather_rows(self, src, idx):
-        out = self.real.gather_rows(src, idx)
-        if not self.check:
-            self.calls.append((src, idx))
-            return out
-        with torch.no_grad():
-            want = self.real.gather_rows_plain(src.detach(), idx)
-            if out.numel():
-                self.max_abs_err = max(self.max_abs_err, float(
-                    (out.float() - want.float()).abs().max()))
-        if not torch.equal(out, want):
-            raise AssertionError(
-                f"gather {self.checked} of {self.where} ({src.dtype}, width "
-                f"{src.shape[1]}, {idx.numel()} rows): kernel disagrees with "
-                f"the plain version")
-        self.checked += 1
-        key = f"{src.dtype}".replace("torch.", "") + f"x{src.shape[1]}"
-        self.rows_by_dtype_width[key] = (
-            self.rows_by_dtype_width.get(key, 0) + idx.numel())
-        self.bytes_needed += probe_cli.gather_bytes(src, idx, 4 * idx.numel())
-        return out
-
-
 def phase_flagship():
     flag = flagship_config()
     t0 = time.time()
@@ -891,19 +884,24 @@ def phase_profile(name, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    kernels, ops = [], []
+    kernels, ops, host = [], [], []
     for e in prof.key_averages():
         ms = e.self_device_time_total / 1e3
         if ms > 0:
             row = [e.key[:90], round(ms, 3), e.count]
             (kernels if e.device_type == DeviceType.CUDA else ops).append(row)
+        if e.device_type != DeviceType.CUDA and e.self_cpu_time_total > 0:
+            host.append([e.key[:90], round(e.self_cpu_time_total / 1e3, 3),
+                         e.count])
     kernels.sort(key=lambda r: -r[1])
     ops.sort(key=lambda r: -r[1])
+    host.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
     emit({"phase": name, "wall_ms": wall_ms, "device_busy_ms": busy,
           "idle_share": 1.0 - busy / wall_ms,
           "kernel_launches": sum(r[2] for r in kernels),
-          "top_kernels": kernels[:15], "top_ops": ops[:15]})
+          "top_kernels": kernels[:15], "top_ops": ops[:15],
+          "top_host_ms": host[:15]})
     return kernels
 
 
@@ -1042,6 +1040,118 @@ def phase_train(variables, batch):
             "train_bound_ms": rec.bytes_needed / HBM_BYTES_PER_S * 1e3,
             "train_device_ms": sum(r[1] for r in prof
                                    if "gather_rows_kernel" in r[0])}
+
+
+def phase_dist_step(variables, batch, train_step_ms, expected):
+    """Phase ``dist`` (a): the flagship train step through the distributed
+    path on a one-rank NCCL group against the step with no group
+    (``checks.world1_group_step``: bit-equal where that step is
+    reproducible, else within 4x its own run-to-run difference; gathers
+    checked exact); then, with the
+    group still up, its timed steps, the all-reduces a step and their
+    device time in one profiled step, and the peak. Returns the step's
+    gather launches."""
+    flag = flagship_config()
+    dist = torch.distributed
+
+    def timings(state):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+
+        def step():
+            return detector_train_step(state, batch, gen)[1]
+
+        for _ in range(TRAIN_WARMUP):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev_ms = []
+        for _ in range(TRAIN_REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            metrics = step()
+            b.record()
+            torch.cuda.synchronize()
+            ev_ms.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+        calls = {"n": 0, "elements": 0}
+        real = dist.all_reduce
+
+        def counting(t, *a, **k):
+            calls["n"] += 1
+            calls["elements"] += t.numel()
+            return real(t, *a, **k)
+
+        dist.all_reduce = counting
+        try:
+            step()
+            torch.cuda.synchronize()
+        finally:
+            dist.all_reduce = real
+        prof = phase_profile("dist_step_profile", step)
+        return {"ms": ev_ms, "peak": peak, "all_reduces": calls,
+                "all_reduce_device_ms": sum(
+                    r[1] for r in prof if "nccl" in r[0].lower()),
+                "finite": all(np.isfinite(float(v))
+                              for v in metrics.values())}
+
+    res = world1_group_step(variables, flag.model, batch, seed=0,
+                            then=timings)
+    t = res["then"]
+    emit({"phase": "dist_step", "world_size": 1, "backend": "nccl",
+          "bit_equal_to_train_step": res["bit_equal"],
+          "train_step_reproducible": res["step_reproducible"],
+          "compare": {k: {x: v[x] for x in ("ref_vs_ref", "dist_vs_ref")}
+                      | {"tensors_differing": len(v["differ"])}
+                      for k, v in res["compare"].items()},
+          "metrics": res["metrics"],
+          "dist_step_ms": statistics.median(t["ms"]),
+          "dist_step_ms_all": t["ms"],
+          "train_step_ms_same_call": train_step_ms,
+          "all_reduces_per_step": t["all_reduces"]["n"],
+          "all_reduce_elements_per_step": t["all_reduces"]["elements"],
+          "all_reduce_device_ms": t["all_reduce_device_ms"],
+          "max_memory_allocated": t["peak"],
+          "gather_launches_per_step": res["launches"],
+          "gathers_checked_exact": res["checked"]})
+    if not res["ok"]:
+        raise AssertionError(f"the one-rank NCCL step differs from the step "
+                             f"with no group beyond its own run-to-run "
+                             f"differences: {res['compare']}")
+    if res["launches"] != expected or res["checked"] != expected:
+        raise AssertionError(f"dist step: {res['launches']} gather launches "
+                             f"({res['checked']} checked), expected "
+                             f"{expected}")
+    if not t["finite"]:
+        raise AssertionError("dist step: non-finite metrics")
+    return res["launches"]
+
+
+def phase_dist_ranks():
+    """Phase ``dist`` (b) and (c) in one start of two ranks on cuda:0 over
+    gloo: the cross-rank sums against world size 1 on the card
+    (``checks.dist_ranks_on_one_card``), then ``parallel/dryrun.py``'s two
+    steps in the same ranks, its two lines printed."""
+    t0 = time.time()
+    cfg = load_task_config(os.path.join(ROOT, "conf", "debug",
+                                        "tiny_pointgroup.yaml"))
+    train_it, _ = make_dataloaders(cfg, spec_from_cfg(cfg))
+    det = detector_case(detector_cfg_dict(cfg), next(iter(train_it)))
+    jcfg = joint_parity_config(load_task_config(TINY_JOINT_CONFIG))
+    vocab, emb = pipeline.build_vocab(jcfg)
+    res = dist_ranks_on_one_card(
+        det, jcfg, joint_step_case(jcfg, vocab, emb),
+        also=[(dryrun.dryrun_rank, (2, True), {})])
+    also = res.pop("also")
+    emit({"phase": "dist_ranks", "seconds": time.time() - t0, **res})
+    dry = dryrun.report(2, also[0])
+    emit({"phase": "dist_dryrun", "ranks": 2, "backend": "gloo",
+          "det_total_loss": dry["det"]["total_loss"],
+          "joint_loss": dry["joint"]["loss"],
+          "joint_cap_rwd": dry["joint"]["cap_rwd"]})
+    if not res["ok"]:
+        raise AssertionError(f"dist ranks against world 1: "
+                             f"{res['outside_tolerance']}")
 
 
 @contextlib.contextmanager
@@ -2949,11 +3059,91 @@ def phase_scannet_eval(run_dir, per_forward):
           "seconds": round(time.time() - t0, 3)})
 
 
-def main() -> int:
+# ``--cards N``: the train CLI's run on one card and across N cards
+def collate_ms(cfg, world: int, reps: int = 3):
+    """Host ms to build batch 0 of the first epoch for world size 1 (every
+    scene augmented and collated) and for rank 0 of ``world`` ranks (every
+    scene augmented, that rank's rows collated), median of ``reps``."""
+    it, _ = make_dataloaders(cfg, spec_from_cfg(cfg))
+    order = it._order()
+    out = {}
+    for name, w in (("all_rows", 1), (f"rank0_of_{world}", world)):
+        it.rank, it.world = 0, w
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            it._build_one(order, 0)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"build_{name}_ms"] = statistics.median(times)
+    return out
+
+
+def cards_run(root, world: int):
+    """``scripts.train.train`` (the CLI's entry after its arguments) on
+    conf/pointgroup.yaml for CARDS_STEPS steps over ``world`` cards (one
+    in this process with no group; else one NCCL process a card), logging
+    every step: rank 0's ``iter_time`` a step (steps 2.., the traced ones
+    left out) and, from its ``log.profile_step`` trace of the three steps
+    after step CARDS_PROFILE_STEP, the device ms of all kernels and of the
+    NCCL kernels a step."""
+    cfg = run_config(root)
+    cfg.train.log_every_n_steps = 1
+    if cfg.get("log") is None:
+        cfg["log"] = {}
+    cfg.log["profile_step"] = CARDS_PROFILE_STEP
+    run_dir = os.path.join(root, f"cards_{world}")
+    t0 = time.time()
+    train_cli.train(cfg, run_dir, CARDS_STEPS, "cuda", world_size=world)
+    run_s = time.time() - t0
+    recs = [r for r in _metrics(run_dir) if "train/iter_time" in r]
+    if [r["step"] for r in recs] != list(range(1, CARDS_STEPS + 1)) or any(
+            not math.isfinite(v) for r in recs for v in r.values()):
+        raise AssertionError(f"cards {world}: metrics {recs}")
+    traced = range(CARDS_PROFILE_STEP + 1, CARDS_PROFILE_STEP + 4)
+    ms = [r["train/iter_time"] * 1e3 for r in recs
+          if r["step"] > 1 and r["step"] not in traced]
+    with open(os.path.join(run_dir, "profile", "trace.json")) as f:
+        kernels = [e for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"]
+    nccl = [e for e in kernels if "nccl" in e.get("name", "").lower()]
+    with open(os.path.join(run_dir, "run_meta.json")) as f:
+        meta = json.load(f)
+    return {"phase": "cards_run", "world_size": world,
+            "run_meta_world_size": meta.get("world_size"),
+            "global_batch": int(cfg.data.batch_size), "steps": CARDS_STEPS,
+            "step_ms": statistics.median(ms), "step_ms_all": ms,
+            "device_busy_ms_per_step": sum(e["dur"] for e in kernels) / 3e3,
+            "nccl_device_ms_per_step": sum(e["dur"] for e in nccl) / 3e3,
+            "nccl_kernels_per_step": len(nccl) / 3,
+            "train_losses": [r["train/total_loss"] for r in recs],
+            "run_s": run_s}
+
+
+def cards_main(n: int) -> int:
+    """The collate's cost of a rank's rows, then ``cards_run`` on one card
+    and on ``n``; the ``nvidia-smi`` line last."""
+    smi = nvidia_smi_line()
+    with tempfile.TemporaryDirectory(prefix="d3net_cards_") as root:
+        emit({"phase": "cards_collate",
+              **collate_ms(run_config(root), max(n, 2))})
+        for world in sorted({1, n}):
+            emit(cards_run(root, world))
+    print(smi, flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--cards", type=int, default=None,
+                        help="only the train CLI's run on one card and on "
+                             "this many (conf/pointgroup.yaml)")
+    args = parser.parse_args(argv)
+    if args.cards:
+        return cards_main(args.cards)
     t_start = time.time()
     smi = nvidia_smi_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
@@ -2980,6 +3170,8 @@ def main() -> int:
     del calls
     train = phase_train(variables, batch)
     kernels[0].update({k: v for k, v in train.items() if k != "step_ms"})
+    kernels[0]["dist_launches_per_step"] = phase_dist_step(
+        variables, batch, train["step_ms"], train["train_launches"])
     del batch, variables
     torch.cuda.empty_cache()
     phase_host_lib()
@@ -3026,6 +3218,7 @@ def main() -> int:
             os.path.join(root, "flagship"), store, train["train_launches"],
             launches)
         phase_scannet_eval(flagship_run, launches)
+    phase_dist_ranks()
     kernels[0]["run_launches_per_step"] = run_per_step
     kernels[0]["caption_launches_per_batch"] = caption_launches
     kernels[0]["caption_max_abs_err"] = caption_err

@@ -1,5 +1,7 @@
 """The speaker, the listener, the joint RL step, ENet and the submission
-tools on cuda against the same on cpu, shared by ``chip_smoke.py``
+tools on cuda against the same on cpu, and the data-parallel steps' rank
+workers and their comparisons (the end of the file), shared by
+``chip_smoke.py``
 (phases ``caption_parity``, ``spk_train_parity``, ``grounding_parity``,
 ``lis_train_parity``, ``joint_parity``, ``enet_parity``, ``tools_parity``)
 and the card tests
@@ -40,7 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -1082,3 +1084,703 @@ def tools_cuda_vs_cpu(config: str, root: str, seed: int = 2,
             "gather_launches_cpu": launches["cpu"],
             "gather_launches_cuda": launches["cuda"],
             "outside_tolerance": bad}
+
+
+# ---------------------------------------------------------------------------
+# gathers held exact as they run (chip_smoke.py's train phases), and the
+# data-parallel steps: rank workers of ``parallel.mesh.spawn``, shared by
+# tests/test_torch_dist_*.py, tests/test_torch_cuda.py and chip_smoke.py's
+# phase ``dist``. Each runs one rank's share of a step on its rows of a
+# global case; called with no process group it is world size 1 on the
+# whole batch. They live here because a spawned rank imports its target's
+# module (a worker in a test module would bring JAX into every rank).
+# ---------------------------------------------------------------------------
+
+class GatherRecorder:
+    """Stands in for the ``gather`` module inside the ops that call it; the
+    real wrapper (and its launch count) still runs every call. It keeps
+    each call's tensors for the kernel replay, or with ``check`` holds each
+    call's output against the plain version on the same tensors as the
+    call happens (in the backward too) and keeps only a count, the largest
+    error, the rows gathered by dtype and width, and the bytes the calls
+    need (``probe.gather_bytes``: distinct source rows reached, output,
+    index)."""
+
+    def __init__(self, real, check=False, where="the train step"):
+        self.real = real
+        self.check = check
+        self.where = where
+        self.calls = []
+        self.checked = 0
+        self.max_abs_err = 0.0
+        self.rows_by_dtype_width = {}
+        self.bytes_needed = 0
+
+    def gather_rows(self, src, idx):
+        from d3net_tpu_torch.probe import gather_bytes
+
+        out = self.real.gather_rows(src, idx)
+        if not self.check:
+            self.calls.append((src, idx))
+            return out
+        with torch.no_grad():
+            want = self.real.gather_rows_plain(src.detach(), idx)
+            if out.numel():
+                self.max_abs_err = max(self.max_abs_err, float(
+                    (out.float() - want.float()).abs().max()))
+        if not torch.equal(out, want):
+            raise AssertionError(
+                f"gather {self.checked} of {self.where} ({src.dtype}, width "
+                f"{src.shape[1]}, {idx.numel()} rows): kernel disagrees with "
+                f"the plain version")
+        self.checked += 1
+        key = f"{src.dtype}".replace("torch.", "") + f"x{src.shape[1]}"
+        self.rows_by_dtype_width[key] = (
+            self.rows_by_dtype_width.get(key, 0) + idx.numel())
+        self.bytes_needed += gather_bytes(src, idx, 4 * idx.numel())
+        return out
+
+
+@contextlib.contextmanager
+def checked_gathers(where: str):
+    """Every ``gather_rows`` call of the block held bit-exact against the
+    plain version as it runs (a ``GatherRecorder`` with ``check``); yields
+    the recorder."""
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.ops import segment, sparse_conv
+
+    rec = GatherRecorder(gather, check=True, where=where)
+    sparse_conv.gather, segment.gather = rec, rec
+    try:
+        yield rec
+    finally:
+        sparse_conv.gather, segment.gather = gather, gather
+
+
+# tests/test_parallel.py's model, batch layout and scenes
+DP_CFG = dict(m=4, blocks=(1, 2), cluster_blocks=(1, 2), clusters_per_pass=8,
+              max_num_proposal=8, cluster_npoint_thre=30,
+              test_npoint_thresh=30, test_score_thresh=0.0, cluster_ring=1,
+              cluster_cell_size=0.03, cluster_prop_iters=4)
+DP_SCENE = dict(num_instances=3, density=3000.0, size_range=(0.25, 0.5),
+                floor_points=500, room=3.0)
+DP_SPEC = dict(max_points=1024, voxel_caps=[1024, 512], max_instances=8,
+               use_multiview=False)
+
+
+def detector_case(cfg: Dict[str, Any], batch_np: Dict[str, Any],
+                  seed: int = 0) -> Dict[str, Any]:
+    """One detector train step's inputs (numpy) on a global batch: the
+    ``PointGroup`` keyword arguments ``cfg``, Flax-initialised weights from
+    ``seed`` with nonzero biases and BN statistics, the global batch's
+    cluster jitter and one proposal permutation shared by its scenes."""
+    from d3net_tpu_torch.models.pointgroup import PointGroup
+    from d3net_tpu_torch.params import init_flax_variables
+
+    rng = np.random.default_rng(seed)
+    in_ch = batch_np["point_feats"].shape[-1] + 3 * bool(
+        cfg.get("use_coords", True))
+    b = batch_np["point_mask"].shape[0]
+    return {"cfg": dict(cfg), "batch": batch_np,
+            "variables": randomize(init_flax_variables(
+                PointGroup(in_ch, **cfg), seed), rng),
+            "jitter": rng.random((b, 2 * cfg["clusters_per_pass"], 3)
+                                 ).astype(np.float32),
+            "perm": rng.permutation(cfg["max_num_proposal"]
+                                    ).astype(np.int64)}
+
+
+def detector_dp_case(b: int, seed: int = 0) -> Dict[str, Any]:
+    """``detector_case`` at tests/test_parallel.py's model on its batch of
+    ``b`` synthetic scenes (seeds 0..b-1)."""
+    from d3net_tpu_torch.data.collate import BatchSpec, build_batch
+    from d3net_tpu_torch.data.synthetic import make_scene
+
+    scenes = [make_scene(seed=i, **DP_SCENE) for i in range(b)]
+    return detector_case(DP_CFG, build_batch(scenes, BatchSpec(**DP_SPEC)),
+                         seed)
+
+
+def _rank_device(dev) -> torch.device:
+    if dev is not None:
+        return torch.device(dev)
+    return (torch.device("cuda", torch.cuda.current_device())
+            if torch.cuda.is_available() else torch.device("cpu"))
+
+
+def _parity(dev: torch.device):
+    """TF32 off on the card (``device.parity_precision``): worlds compared
+    there differ by summation order alone."""
+    return (device.parity_precision() if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _state_arrays(model) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def _grad_arrays(model) -> Dict[str, np.ndarray]:
+    return {n: p.grad.detach().cpu().numpy()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def detector_step_rank(case: Dict[str, Any], do_clustering: bool = True,
+                       optim: str = "SGD", dev=None,
+                       check_gathers: bool = False) -> Dict[str, Any]:
+    """This rank's ``detector_train_step`` of ``case`` (``detector_case``)
+    on its rows, with the case's global draws, at lr 1e-3 (the JAX dp
+    test's optimizer): the global metrics, the summed gradients, the
+    parameters and BN statistics after the step, and the cluster ids and
+    proposal slots of a train forward of the case's weights on its rows
+    with the same draws. With ``check_gathers`` every gather is held exact
+    against its plain version (the launches and checks are returned). On
+    the card TF32 is off."""
+    from d3net_tpu_torch.data.collate import batch_to_torch
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.parallel import mesh
+    from d3net_tpu_torch.params import load_detector
+    from d3net_tpu_torch.train.trainer import (
+        create_train_state, detector_train_step,
+    )
+
+    dev = _rank_device(dev)
+    model = load_detector(case["variables"], case["cfg"], device=dev)
+    state = create_train_state(model, lr=1e-3, optim=optim,
+                               steps_per_epoch=10)
+    batch = batch_to_torch(mesh.shard_host_batch(case["batch"]), dev)
+    kw = dict(jitter_u=torch.from_numpy(case["jitter"]).to(dev),
+              proposal_perm=torch.from_numpy(case["perm"]).to(dev)[None])
+    before = gather.gather_rows.launches
+    with _parity(dev), (checked_gathers("the dp train step") if check_gathers
+                        else contextlib.nullcontext()) as rec:
+        _, metrics = detector_train_step(state, batch,
+                                         do_clustering=do_clustering, **kw)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": _grad_arrays(model), "state": _state_arrays(model),
+           "launches": gather.gather_rows.launches - before}
+    if rec is not None:
+        out.update(checked=rec.checked, max_abs_err=rec.max_abs_err)
+    if do_clustering:
+        fresh = load_detector(case["variables"], case["cfg"], device=dev)
+        with _parity(dev), torch.no_grad():
+            fwd = fresh(batch, train=True, **kw)
+        out["ints"] = {k: fwd[k].cpu().numpy()
+                       for k in ("member_pt", "cluster_mask_all",
+                                 "proposal_slot")}
+    return out
+
+
+def rank_calls(calls: List[Tuple[Any, tuple, Dict[str, Any]]]) -> List[Any]:
+    """``[fn(*args, **kw) for fn, args, kw in calls]``: several workers in
+    one spawn of ranks (each spawn costs every rank a fresh interpreter)."""
+    return [fn(*args, **kw) for fn, args, kw in calls]
+
+
+def bn_case(shapes: Dict[str, Tuple[int, ...]], seed: int = 0,
+            empty_half: bool = False) -> Dict[str, Any]:
+    """Inputs of the three train-mode BatchNorms (numpy, global batch):
+    ``rows`` a (B, M, C) ``MaskedBatchNorm`` input with a (B, M) mask,
+    ``grid`` the ScoreNet's NCDHW (P, C, G, G, G) with occupancy (P, G, G,
+    G), ``listener`` the match module's ``BatchNorm`` rows (N, C); each
+    with an upstream gradient ``dy`` of the output's shape, and random
+    scales and biases. With ``empty_half`` the second half of the batch
+    rows of ``rows`` and ``grid`` is masked out entirely (the second rank's
+    at world size 2)."""
+    rng = np.random.default_rng(seed)
+    case = {}
+    for name in ("rows", "grid", "listener"):
+        shape = shapes[name]
+        x = rng.normal(1.0, 2.0, shape).astype(np.float32)
+        c = shape[1] if name == "grid" else shape[-1]
+        entry = {"x": x, "dy": rng.normal(size=shape).astype(np.float32),
+                 "scale": rng.normal(1.0, 0.2, c).astype(np.float32),
+                 "bias": rng.normal(0.0, 0.2, c).astype(np.float32)}
+        if name != "listener":
+            mshape = shape[:1] + shape[2:] if name == "grid" else shape[:2]
+            mask = rng.random(mshape) < 0.6
+            if empty_half:
+                mask[shape[0] // 2:] = False
+            entry["mask"] = mask
+        case[name] = entry
+    return case
+
+
+def bn_rank(case: Dict[str, Any], dtype: str = "float32",
+            dev=None) -> Dict[str, Dict[str, np.ndarray]]:
+    """This rank's train-mode forward and backward of the three BatchNorms
+    of ``case`` (``bn_case``) on its rows, on ``dev`` (the CPU by default):
+    the output and ``dx`` of its rows (as f32), the global
+    ``dscale``/``dbias`` (summed over the ranks) and the new running
+    statistics. ``MaskedBatchNorm``'s inputs are cast to ``dtype`` (the
+    backbone and ScoreNet run in bf16 under ``compute_dtype``); the
+    listener's stay f32, as the listener runs."""
+    from d3net_tpu_torch.models.blocks import MaskedBatchNorm
+    from d3net_tpu_torch.models.match import BatchNorm
+    from d3net_tpu_torch.models.scorenet import _bn
+    from d3net_tpu_torch.parallel import mesh
+
+    dev = torch.device("cpu") if dev is None else torch.device(dev)
+    out = {}
+    for name, entry in case.items():
+        e = {k: torch.from_numpy(np.asarray(v)) for k, v in entry.items()}
+        e = {k: (v if k in ("scale", "bias")
+                 else mesh.shard_host_batch(v)).to(dev)
+             for k, v in e.items()}
+        c = e["scale"].shape[0]
+        bn = (BatchNorm(c) if name == "listener"
+              else MaskedBatchNorm(c)).to(dev)
+        with torch.no_grad():
+            bn.scale.copy_(e["scale"])
+            bn.bias.copy_(e["bias"])
+        dt = torch.float32 if name == "listener" else getattr(torch, dtype)
+        x = e["x"].to(dt).requires_grad_(True)
+        dy = e["dy"].to(dt)
+        with _parity(dev):
+            if name == "listener":
+                y = bn(x, True)
+            elif name == "grid":
+                y = _bn(bn, x, e["mask"], True)
+            else:
+                y = bn(x, e["mask"], True)
+            (y * dy).float().sum().backward()
+        mesh.all_reduce_grads([bn.scale, bn.bias])
+        out[name] = {"y": y.detach().float().cpu().numpy(),
+                     "dx": x.grad.float().cpu().numpy(),
+                     "dscale": bn.scale.grad.cpu().numpy(),
+                     "dbias": bn.bias.grad.cpu().numpy(),
+                     "mean": bn.mean.cpu().numpy().copy(),
+                     "var": bn.var.cpu().numpy().copy()}
+    return out
+
+
+def pipeline_step_rank(mode: int, cfg, case: Dict[str, Any], seed: int = 0,
+                       dev=None, check_gathers: bool = False
+                       ) -> Dict[str, Any]:
+    """This rank's pipeline train step of ``case`` on its rows: mode 1
+    ``speaker_train_step`` on ``speaker_step_case``'s global draws, mode 2
+    ``listener_train_step`` and mode 3 ``joint_rl_train_step``
+    (``joint_step_case``'s two streams, ``joint_step_kw(cfg)``) on draws
+    from a generator seeded ``seed`` (each draw made at the global batch's
+    rows). Returns the global metrics, the summed gradients, the state
+    after the step, the gather launches (checked exact with
+    ``check_gathers``) and, in mode 3, this rank's rollout ids and host
+    scores. On the card TF32 is off."""
+    from d3net_tpu_torch.data.collate import batch_to_torch
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.parallel import mesh
+    from d3net_tpu_torch.train import pipeline as pl
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    dev = _rank_device(dev)
+    vocab, emb = pl.build_vocab(cfg)
+    model = load_pipeline(case["variables"], cfg, vocab, device=dev)
+    o = cfg.train.optim
+    state = create_train_state(model, lr=o.lr, optim=o.classname,
+                               weight_decay=o.weight_decay)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lw = tuple(cfg.train.loss_weight[:4])
+
+    def inputs(batch_np, lang_np):
+        return (batch_to_torch(mesh.shard_host_batch(batch_np), dev),
+                pl.lang_rows(mesh.shard_host_batch(lang_np), emb, dev))
+
+    before = gather.gather_rows.launches
+    rollout = None
+    with _parity(dev), (checked_gathers(f"the mode-{mode} dp step")
+                        if check_gathers else contextlib.nullcontext()) as rec:
+        if mode == 1:
+            _, metrics = pl.speaker_train_step(
+                state, *inputs(case["batch"], case["lang"]),
+                chunk_size=case["chunk"], loss_weight=lw,
+                jitter_u=torch.from_numpy(case["jitter"]).to(dev),
+                proposal_perm=torch.from_numpy(case["perm"]).to(dev)[None],
+                gumbel=torch.from_numpy(case["gumbel"]).to(dev))
+        elif mode == 2:
+            _, metrics = pl.listener_train_step(
+                state, *inputs(case["batch"], case["lang"]), gen,
+                chunk_size=case["chunk"], loss_weight=lw)
+        else:
+            streams = [x for s in ("spk", "lis")
+                       for x in inputs(case[s][0], case[s][2])]
+            _, metrics, rollout = pl.joint_rl_train_step(
+                state, *streams, pl.make_caption_reward_fn(vocab), gen,
+                **joint_step_kw(cfg))
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": _grad_arrays(model), "state": _state_arrays(model),
+           "launches": gather.gather_rows.launches - before}
+    if rec is not None:
+        out.update(checked=rec.checked, max_abs_err=rec.max_abs_err)
+    if rollout is not None:
+        out["rollout"] = {k: rollout[k].cpu().numpy() for k in (
+            "sampled_cap", "baseline_cap", "sampled_scores",
+            "baseline_scores")}
+    return out
+
+
+def _tree_equal(a, b) -> bool:
+    """Nested dicts/lists of tensors and plain values equal, bit for bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_tree_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_tree_equal(x, y) for x, y in zip(a, b)))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def train_rank(cfg, run_dir: str, steps: Sequence[int]) -> Dict[str, Any]:
+    """The config's run loop on this rank on the CPU
+    (``scripts.train.run_training``) to each of ``steps`` in turn (a later
+    one resumes from the run dir). Returns the final state's arrays and,
+    for a detector run, whether a fresh state restored from the run dir
+    equals it bit for bit (model, optimizer, scheduler, step)."""
+    from d3net_tpu_torch.scripts.train import run_training
+    from d3net_tpu_torch.train.loop import (
+        Checkpointer, detector_from_cfg, init_detector,
+    )
+    from d3net_tpu_torch.train.pipeline import task_mode
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    for n in steps:
+        state = run_training(cfg, run_dir, n, "cpu")
+    out = {"state": _state_arrays(state.model), "step": state.step}
+    if task_mode(cfg) == (1, 0, 0):
+        fresh = create_train_state(init_detector(detector_from_cfg(cfg), 1),
+                                   optim=cfg.train.optim.classname)
+        Checkpointer(run_dir, "none").restore_last(fresh)
+        out["restored_equal"] = (
+            fresh.step == state.step
+            and _tree_equal(fresh.model.state_dict(),
+                            state.model.state_dict())
+            and _tree_equal(fresh.optimizer.state_dict(),
+                            state.optimizer.state_dict())
+            and _tree_equal(fresh.scheduler.state_dict(),
+                            state.scheduler.state_dict()))
+    return out
+
+
+def cap_counters_rank() -> Dict[str, float]:
+    """The run loop's cap counters (``loop._cap_counters``) on this rank
+    after it counted ``rank + 1`` truncated points: the global batch's sum
+    under a process group."""
+    from d3net_tpu_torch.data.collate import CAP_STATS
+    from d3net_tpu_torch.parallel import mesh
+    from d3net_tpu_torch.train.loop import _cap_counters
+
+    CAP_STATS.reset()
+    CAP_STATS.add(cap_points_truncated=mesh.rank() + 1, batches=1)
+    return _cap_counters()
+
+
+def mesh_rank(batch_size: int) -> Dict[str, Any]:
+    """``parallel.mesh`` on this rank: a linear layer and its AdamW state
+    made from a rank-seeded draw, then ``replicate``; and ``make_mesh``
+    under the group at ``batch_size`` (its error message when the batch
+    does not split over the ranks)."""
+    from d3net_tpu_torch.parallel import mesh
+
+    torch.manual_seed(1 + mesh.rank())
+    model = torch.nn.Linear(3, 2)
+    opt = torch.optim.AdamW(model.parameters())
+    model(torch.randn(4, 3)).sum().backward()
+    opt.step()
+    mesh.replicate(model, opt)
+    try:
+        mesh.make_mesh(batch_size)
+        error = None
+    except ValueError as e:
+        error = str(e)
+    return {"rank": mesh.rank(), "world": mesh.world(),
+            "model": _state_arrays(model),
+            "adam": [{k: v.numpy().copy() for k, v in opt.state[p].items()}
+                     for p in model.parameters()],
+            "error": error}
+
+
+def launcher_rank(r: int, world_size: int, port: int) -> None:
+    """One process of a launcher-made group (``torchrun``'s environment,
+    rendezvous at localhost:``port``): ``mesh.init_multihost`` joins it,
+    then an all-reduce of the ranks' ids must give their sum."""
+    from d3net_tpu_torch.parallel import mesh
+
+    os.environ.update(WORLD_SIZE=str(world_size), RANK=str(r),
+                      LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    info = mesh.init_multihost()
+    try:
+        total = mesh.all_reduce_sum(torch.tensor([float(r)]))
+        want = {"process_index": r, "process_count": world_size}
+        if {k: info[k] for k in want} != want or float(total) != sum(
+                range(world_size)):
+            raise AssertionError(f"rank {r}: {info}, all-reduce {total}")
+    finally:
+        mesh.teardown()
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (warning where an op has none)
+    and cuDNN's deterministic convolutions inside the block; the previous
+    settings come back on exit."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+        torch.backends.cudnn.benchmark = saved[3]
+
+
+def _scaled_diffs(got: Dict[str, torch.Tensor],
+                  want: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Per key: the largest difference over the largest magnitude of
+    ``want`` (0 where bit-equal)."""
+    out = {}
+    for k, w in want.items():
+        a, b = got[k].detach().double(), w.detach().double()
+        d = float((a - b).abs().max()) if a.numel() else 0.0
+        out[k] = d / max(float(b.abs().max()) if b.numel() else 0.0, 1e-30)
+    return out
+
+
+def world1_group_step(variables, cfg: Dict[str, Any], batch: Dict,
+                      seed: int = 0, then=None, dev="cuda",
+                      backend: str = "nccl") -> Dict[str, Any]:
+    """The detector train step through the distributed path on a one-rank
+    group (NCCL on the card) against the step with no group, from the same
+    weights, on the same batch (tensors on ``dev``) and the same
+    generator's draws. An all-reduce over one rank is a copy, and every
+    other op of the distributed path computes the same values, so the
+    metrics, gradients, parameters and BN statistics are bit-equal where
+    the step itself is bit-reproducible. The three steps run under
+    PyTorch's deterministic algorithms (the card's atomic adds in
+    ``index_add_`` and the scatters otherwise sum in another order each
+    run), and the step with no group runs twice: a tensor where those two
+    differ (an op with no deterministic version) may differ in the
+    distributed step by at most 4x their scaled difference
+    (``_scaled_diffs``), every other tensor must be bit-equal. Returns the
+    comparison and the distributed step's metrics and gathers (each held
+    exact against its plain version); ``then(state)``, called with the
+    group still set up and the deterministic algorithms off, adds its dict
+    under ``"then"``."""
+    import tempfile
+
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.parallel import mesh
+    from d3net_tpu_torch.params import load_detector
+    from d3net_tpu_torch.train.trainer import (
+        create_train_state, detector_train_step,
+    )
+
+    def step(check: bool):
+        state = create_train_state(load_detector(variables, cfg,
+                                                 device=dev))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        before = gather.gather_rows.launches
+        with (checked_gathers("the world-1 group's step") if check
+              else contextlib.nullcontext()) as rec:
+            _, metrics = detector_train_step(state, batch, gen)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        parts = {"metrics": dict(metrics),
+                 "state": {k: v.clone() for k, v in
+                           state.model.state_dict().items()},
+                 "grads": {n: p.grad.clone() for n, p in
+                           state.model.named_parameters()}}
+        return state, parts, rec, gather.gather_rows.launches - before
+
+    with deterministic():
+        ref = step(False)[1]
+        again = step(False)[1]
+    with tempfile.TemporaryDirectory(prefix="d3net_group_") as tmp:
+        mesh.setup(0, 1, f"file://{os.path.join(tmp, 'rendezvous')}",
+                   backend)
+        try:
+            with deterministic():
+                state, got, rec, launches = step(True)
+            extra = then(state) if then is not None else None
+        finally:
+            mesh.teardown()
+    report, ok = {}, True
+    for part in ("metrics", "state", "grads"):
+        noise = _scaled_diffs(again[part], ref[part])
+        diff = _scaled_diffs(got[part], ref[part])
+        beyond = sorted(k for k, d in diff.items() if d > 4.0 * noise[k])
+        report[part] = {"ref_vs_ref": max(noise.values()),
+                        "dist_vs_ref": max(diff.values()),
+                        "differ": sorted(k for k, d in diff.items() if d),
+                        "beyond": beyond}
+        ok = ok and not beyond
+    return {"ok": ok, "bit_equal": not any(r["differ"]
+                                           for r in report.values()),
+            "step_reproducible": not any(r["ref_vs_ref"]
+                                         for r in report.values()),
+            "compare": report,
+            "metrics": {k: float(v) for k, v in got["metrics"].items()},
+            "launches": launches, "checked": rec.checked,
+            "max_abs_err": rec.max_abs_err, "then": extra}
+
+
+def world_grad_mismatches(got: Dict[str, np.ndarray],
+                          want: Dict[str, np.ndarray],
+                          got_moved: Dict[str, np.ndarray],
+                          want_moved: Dict[str, np.ndarray]
+                          ) -> Tuple[List[str], int]:
+    """World N's gradients ``got`` against world 1's ``want`` for a step
+    whose backward into the detector is ill-conditioned in f32 (the
+    listener's, the joint step's): ``grad_mismatches`` at rtol 1e-3 / atol
+    1e-6, where an element outside passes within 4x the largest one-ulp
+    movement of its tensor in either world (``*_moved``: the same step on
+    weights moved by one ulp, ``ulp_moved``), for under 1% of the step's
+    elements; the listener's BN-fed biases, zero gradients, within the
+    same. The listener's Flax BatchNorm takes E[x²] - E[x]², whose
+    cancellation turns the ranks' split sums into more than a weight's ulp
+    at a few elements."""
+    noise = {k: np.full_like(w, max(float(np.abs(want_moved[k] - w).max()),
+                                    float(np.abs(got_moved[k] - got[k])
+                                          .max())))
+             for k, w in want.items()}
+    return grad_mismatches(got, want, noise, zero_grads=BN_FED_BIASES,
+                           per_tensor=False, zero_by_noise=True)
+
+
+# tests/test_parallel.py's parameter bounds, by clustering
+DIST_PARAM_TOL = {False: dict(rtol=1e-5, atol=2e-6),
+                  True: dict(rtol=2e-3, atol=5e-5)}
+
+
+# ``bn_case`` in bf16 at counts above 256, where bf16 rounds integers: the
+# seed's ranks' counts round apart from the global count at 2 and 4 ranks
+BF16_BN_SHAPES = {"rows": (4, 512, 8), "grid": (8, 6, 8, 8, 8),
+                  "listener": (32, 8)}
+BF16_BN_SEED = 8
+
+
+def bf16_bn_mismatches(ranks: List[Dict[str, Dict[str, np.ndarray]]],
+                       one: Dict[str, Dict[str, np.ndarray]]) -> List[str]:
+    """``MaskedBatchNorm`` in bf16 (``bn_rank``) on the ranks against one
+    process: the running statistics and the parameters' gradients (f32)
+    within rtol 1e-5 / atol 1e-6 and bit-identical across the ranks, the
+    rows' output and dx (bf16) within one bf16 ulp."""
+    bad = []
+    for name in ("rows", "grid"):
+        want = one[name]
+        for k in ("mean", "var", "dscale", "dbias"):
+            if not np.allclose(ranks[0][name][k], want[k], rtol=1e-5,
+                               atol=1e-6):
+                bad.append(f"bf16 bn {name} {k}")
+            if any(not np.array_equal(r[name][k], ranks[0][name][k])
+                   for r in ranks[1:]):
+                bad.append(f"bf16 bn {name} {k} differs across ranks")
+        for k in ("y", "dx"):
+            if not np.allclose(np.concatenate([r[name][k] for r in ranks]),
+                               want[k], rtol=2.0 ** -8, atol=1e-6):
+                bad.append(f"bf16 bn {name} {k}")
+    return bad
+
+
+def dist_ranks_on_one_card(det_case: Dict[str, Any], joint_cfg,
+                           joint_case: Dict[str, Any], world: int = 2,
+                           also: Sequence[Tuple[Any, tuple, Dict]] = ()
+                           ) -> Dict[str, Any]:
+    """``world`` ranks on cuda:0 over gloo (NCCL takes one rank a card)
+    against world size 1 on the card, TF32 off, every gather of every rank
+    held exact against its plain version: the detector step of
+    ``det_case`` (``detector_case``) without and with clustering, the
+    mode-3 joint step of ``joint_case`` (``joint_step_case``), and
+    ``MaskedBatchNorm`` in bf16 (``bf16_bn_mismatches``). The calls
+    ``also`` run after them in the same ranks only (one start of the
+    ranks); rank 0's results come back under ``also``. Held to
+    tests/test_parallel.py's bounds (clustering off: losses rtol 1e-5 /
+    atol 1e-6, parameters rtol 1e-5 / atol 2e-6; on: ``score_loss``,
+    ``gt_iou_mean``, ``total_loss`` and ``grad_norm`` atol 5e-3,
+    parameters rtol 2e-3 / atol 5e-5, the cluster ids recorded) and the
+    joint step's (rollout ids and host scores equal, metrics rtol 1e-4 /
+    atol 1e-6, gradients ``world_grad_mismatches``: the joint step's
+    backward into the detector is ill-conditioned in f32, so both worlds
+    also run it on weights moved by one ulp); parameters bit-identical
+    across the ranks. ``ok`` when all hold."""
+    from d3net_tpu_torch.parallel import mesh
+
+    dev = "cuda:0"
+    moved = dict(joint_case, variables=ulp_moved(
+        joint_case["variables"], np.random.default_rng(3)))
+    calls = [(detector_step_rank, (det_case, c, "SGD", dev, True), {})
+             for c in (False, True)]
+    calls += [(pipeline_step_rank, (3, joint_cfg, case, 0, dev, True), {})
+              for case in (joint_case, moved)]
+    calls.append((bn_rank, (bn_case(BF16_BN_SHAPES, BF16_BN_SEED),
+                            "bfloat16", dev), {}))
+    one = rank_calls(calls)
+    ranks = mesh.spawn(rank_calls, world, calls + list(also),
+                       backend="gloo", devices=[dev] * world)
+    bad = bf16_bn_mismatches([r[4] for r in ranks], one[4])
+    report = {}
+    for i, name in enumerate(("det_no_clustering", "det_clustering",
+                              "joint", "joint_ulp_moved")):
+        want = one[i]
+        got = [r[i] for r in ranks]
+        for r, g in enumerate(got):
+            if g["checked"] != g["launches"] or g["launches"] == 0:
+                bad.append(f"{name} rank {r}: {g['checked']} of "
+                           f"{g['launches']} gathers checked")
+            if any(not np.array_equal(g["state"][k], v)
+                   for k, v in got[0]["state"].items()):
+                bad.append(f"{name} rank {r}: parameters differ from rank 0")
+        g0 = got[0]
+        rec = {"launches_per_rank": [g["launches"] for g in got],
+               "launches_world1": want["launches"],
+               "metrics_world1": want["metrics"],
+               f"metrics_world{world}": g0["metrics"]}
+        if name.startswith("det"):
+            clus = name == "det_clustering"
+            for k, v in want["metrics"].items():
+                chaotic = clus and k in ("score_loss", "gt_iou_mean",
+                                         "total_loss", "grad_norm")
+                ok = (abs(g0["metrics"][k] - v) <= 5e-3 if chaotic else
+                      np.isclose(g0["metrics"][k], v, rtol=1e-5, atol=1e-6))
+                if not ok:
+                    bad.append(f"{name} metric {k}")
+            for k, v in want["state"].items():
+                if not np.allclose(g0["state"][k], v, **DIST_PARAM_TOL[clus]):
+                    bad.append(f"{name} state {k}")
+            if clus:
+                rec["cluster_ids_equal"] = {k: bool(np.array_equal(
+                    np.concatenate([g["ints"][k] for g in got]), v))
+                    for k, v in want["ints"].items()}
+        elif name == "joint":
+            for k, v in want["metrics"].items():
+                if not np.isclose(g0["metrics"][k], v, rtol=1e-4, atol=1e-6):
+                    bad.append(f"joint metric {k}")
+            for k, v in want["rollout"].items():
+                if not np.array_equal(np.concatenate(
+                        [g["rollout"][k] for g in got]), v):
+                    bad.append(f"joint rollout {k}")
+            g_bad, noise_passed = world_grad_mismatches(
+                g0["grads"], want["grads"], ranks[0][3]["grads"],
+                one[3]["grads"])
+            bad += [f"joint grad {k}" for k in g_bad]
+            rec["grad_elements_passed_as_noise"] = noise_passed
+        report[name] = rec
+    return {"ok": not bad, "world": world, "outside_tolerance": bad,
+            "gathers_max_abs_err": max(r[i]["max_abs_err"] for r in ranks
+                                       for i in range(4)),
+            **report, "also": ranks[0][len(calls):]}
+
+
+def failing_rank() -> None:
+    """Rank 1 raises while rank 0 waits in an all-reduce for it: the
+    spawn must bring rank 0 down and raise rank 1's error, not hang."""
+    from d3net_tpu_torch.parallel import mesh
+
+    if mesh.rank() == 1:
+        raise ValueError("rank 1 failed before its all-reduce")
+    mesh.all_reduce_sum(torch.ones(4))

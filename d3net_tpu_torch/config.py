@@ -94,6 +94,12 @@ class Config:
     def __repr__(self):
         return f"Config({self._data!r})"
 
+    def __reduce__(self):
+        # attribute access falls through to the data, so pickle (the
+        # spawned ranks of a run get their config so) rebuilds from it
+        root = self._root
+        return (Config, (self._data, None if root is self else root))
+
 
 def _deep_merge(base: Dict, over: Dict) -> Dict:
     out = copy.deepcopy(base)

@@ -170,6 +170,8 @@ class BatchIterator:
         workers: int = 1,
         drop_last: bool = True,
         return_scenes: bool = False,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.scenes = scenes
         self.spec = spec
@@ -182,6 +184,10 @@ class BatchIterator:
         self.workers = max(1, int(workers))
         self.drop_last = drop_last
         self.return_scenes = return_scenes
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"{world} ranks")
+        self.rank, self.world = rank, world
         self.epoch = 0
 
     def __len__(self):
@@ -190,7 +196,13 @@ class BatchIterator:
 
     def _build_one(self, order: np.ndarray, b: int):
         """Batch ``b`` of the epoch, from its own generator (so builds in any
-        order and on any worker give the same batch)."""
+        order and on any worker give the same batch).
+
+        With ``world`` ranks, rank ``r`` collates rows ``[r·B/N, (r+1)·B/N)``
+        alone, after augmenting every scene of the batch in order (one
+        generator runs through them, so the rows equal the global batch's);
+        ``return_scenes`` gives every scene of the global batch, over which
+        the description rows are drawn."""
         rng = np.random.default_rng(
             (self.seed + 1) * 1_000_003 + self.epoch * 131_071 + b
         )
@@ -205,7 +217,9 @@ class BatchIterator:
                     s = crop_scene(s, self.spec.max_points, self.spec.scale,
                                    self.spec.full_scale, rng)
             scenes.append(s)
-        batch = build_batch(scenes, self.spec)
+        n = len(scenes) // self.world
+        batch = build_batch(scenes[self.rank * n:(self.rank + 1) * n],
+                            self.spec)
         return (batch, scenes) if self.return_scenes else batch
 
     def _order(self) -> np.ndarray:

@@ -28,6 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from d3net_tpu_torch.ops.segment import fold_index
+from d3net_tpu_torch.parallel import mesh
 from d3net_tpu_torch.ops.sparse_conv import sparse_conv_t
 
 LevelTables = Dict[str, torch.Tensor]
@@ -62,6 +63,9 @@ class MaskedBatchNorm(nn.Module):
     masked batch variance and updates ``running = 0.9*running + 0.1*batch``
     (eps 1e-4, momentum 0.1) — not ``BatchNorm1d``, which keeps the
     unbiased variance. Output is masked to the active entries.
+
+    Under a process group (``parallel.mesh``) the train statistics are the
+    global batch's: the count and sums are all-reduced over the ranks.
     """
 
     def __init__(self, channels: int, eps: float = 1e-4, momentum: float = 0.1):
@@ -80,10 +84,21 @@ class MaskedBatchNorm(nn.Module):
         m = mask.to(x.dtype).unsqueeze(cd)
         if train:
             dims = [d for d in range(x.dim()) if d != cd]
-            count = torch.clamp(m.sum(), min=1.0)
             xf = x.float()
-            mean = (xf * m).sum(dims) / count
-            var = (((xf - mean.reshape(shape)) ** 2) * m).sum(dims) / count
+            if mesh.active():
+                # the global batch's statistics, as GSPMD reduces JAX's:
+                # the exact count and Σx·m in one collective, then
+                # Σ(x - mean)²·m; the count is rounded to x's dtype once,
+                # as one process rounds its m.sum()
+                s = mesh.all_reduce_sum(torch.cat([
+                    (xf * m).sum(dims), m.float().sum().reshape(1)]))
+                count = torch.clamp(s[-1].to(x.dtype), min=1.0).float()
+                mean = s[:-1] / count
+            else:
+                count = torch.clamp(m.sum(), min=1.0)
+                mean = (xf * m).sum(dims) / count
+            var = mesh.all_reduce_sum(
+                (((xf - mean.reshape(shape)) ** 2) * m).sum(dims)) / count
             with torch.no_grad():
                 self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.var.mul_(1 - self.momentum).add_(self.momentum * var)

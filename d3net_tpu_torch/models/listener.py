@@ -21,6 +21,7 @@ from d3net_tpu_torch.models.match import (
     MatchModule, TransformerMatchModule, gumbel_draw,
 )
 from d3net_tpu_torch.models.transformer import name_dropouts
+from d3net_tpu_torch.parallel import mesh
 
 
 class ListenerDraws:
@@ -31,7 +32,12 @@ class ListenerDraws:
     the same shape in ``shared`` (an earlier forward's ``drawn``) takes
     it: two forwards under one JAX key draw the same bits where the shapes
     agree. The keep masks used stay in ``drawn``, by path, and the
-    copy-paste draw in ``copy_paste_draw``."""
+    copy-paste draw in ``copy_paste_draw``.
+
+    Under a process group (``parallel.mesh``) every draw is made at the
+    global batch's rows and each rank keeps its own; given masks and
+    copy-paste draws may hold the global batch's rows, and each rank takes
+    its own. ``drawn`` keeps this rank's rows."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  masks: Optional[Mapping[str, torch.Tensor]] = None,
@@ -46,13 +52,14 @@ class ListenerDraws:
 
     def keep(self, path: str, shape, rate: float, device) -> torch.Tensor:
         if self.masks is not None:
-            return self.masks[path].to(device)
+            return mesh.local_rows(self.masks[path].to(device), shape[0])
         same = self.shared.get(path)
         if same is not None and tuple(same.shape) == tuple(shape):
             self.drawn[path] = same
         else:
-            self.drawn[path] = torch.rand(shape, generator=self.generator,
-                                          device=device) < 1.0 - rate
+            self.drawn[path] = mesh.draw_rows(lambda n: torch.rand(
+                (n,) + tuple(shape[1:]), generator=self.generator,
+                device=device) < 1.0 - rate, shape[0])
         return self.drawn[path]
 
     def copy_paste(self, shape, prob: float, device
@@ -60,10 +67,11 @@ class ListenerDraws:
         if self.copy_paste_draw is None:
             apply = torch.rand((), generator=self.generator,
                                device=device) < prob
-            self.copy_paste_draw = (apply, gumbel_draw(shape, self.generator,
-                                                       device))
+            self.copy_paste_draw = (apply, mesh.draw_rows(
+                lambda n: gumbel_draw((n,) + tuple(shape[1:]),
+                                      self.generator, device), shape[0]))
         apply, g = self.copy_paste_draw
-        return apply.to(device), g.to(device)
+        return apply.to(device), mesh.local_rows(g.to(device), shape[0])
 
 
 class ListenerNet(nn.Module):

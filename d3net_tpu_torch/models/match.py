@@ -34,6 +34,7 @@ from d3net_tpu_torch.models.transformer import (
     Dropout, LayerNorm, MultiHeadAttention, fast_stats, flax_norm,
     name_dropouts,
 )
+from d3net_tpu_torch.parallel import mesh
 
 
 def gumbel_draw(shape, generator: Optional[torch.Generator],
@@ -48,7 +49,8 @@ class BatchNorm(nn.Module):
     """Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the rows of
     (N, C): train normalises with the batch's mean and fast (biased)
     variance and moves ``mean``/``var`` by ``0.9·running + 0.1·batch``;
-    eval normalises with them."""
+    eval normalises with them. Under a process group (``parallel.mesh``)
+    the train statistics are the global batch's rows'."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -63,7 +65,17 @@ class BatchNorm(nn.Module):
         if not train:
             return flax_norm(x, self.mean, self.var, self.scale, self.bias,
                              self.eps)
-        mean, var = fast_stats(x, 0)
+        if mesh.active():
+            # the global batch's rows: [Σx, Σx², n] in one collective, then
+            # the same fast variance
+            c = x.shape[-1]
+            s = mesh.all_reduce_sum(torch.cat([
+                x.sum(0), (x * x).sum(0),
+                x.new_full((1,), float(x.shape[0]))]))
+            mean = (s[:c] / s[-1])[None]
+            var = torch.clamp(s[c:2 * c][None] / s[-1] - mean * mean, min=0.0)
+        else:
+            mean, var = fast_stats(x, 0)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1.0 - m) * mean[0])
@@ -169,8 +181,9 @@ class TransformerMatchModule(nn.Module):
         b, p, _ = feats.shape
         apply, g = draws.copy_paste((b, p, p), self.copy_paste_prob,
                                     feats.device)
-        donor_feats = torch.roll(feats, 1, dims=0)
-        donor_masks = torch.roll(masks, 1, dims=0)
+        # the previous scene of the global batch (over the ranks)
+        donor_feats = mesh.roll_rows(feats)
+        donor_masks = mesh.roll_rows(masks)
         pick_logits = torch.where(donor_masks[:, None, :] > 0, g, -torch.inf)
         pick = pick_logits.argmax(-1)                       # (B, P)
         donor = torch.take_along_dim(donor_feats, pick[..., None], dim=1)

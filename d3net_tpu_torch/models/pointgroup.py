@@ -46,6 +46,7 @@ from d3net_tpu_torch.ops import segment as seg
 from d3net_tpu_torch.ops.cluster import (
     compact_clusters, grid_cluster_batched, topk_stable,
 )
+from d3net_tpu_torch.parallel import mesh
 from d3net_tpu_torch.utils.bbox import box_corners
 from d3net_tpu_torch.utils.nn_distance import nn_distance
 
@@ -288,7 +289,9 @@ class PointGroup(nn.Module):
         """``do_clustering=False`` returns after the heads (the run loop's
         pre-clustering epochs). Under ``train``, ``jitter_u (B, P, 3)`` in
         [0, 1) and ``proposal_perm (B, K)`` are drawn from ``generator``
-        unless given; at eval the jitter is 0.5 and there is no shuffle."""
+        unless given; at eval the jitter is 0.5 and there is no shuffle.
+        Under a process group (``parallel.mesh``) they are drawn, or given,
+        at the global batch's rows, and this rank takes its own."""
         point_xyz = batch["point_xyz"]          # (B, N, 3)
         point_feats = batch["point_feats"]      # (B, N, C)
         point_mask = batch["point_mask"]        # (B, N)
@@ -364,8 +367,10 @@ class PointGroup(nn.Module):
         if not train:
             jitter_u = torch.full((b, p_total, 3), 0.5, device=dev)
         elif jitter_u is None:
-            jitter_u = torch.rand((b, p_total, 3), generator=generator,
-                                  device=dev)
+            jitter_u = mesh.draw_rows(lambda n: torch.rand(
+                (n, p_total, 3), generator=generator, device=dev), b)
+        else:
+            jitter_u = mesh.local_rows(jitter_u, b)
         grids, occ = self._build_grids(member_pt, point_xyz, pt_feats,
                                        point_mask, stats, jitter_u)
         g = self.score_fullscale
@@ -387,9 +392,10 @@ class PointGroup(nn.Module):
         _, top_idx = topk_stable(rank, self.max_num_proposal)  # (B, K)
         if train:
             if proposal_perm is None:
-                proposal_perm = torch.stack([
+                proposal_perm = mesh.draw_rows(lambda n: torch.stack([
                     torch.randperm(self.max_num_proposal, generator=generator,
-                                   device=dev) for _ in range(b)])
+                                   device=dev) for _ in range(n)]), b)
+            proposal_perm = mesh.local_rows(proposal_perm, b)
             top_idx = torch.take_along_dim(
                 top_idx, proposal_perm.long().to(dev).expand(b, -1), dim=1)
 

@@ -48,6 +48,7 @@ from d3net_tpu_torch.data.dataset import (
 )
 from d3net_tpu_torch.device import DeviceLike, resolve_device
 from d3net_tpu_torch.models.pointgroup import PointGroup
+from d3net_tpu_torch.parallel import mesh
 from d3net_tpu_torch.params import flax_to_state_dict, init_flax_variables
 from d3net_tpu_torch.train.trainer import (
     TrainState, create_train_state, detector_eval_step, detector_train_step,
@@ -78,6 +79,9 @@ def run_fingerprint(cfg: Optional[Config] = None) -> Dict[str, str]:
 
 def write_run_meta(run_dir: str, cfg: Optional[Config] = None,
                    extra: Optional[Dict[str, Any]] = None) -> None:
+    """``run_meta.json`` (rank 0 alone writes under a process group)."""
+    if not mesh.is_main():
+        return
     with open(os.path.join(run_dir, "run_meta.json"), "w") as f:
         json.dump({**run_fingerprint(cfg), **(extra or {})}, f, indent=2)
 
@@ -98,7 +102,7 @@ class MetricLogger:
     def __init__(self, run_dir: str, tensorboard: bool = False):
         self.path = os.path.join(run_dir, "metrics.jsonl")
         self._tb = None
-        if tensorboard:
+        if tensorboard and mesh.is_main():
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -108,7 +112,7 @@ class MetricLogger:
 
     def begin(self, start_step: int) -> None:
         """Rotate an existing log whose history extends past start_step."""
-        if not os.path.exists(self.path):
+        if not mesh.is_main() or not os.path.exists(self.path):
             return
         last = -1
         try:
@@ -130,6 +134,9 @@ class MetricLogger:
                   f"restored {start_step}) -> {os.path.basename(dst)}")
 
     def log(self, step: int, scalars: Dict[str, float], prefix: str = "train"):
+        """One record (rank 0 alone writes under a process group)."""
+        if not mesh.is_main():
+            return
         rec = {"step": int(step),
                **{f"{prefix}/{k}": float(v) for k, v in scalars.items()}}
         with open(self.path, "a") as f:
@@ -370,6 +377,9 @@ def make_val_loader(cfg: Config, spec: BatchSpec,
 
 
 def make_dataloaders(cfg: Config, spec: BatchSpec, return_scenes: bool = False):
+    """The train and val iterators of the config; under a process group the
+    train iterator collates this rank's rows of each global batch, and the
+    val iterator (rank 0's validation) the whole val set."""
     tr = cfg.data.transform
     train_it = BatchIterator(
         scenes_from_cfg(cfg, "train", cfg.data.synthetic.num_scenes), spec,
@@ -379,6 +389,7 @@ def make_dataloaders(cfg: Config, spec: BatchSpec, return_scenes: bool = False):
         seed=cfg.general.manual_seed,
         return_scenes=return_scenes,
         workers=int(cfg.data.get("num_workers", 1) or 1),
+        rank=mesh.rank(), world=mesh.world(),
     )
     return train_it, make_val_loader(cfg, spec, return_scenes)
 
@@ -436,8 +447,10 @@ class StepLoop:
         self.logger = MetricLogger(run_dir, tensorboard=bool(
             log_cfg is not None and log_cfg.get("tensorboard", False)))
         self.logger.begin(step)
+        CAP_STATS.reset()       # the first log line counts this run's builds
         self.profile_at = int((log_cfg.get("profile_step", 0)
-                               if log_cfg is not None else 0) or 0)
+                               if log_cfg is not None and mesh.is_main()
+                               else 0) or 0)
         self.prof = None
         self.cache_batches = bool(cfg.tpu.get("cache_batches", False))
         self.n_var = 1
@@ -511,8 +524,9 @@ class StepLoop:
                 if log_extra is not None:
                     metrics.update(log_extra())
                 self.logger.log(self.step, metrics, "train")
-                print(f"epoch {epoch} step {self.step} "
-                      + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+                if mesh.is_main():
+                    print(f"epoch {epoch} step {self.step} " + " ".join(
+                        f"{k}={v:.4f}" for k, v in metrics.items()))
             if self.done:
                 break
 
@@ -524,8 +538,42 @@ class StepLoop:
 
 def _cap_counters() -> Dict[str, float]:
     """Silent-truncation telemetry: the host cap counters since the last
-    train log line."""
-    return {k: v for k, v in CAP_STATS.reset().items() if k != "batches"}
+    train log line (the run's start, for its first), summed over the ranks
+    under a process group (each counts the rows it collates)."""
+    counts = {k: v for k, v in CAP_STATS.reset().items() if k != "batches"}
+    if mesh.active():
+        keys = sorted(counts)
+        every = mesh.host_all_gather(np.array([[counts[k] for k in keys]],
+                                              dtype=np.int64))
+        counts = dict(zip(keys, every.sum(0).tolist()))
+    return counts
+
+
+def setup_run(cfg: Config, run_dir: str) -> None:
+    """The run dir and its ``config.yaml`` (rank 0 alone writes under a
+    process group)."""
+    os.makedirs(run_dir, exist_ok=True)
+    if mesh.is_main():
+        save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
+
+
+def run_meta_extra(dev: torch.device, cfg: Config) -> Dict[str, Any]:
+    """The port's keys of ``run_meta.json``: framework, device, the conv
+    layout that ran and the one asked for, the ranks of the global batch."""
+    return {"framework": f"torch {torch.__version__}", "device": str(dev),
+            "conv_impl": "gather",
+            "conv_impl_requested": cfg.tpu.get("conv_impl") or "gather",
+            "world_size": mesh.world()}
+
+
+def rank0_validation(validate: Callable[[], None]) -> None:
+    """``validate()`` on rank 0 alone with no collective (its model in eval
+    mode needs none), the other ranks waiting at a barrier; ``validate()``
+    itself without a process group."""
+    if mesh.is_main():
+        with mesh.local():
+            validate()
+    mesh.barrier()
 
 
 def run_detector_training(cfg: Config, run_dir: str,
@@ -537,11 +585,12 @@ def run_detector_training(cfg: Config, run_dir: str,
     """Train the detector of ``cfg`` into ``run_dir``, resuming from its
     last checkpoint; returns the train state. Runs on CUDA unless
     ``device`` says otherwise; ``on_step`` and ``sync_steps`` are
-    ``StepLoop``'s.
+    ``StepLoop``'s. Under a process group (``parallel.mesh``) each rank
+    trains on its rows of every global batch, rank 0 alone writes the run
+    dir and validates.
     """
     dev = resolve_device(device)
-    os.makedirs(run_dir, exist_ok=True)
-    save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
+    setup_run(cfg, run_dir)
     ckpt = Checkpointer(run_dir, cfg.general.monitor.replace("val_loss/", ""),
                         cfg.general.monitor_mode)
 
@@ -559,12 +608,10 @@ def run_detector_training(cfg: Config, run_dir: str,
         multiplier=cfg.train.multiplier,
         steps_per_epoch=max(1, len(train_it)),
     )
-    if ckpt.restore_last(state) is not None:
+    if ckpt.restore_last(state) is not None and mesh.is_main():
         print(f"resumed from step {state.step}")
-    write_run_meta(run_dir, cfg, {
-        "framework": f"torch {torch.__version__}", "device": str(dev),
-        "conv_impl": "gather",
-        "conv_impl_requested": cfg.tpu.get("conv_impl") or "gather"})
+    mesh.replicate(state.model, state.optimizer)
+    write_run_meta(run_dir, cfg, run_meta_extra(dev, cfg))
     loop = StepLoop(cfg, run_dir, dev, train_it.augment, state.step,
                     max_steps, on_step, sync_steps)
 
@@ -588,26 +635,30 @@ def run_detector_training(cfg: Config, run_dir: str,
         # validation (device-cached like the train batches)
         check_every = int(cfg.train.get("check_val_every_n_epoch", 1) or 1)
         if (epoch + 1) % check_every != 0 and not loop.done:
-            print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s "
-                  "(val skipped)")
+            if mesh.is_main():
+                print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s "
+                      "(val skipped)")
             continue
-        val_metrics: Dict[str, list] = {}
-        cached_val = loop.cache_batches and bool(val_batches)
-        for item in (val_batches if cached_val else val_it):
-            batch = item if cached_val else batch_to_torch(item, dev)
-            if loop.cache_batches and not cached_val:
-                val_batches.append(batch)
-            _, losses = detector_eval_step(state, batch,
-                                           do_clustering=not in_prepare)
-            for k, v in losses.items():
-                val_metrics.setdefault(k, []).append(float(v))
-        agg = {k: float(np.mean(v)) for k, v in val_metrics.items()}
-        loop.logger.log(loop.step, agg, "val")
-        print(f"epoch {epoch} VAL "
-              + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
-        ckpt.save(loop.step, state, agg)
 
-        print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s")
+        def validate():
+            val_metrics: Dict[str, list] = {}
+            cached_val = loop.cache_batches and bool(val_batches)
+            for item in (val_batches if cached_val else val_it):
+                batch = item if cached_val else batch_to_torch(item, dev)
+                if loop.cache_batches and not cached_val:
+                    val_batches.append(batch)
+                _, losses = detector_eval_step(state, batch,
+                                               do_clustering=not in_prepare)
+                for k, v in losses.items():
+                    val_metrics.setdefault(k, []).append(float(v))
+            agg = {k: float(np.mean(v)) for k, v in val_metrics.items()}
+            loop.logger.log(loop.step, agg, "val")
+            print(f"epoch {epoch} VAL "
+                  + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
+            ckpt.save(loop.step, state, agg)
+            print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s")
+
+        rank0_validation(validate)
         if loop.done:
             break
     loop.finish()
@@ -684,11 +735,13 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
     ``on_dispatch``, if given, is called after each dispatch with its
     ``step``, ``wall_s`` (the host's clock, the read-back included) and,
     on CUDA, ``device_ms`` (CUDA events around its steps). Runs on CUDA
-    unless ``device`` says otherwise.
+    unless ``device`` says otherwise. Under a process group each rank's
+    stack holds its rows of every batch, the dispatch's metrics tensor is
+    summed over the ranks once, at its read-back, and rank 0 alone
+    validates and writes the run dir.
     """
     dev = resolve_device(device)
-    os.makedirs(run_dir, exist_ok=True)
-    save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
+    setup_run(cfg, run_dir)
     ckpt = Checkpointer(run_dir, cfg.general.monitor.replace("val_loss/", ""),
                         cfg.general.monitor_mode)
     spec = spec_from_cfg(cfg)
@@ -701,12 +754,10 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
         weight_decay=cfg.train.optim.weight_decay,
         step_epoch=cfg.train.step_epoch, multiplier=cfg.train.multiplier,
         steps_per_epoch=nb)
-    if ckpt.restore_last(state) is not None:
+    if ckpt.restore_last(state) is not None and mesh.is_main():
         print(f"resumed from step {state.step}")
-    write_run_meta(run_dir, cfg, {
-        "framework": f"torch {torch.__version__}", "device": str(dev),
-        "conv_impl": "gather",
-        "conv_impl_requested": cfg.tpu.get("conv_impl") or "gather"})
+    mesh.replicate(state.model, state.optimizer)
+    write_run_meta(run_dir, cfg, run_meta_extra(dev, cfg))
     log_cfg = cfg.get("log")
     logger = MetricLogger(run_dir, tensorboard=bool(
         log_cfg is not None and log_cfg.get("tensorboard", False)))
@@ -726,16 +777,18 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
         for i in range(spd):
             _, m = detector_train_step(
                 state, stack_batch(stack, i % nb),
-                step_generator(seed, state.step, dev), loss_weight=lw)
+                step_generator(seed, state.step, dev), loss_weight=lw,
+                sum_metrics=False)
             metrics[i] = torch.stack([m[k].float() for k in SCAN_KEYS])
         if dev.type == "cuda" and on_dispatch is not None:
             events[1].record()
-        last = dict(zip(SCAN_KEYS, metrics[-1].tolist()))
+        last = dict(zip(SCAN_KEYS, mesh.all_reduce_sum(metrics)[-1].tolist()))
         dt = time.perf_counter() - t0
         last["steps_per_sec"] = spd / dt
         logger.log(state.step, last, "train")
-        print(f"step {state.step} "
-              + " ".join(f"{k}={v:.4f}" for k, v in last.items()))
+        if mesh.is_main():
+            print(f"step {state.step} "
+                  + " ".join(f"{k}={v:.4f}" for k, v in last.items()))
         if on_dispatch is not None:
             rec = {"step": state.step, "wall_s": dt}
             if dev.type == "cuda":
@@ -743,14 +796,18 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
             on_dispatch(rec)
 
         # one resident val batch, every dispatch
-        if val_batch is None:
-            val_batch = batch_to_torch(next(iter(val_it)), dev)
-        _, losses = detector_eval_step(state, val_batch)
-        agg = {k: float(v) for k, v in losses.items()}
-        logger.log(state.step, agg, "val")
-        print(f"step {state.step} VAL "
-              + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
-        ckpt.save(state.step, state, agg)
+        def validate():
+            nonlocal val_batch
+            if val_batch is None:
+                val_batch = batch_to_torch(next(iter(val_it)), dev)
+            _, losses = detector_eval_step(state, val_batch)
+            agg = {k: float(v) for k, v in losses.items()}
+            logger.log(state.step, agg, "val")
+            print(f"step {state.step} VAL "
+                  + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
+            ckpt.save(state.step, state, agg)
+
+        rank0_validation(validate)
     return state
 
 

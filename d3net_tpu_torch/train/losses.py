@@ -6,6 +6,11 @@ instance points, and the proposal score BCE against piecewise-linear
 "segmented" IoU targets, where the proposal-vs-GT point-set IoU matrix is
 one fixed-shape segment count per batch, and the ``pred_bbox`` head's
 VoteNet-style ``bbox_loss``. Key names are the JAX package's.
+
+Under a process group (``parallel.mesh``) each rank's loss is its share of
+the global batch's: its local masked sum over the global count
+(``mesh.global_count``), its per-scene sum over the global scene count
+(``mesh.global_mean``); the ranks' shares add up to the global loss.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 from torch.nn import functional as F
 
 from d3net_tpu_torch.ops import segment as seg
+from d3net_tpu_torch.parallel import mesh
 
 
 def cross_entropy_ignore(logits, labels, ignore_label: int = -1, mask=None):
@@ -27,7 +33,7 @@ def cross_entropy_ignore(logits, labels, ignore_label: int = -1, mask=None):
     safe = labels.clamp(0, logits.shape[-1] - 1).long()
     nll = -F.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
     v = valid.to(logits.dtype)
-    return (nll * v).sum() / v.sum().clamp(min=1.0)
+    return (nll * v).sum() / mesh.global_count(v.sum()).clamp(min=1.0)
 
 
 def offset_losses(pt_offsets, point_xyz, instance_mean_xyz, instance_ids,
@@ -35,7 +41,7 @@ def offset_losses(pt_offsets, point_xyz, instance_mean_xyz, instance_ids,
     """L1-norm and cosine-direction offset losses over instance points."""
     gt = instance_mean_xyz - point_xyz
     v = ((instance_ids != ignore_label) & point_mask).to(pt_offsets.dtype)
-    denom = v.sum().clamp(min=1e-6)
+    denom = mesh.global_count(v.sum()).clamp(min=1e-6)
     norm_loss = ((pt_offsets - gt).abs().sum(-1) * v).sum() / denom
     # rsqrt(sumsq + eps) keeps gradients finite at exactly-zero vectors
     # (padded points), where d||x||/dx is undefined
@@ -95,7 +101,7 @@ def score_loss(scores_logits, member_pt, instance_ids, point_mask,
            - scores_logits * target
            + torch.log1p(torch.exp(-scores_logits.abs())))
     w = cluster_mask.to(bce.dtype)
-    return (bce * w).sum() / w.sum().clamp(min=1.0), gt_iou
+    return (bce * w).sum() / mesh.global_count(w.sum()).clamp(min=1.0), gt_iou
 
 
 def _huber(x, delta: float = 1.0):
@@ -173,12 +179,12 @@ def bbox_loss(out: Dict, batch: Dict,
     sem_per = _masked_ce(out["sem_cls_scores"], cls_at, valid_p)
 
     losses = {
-        "center_loss": center_per.mean(),
-        "heading_cls_loss": h_cls_per.mean(),
-        "heading_reg_loss": h_reg_per.mean(),
-        "size_cls_loss": s_cls_per.mean(),
-        "size_reg_loss": s_reg_per.mean(),
-        "bbox_sem_cls_loss": sem_per.mean(),
+        "center_loss": mesh.global_mean(center_per),
+        "heading_cls_loss": mesh.global_mean(h_cls_per),
+        "heading_reg_loss": mesh.global_mean(h_reg_per),
+        "size_cls_loss": mesh.global_mean(s_cls_per),
+        "size_reg_loss": mesh.global_mean(s_reg_per),
+        "bbox_sem_cls_loss": mesh.global_mean(sem_per),
     }
     losses["bbox_loss"] = (
         losses["center_loss"] + 0.1 * losses["heading_cls_loss"]
@@ -216,8 +222,8 @@ def detector_loss(out: Dict, batch: Dict, *,
             fg_thresh, bg_thresh)
         cmask = out["cluster_mask_all"].to(gt_iou.dtype)
         losses["score_loss"] = s_loss
-        losses["gt_iou_mean"] = (gt_iou * cmask).sum() / cmask.sum().clamp(
-            min=1.0)
+        losses["gt_iou_mean"] = (gt_iou * cmask).sum() / mesh.global_count(
+            cmask.sum()).clamp(min=1.0)
         total = total + loss_weight[3] * s_loss
     if "pred_center" in out:
         bb = bbox_loss(out, batch, mean_size_arr=mean_size_arr)

@@ -13,6 +13,9 @@ Parity targets:
 
 ``argmax`` keeps the first index on ties, as ``jnp.argmax``: a row whose
 IoUs are all 0 is labelled with proposal 0.
+
+Under a process group (``parallel.mesh``) every mean is this rank's share
+of the global batch's: local sum over the global count.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.nn import functional as F
 
+from d3net_tpu_torch.parallel import mesh
 from d3net_tpu_torch.utils.bbox import aabb_iou_corners
 
 
@@ -34,10 +38,10 @@ def caption_loss(pred_logits, lang_ids, good_bbox_masks, pad_id: int = 0
     targets = lang_ids[:, 1:].long()
     w = ((targets != pad_id) & good_bbox_masks[:, None]).to(pred_logits.dtype)
     nll = -F.log_softmax(pred_logits, -1).gather(-1, targets[..., None])[..., 0]
-    denom = w.sum().clamp(min=1.0)
+    denom = mesh.global_count(w.sum()).clamp(min=1.0)
     loss = (nll * w).sum() / denom
     acc = ((pred_logits.argmax(-1) == targets) * w).sum() / denom
-    any_good = good_bbox_masks.sum() > 0
+    any_good = mesh.global_count(good_bbox_masks.sum()) > 0
     return torch.where(any_good, loss, 0.0), torch.where(any_good, acc, 0.0)
 
 
@@ -73,7 +77,7 @@ def orientation_loss(
     w = (rmask[:, :, None] * tgt_m * local_mask).to(edge_orientations.dtype)
     nll = -F.log_softmax(edge_orientations, -1).gather(
         -1, labels[..., None])[..., 0]
-    denom = w.sum() + 1e-8
+    denom = mesh.global_count(w.sum()) + 1e-8
     loss = (nll * w).sum() / denom
     acc = ((edge_orientations.argmax(-1) == labels) * w).sum() / denom
     return loss, acc
@@ -83,7 +87,7 @@ def softmax_ranking_loss(preds, targets, reduce: bool = True) -> torch.Tensor:
     """-sum(target * log softmax(pred)) (ref ``SoftmaxRankingLoss``)."""
     probs = torch.softmax(preds + 1e-8, dim=1)
     loss = -(torch.log(probs + 1e-8) * targets).sum(1)
-    return loss.mean() if reduce else loss
+    return mesh.global_mean(loss) if reduce else loss
 
 
 def contrastive_loss(preds, targets, margin: float = 0.2, gamma: float = 5.0,
@@ -100,7 +104,7 @@ def contrastive_loss(preds, targets, margin: float = 0.2, gamma: float = 5.0,
     sim = (score * targets).sum(1)
     neg_sim = torch.logsumexp(score * (1.0 - targets), dim=1)
     loss = torch.clamp(neg_sim - sim + margin, min=0.0)
-    return loss.mean() if reduce else loss
+    return mesh.global_mean(loss) if reduce else loss
 
 
 def grounding_labels(pred_corners, ref_corner_label
@@ -132,15 +136,15 @@ def grounding_loss(
         per_row = softmax_ranking_loss(cluster_ref, labels, reduce=False)
     if annotated is not None:
         w = annotated.to(per_row.dtype)
-        loss = (per_row * w).sum() / w.sum().clamp(min=1.0)
+        loss = (per_row * w).sum() / mesh.global_count(w.sum()).clamp(min=1.0)
     else:
         w = torch.ones_like(per_row)
-        loss = per_row.mean()
+        loss = mesh.global_mean(per_row)
     pred_idx = cluster_ref.detach().argmax(-1)
     label_idx = labels.argmax(-1)
     chosen_iou = ious.gather(1, pred_idx[:, None])[:, 0]
     best_iou = ious.gather(1, label_idx[:, None])[:, 0]
-    denom = w.sum().clamp(min=1.0)
+    denom = mesh.global_count(w.sum()).clamp(min=1.0)
     metrics = {
         "ref_acc_mean": ((pred_idx == label_idx) * w).sum() / denom,
         "ref_iou_mean": (chosen_iou * w).sum() / denom,
@@ -160,7 +164,7 @@ def lang_cls_loss(lang_scores, ref_cat_label,
     nll = -F.log_softmax(lang_scores, -1).gather(-1, target[:, None])[:, 0]
     w = (annotated.to(nll.dtype) if annotated is not None
          else torch.ones_like(nll))
-    denom = w.sum().clamp(min=1.0)
+    denom = mesh.global_count(w.sum()).clamp(min=1.0)
     loss = (nll * w).sum() / denom
     acc = ((lang_scores.detach().argmax(-1) == target) * w).sum() / denom
     return (loss if reduce else nll), acc

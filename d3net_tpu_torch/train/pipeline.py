@@ -61,7 +61,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from d3net_tpu_torch.config import Config, save as save_cfg
+from d3net_tpu_torch.config import Config
 from d3net_tpu_torch.data.collate import batch_to_torch
 from d3net_tpu_torch.data.language import (
     base_corpus, build_lang_batch, describe_instance,
@@ -74,12 +74,14 @@ from d3net_tpu_torch.eval.grounding_eval import GroundingEvaluator
 from d3net_tpu_torch.models.listener import ListenerDraws
 from d3net_tpu_torch.models.match import gumbel_draw
 from d3net_tpu_torch.models.pipeline import PipelineNet
+from d3net_tpu_torch.parallel import mesh
 from d3net_tpu_torch.params import (
     flax_to_state_dict, init_flax_variables, state_dict_to_flax,
 )
 from d3net_tpu_torch.train.loop import (
     Checkpointer, StepLoop, detector_cfg_dict, in_channels_from_cfg,
-    make_dataloaders, spec_from_cfg, step_generator, write_run_meta,
+    make_dataloaders, rank0_validation, run_meta_extra, setup_run,
+    spec_from_cfg, step_generator, write_run_meta,
 )
 from d3net_tpu_torch.train.losses import detector_loss
 from d3net_tpu_torch.train.losses_slt import (
@@ -182,9 +184,11 @@ def speaker_losses(model: PipelineNet, batch: Dict, lang: Dict, *,
                              jitter_u=jitter_u, proposal_perm=proposal_perm)
     det = detector_loss(out, batch, loss_weight=loss_weight)["total_loss"]
     data = {**out, **lang, **expand_rows(out, batch, chunk_size)}
+    b, p = out["proposal_batch_mask"].shape
     if gumbel is None:
-        b, p = out["proposal_batch_mask"].shape
-        gumbel = gumbel_draw((b * chunk_size, p), generator, det.device)
+        gumbel = mesh.draw_rows(lambda n: gumbel_draw(
+            (n, p), generator, det.device), b * chunk_size)
+    gumbel = mesh.local_rows(gumbel, b * chunk_size)
     data = model.run_speaker(data, mode="tf", chunk_size=chunk_size,
                              gumbel=gumbel)
     annotated = lang["annotated"]
@@ -205,7 +209,7 @@ def speaker_losses(model: PipelineNet, batch: Dict, lang: Dict, *,
         "detect_loss": det, "captioning_loss": cap_l,
         "orientation_loss": ori_l, "cap_acc": cap_acc, "ori_acc": ori_acc,
         "pred_ious": (data["target_ious"] * annotated).sum()
-        / annotated.sum().clamp(min=1.0),
+        / mesh.global_count(annotated.sum()).clamp(min=1.0),
         "loss": total,
     }
     return total, metrics, data
@@ -227,14 +231,22 @@ def speaker_train_step(state: TrainState, batch: Dict, lang: Dict,
         state.model, batch, lang, chunk_size=chunk_size,
         loss_weight=loss_weight, generator=generator, jitter_u=jitter_u,
         proposal_perm=proposal_perm, gumbel=gumbel)
-    return apply_gradients(state, total), {k: v.detach()
-                                           for k, v in metrics.items()}
+    return apply_gradients(state, total), step_metrics(metrics)
+
+
+def step_metrics(metrics: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """A step's metrics, detached; under a process group the global values
+    (each rank's shares summed)."""
+    return mesh.sum_metrics({k: v.detach() for k, v in metrics.items()})
 
 
 def apply_gradients(state: TrainState, total: torch.Tensor) -> TrainState:
     """The backward of ``total`` through the parameters that require a
     gradient, then one optimizer and scheduler step; returns ``state``
-    (updated in place)."""
+    (updated in place). Under a process group ``total`` is this rank's
+    share of the global loss and the gradients are summed over the ranks
+    before the step."""
     params = [p for p in state.model.parameters() if p.requires_grad]
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
@@ -244,6 +256,7 @@ def apply_gradients(state: TrainState, total: torch.Tensor) -> TrainState:
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    mesh.all_reduce_grads(params)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -305,8 +318,7 @@ def listener_train_step(state: TrainState, batch: Dict, lang: Dict,
         state.model, batch, lang, chunk_size=chunk_size,
         loss_weight=loss_weight, loss_type=loss_type, generator=generator,
         jitter_u=jitter_u, proposal_perm=proposal_perm, draws=draws)
-    return apply_gradients(state, total), {k: v.detach()
-                                           for k, v in metrics.items()}
+    return apply_gradients(state, total), step_metrics(metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -383,23 +395,31 @@ def caption_scores(reward_fn, rollout: Mapping[str, torch.Tensor],
     ``lang_ids``), each row repeated ``sample_topn`` times: two
     ``reward_fn`` calls, each its own corpus. The ids, references and
     annotation come to the host in one copy, the step's one host sync.
+    Under a process group the corpus is the global batch's, as JAX's: every
+    rank's host rows are gathered (the gloo group), both calls score all of
+    them on every rank, and each rank keeps its rows (CIDEr's document
+    frequencies over one rank's references would differ).
     -> two (N·topn,) f32 tensors on the rollout's device."""
     sampled, baseline = rollout["sampled_cap"], rollout["baseline_cap"]
     n = sampled.shape[0]
     gt = lang.get("gt_refs", lang["lang_ids"])
     parts = [sampled.reshape(n, -1), baseline, gt.reshape(n, -1),
              (lang["annotated"] > 0)[:, None]]
-    host = torch.cat([x.to(torch.int32) for x in parts], 1).cpu().numpy()
+    host = mesh.host_all_gather(
+        torch.cat([x.to(torch.int32) for x in parts], 1).cpu().numpy())
     ids_s, ids_b, gt_np, ann = np.split(host, np.cumsum(
         [x.shape[1] for x in parts[:-1]]), axis=1)
 
     def rep(x):
         return np.repeat(x, sample_topn, axis=0)
 
-    gt_np = rep(gt_np.reshape((n,) + tuple(gt.shape[1:])))
+    n_all = host.shape[0]
+    gt_np = rep(gt_np.reshape((n_all,) + tuple(gt.shape[1:])))
     ann = rep(ann[:, 0])
-    return tuple(torch.from_numpy(reward_fn(ids, gt_np, ann)).to(
-        sampled.device) for ids in (ids_s.reshape(n * sample_topn, -1),
+    mine = slice(mesh.rank() * n * sample_topn,
+                 (mesh.rank() + 1) * n * sample_topn)
+    return tuple(torch.from_numpy(reward_fn(ids, gt_np, ann)[mine]).to(
+        sampled.device) for ids in (ids_s.reshape(n_all * sample_topn, -1),
                                     rep(ids_b)))
 
 
@@ -481,16 +501,16 @@ def speaker_stream_losses(model: PipelineNet, batch: Dict, lang: Dict,
     n_rows = lang["lang_ids"].shape[0]
     logps = data["sampled_logps"].reshape(n_rows * sample_topn, -1).sum(-1)
     good = data["good_bbox_masks"].float().repeat_interleave(sample_topn, 0)
-    n_good = good.sum() + 1e-8
+    n_good = mesh.global_count(good.sum()) + 1e-8
     cap_loss_rl = -(rewards * logps * good).sum() / n_good
     ann_mask = lang["annotated"].repeat_interleave(sample_topn, 0) * good
-    spk_ref_loss = ref_sampled.mean()
+    spk_ref_loss = mesh.global_mean(ref_sampled)
     metrics = {
         "cap_rwd": (caption_reward * good).sum() / n_good,
         "loc_rwd": (listener_reward * good).sum() / n_good,
         "ttl_rwd": (rewards * good).sum() / n_good,
-        "cap_acc": (sampled_scores * ann_mask).sum() / (ann_mask.sum()
-                                                        + 1e-8),
+        "cap_acc": (sampled_scores * ann_mask).sum()
+        / (mesh.global_count(ann_mask.sum()) + 1e-8),
         "spk_detect_loss": det, "captioning_loss": cap_loss_rl,
         "spk_ref_loss": spk_ref_loss}
     total = det + cap_loss_rl
@@ -502,7 +522,7 @@ def speaker_stream_losses(model: PipelineNet, batch: Dict, lang: Dict,
                              pad_id=model.pad_id)
         metrics["cap_xe_loss"] = xe_weight * xe
         total = total + metrics["cap_xe_loss"]
-    total = total + spk_ref_loss + lang_sampled.mean()
+    total = total + spk_ref_loss + mesh.global_mean(lang_sampled)
     return total, metrics, {**rollout, "sampled_scores": sampled_scores,
                             "baseline_scores": baseline_scores}
 
@@ -543,14 +563,21 @@ def joint_rl_losses(model: PipelineNet, spk_batch: Dict, spk_lang: Dict,
     b = spk_batch["point_mask"].shape[0]
     p = det.max_num_proposal
     if jitter_u is None:
-        jitter_u = torch.rand((b, 2 * det.clusters_per_pass, 3),
-                              generator=generator, device=dev)
+        jitter_u = mesh.draw_rows(lambda n: torch.rand(
+            (n, 2 * det.clusters_per_pass, 3), generator=generator,
+            device=dev), b)
     if proposal_perm is None:
-        proposal_perm = torch.stack([
+        proposal_perm = mesh.draw_rows(lambda n: torch.stack([
             torch.randperm(p, generator=generator, device=dev)
-            for _ in range(b)])
+            for _ in range(n)]), b)
     if gumbel is None and rollout is None:
-        gumbel = gumbel_draw((b * chunk_size, p), generator, dev)
+        gumbel = mesh.draw_rows(lambda n: gumbel_draw(
+            (n, p), generator, dev), b * chunk_size)
+    if gumbel is not None:
+        gumbel = mesh.local_rows(gumbel, b * chunk_size)
+    if rollout is not None:
+        rollout = {k: mesh.local_rows(v, b * chunk_size)
+                   for k, v in rollout.items()}
     if spk_draws is None:
         spk_draws = ListenerDraws(generator)
     kw = dict(chunk_size=chunk_size, loss_weight=loss_weight,
@@ -586,8 +613,7 @@ def joint_rl_train_step(state: TrainState, spk_batch: Dict, spk_lang: Dict,
     total, metrics, rollout = joint_rl_losses(
         state.model, spk_batch, spk_lang, lis_batch, lis_lang, reward_fn,
         generator=generator, **kw)
-    return (apply_gradients(state, total),
-            {k: v.detach() for k, v in metrics.items()}, rollout)
+    return apply_gradients(state, total), step_metrics(metrics), rollout
 
 
 # ---------------------------------------------------------------------------
@@ -657,13 +683,16 @@ def run_pipeline_training(cfg: Config, run_dir: str,
     the call) and the reward is ``train.caption_reward_weight``'s CIDEr
     over ``train.num_caption_refs`` references. Runs on CUDA unless
     ``device`` says otherwise; ``on_step`` is ``StepLoop``'s, with the
-    card waited on around each part of a step.
+    card waited on around each part of a step. Under a process group
+    (``parallel.mesh``) each rank trains on its rows of every global batch
+    (the description rows drawn over the global batch's scenes), every
+    rank loads the pretrained weights, and rank 0 alone writes the run dir
+    and validates.
     """
     _, cap, grd = task_mode(cfg)
     mode = 3 if cap and grd else 1 if cap else 2
     dev = resolve_device(device)
-    os.makedirs(run_dir, exist_ok=True)
-    save_cfg(cfg, os.path.join(run_dir, "config.yaml"))
+    setup_run(cfg, run_dir)
     ckpt = Checkpointer(run_dir, cfg.general.monitor.split("/")[-1],
                         cfg.general.monitor_mode)
 
@@ -701,18 +730,18 @@ def run_pipeline_training(cfg: Config, run_dir: str,
         multiplier=cfg.train.multiplier,
         steps_per_epoch=max(1, len(train_it)),
     )
-    if ckpt.restore_last(state) is not None:
+    if ckpt.restore_last(state) is not None and mesh.is_main():
         print(f"resumed from step {state.step}")
-    write_run_meta(run_dir, cfg, {
-        "framework": f"torch {torch.__version__}", "device": str(dev),
-        "conv_impl": "gather",
-        "conv_impl_requested": cfg.tpu.get("conv_impl") or "gather"})
+    mesh.replicate(state.model, state.optimizer)
+    write_run_meta(run_dir, cfg, run_meta_extra(dev, cfg))
     loop = StepLoop(cfg, run_dir, dev, train_it.augment, state.step,
                     max_steps, on_step, True)
 
     def to_device(item):
+        # the rows are drawn over the global batch's scenes; a rank keeps
+        # its own
         batch_np, scenes = item
-        lang_np = make_lang(scenes)
+        lang_np = mesh.shard_host_batch(make_lang(scenes))
         return [batch_np, lang_np], (batch_to_torch(batch_np, dev),
                                      lang_rows(lang_np, emb, dev))
 
@@ -749,14 +778,18 @@ def run_pipeline_training(cfg: Config, run_dir: str,
         if ((epoch + 1) % check_every != 0 and epoch + 1 < cfg.train.epochs
                 and not loop.done):
             continue
-        val_metrics = run_pipeline_validation(
-            cfg, model, val_it, vocab, emb, mode,
-            diag_path=os.path.join(run_dir, "caption_diag.json"))
-        loop.logger.log(loop.step, val_metrics, "val")
-        print(f"epoch {epoch} VAL " + " ".join(
-            f"{k}={v:.4f}" for k, v in sorted(val_metrics.items())))
-        ckpt.save(loop.step, state, val_metrics)
-        print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s")
+
+        def validate():
+            val_metrics = run_pipeline_validation(
+                cfg, model, val_it, vocab, emb, mode,
+                diag_path=os.path.join(run_dir, "caption_diag.json"))
+            loop.logger.log(loop.step, val_metrics, "val")
+            print(f"epoch {epoch} VAL " + " ".join(
+                f"{k}={v:.4f}" for k, v in sorted(val_metrics.items())))
+            ckpt.save(loop.step, state, val_metrics)
+            print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s")
+
+        rank0_validation(validate)
         if loop.done:
             break
     loop.finish()

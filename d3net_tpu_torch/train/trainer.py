@@ -22,6 +22,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from d3net_tpu_torch.parallel import mesh
 from d3net_tpu_torch.train.losses import detector_loss
 
 
@@ -76,12 +77,20 @@ def detector_train_step(state: TrainState, batch: Dict,
                         do_clustering: bool = True,
                         jitter_u: Optional[torch.Tensor] = None,
                         proposal_perm: Optional[torch.Tensor] = None,
+                        sum_metrics: bool = True,
                         ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step of ``state.model`` on ``batch``.
 
     The cluster jitter and the proposal shuffle come from ``generator``
     unless given as tensors. Returns the state (updated in place) and the
     losses plus ``grad_norm``, as detached tensors.
+
+    Under a process group (``parallel.mesh``) ``batch`` is this rank's rows
+    of the global batch, and the step is the global batch's: the loss is
+    this rank's share, the gradients are summed over the ranks before the
+    update (``grad_norm`` is the global gradient's), and the losses are the
+    global values, or this rank's shares with ``sum_metrics=False`` (a
+    caller that sums many steps' at once).
     """
     model = state.model
     params = [p for p in model.parameters() if p.requires_grad]
@@ -97,7 +106,10 @@ def detector_train_step(state: TrainState, batch: Dict,
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    mesh.all_reduce_grads(params)
     metrics = {k: v.detach() for k, v in losses.items()}
+    if sum_metrics:
+        metrics = mesh.sum_metrics(metrics)
     metrics["grad_norm"] = global_norm([p.grad for p in params])
     state.optimizer.step()
     state.scheduler.step()

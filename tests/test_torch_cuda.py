@@ -15,7 +15,9 @@ step (detector trained and frozen) and the joint train CLI on cuda
 against cpu; ENet's forward and train step, the scan trainer and
 ``compute_multiview_features`` on cuda against cpu; the ScanRefer
 submission writers and ``port_enet_weights --selftest`` on cuda against
-cpu.
+cpu; data-parallel training: the detector step through a one-rank NCCL
+group against the step with no group, and two gloo ranks on one card
+against world size 1 (the detector step and the joint step).
 
 This file imports no JAX, so it also runs on a machine that has only
 PyTorch: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``
@@ -813,3 +815,42 @@ def test_tools_cuda_matches_cpu(card, tmp_path):
                                          "tiny_joint.yaml"), str(tmp_path))
     assert res["ok"], res
     assert res["caption_entries"] > 0 and res["grounding_entries"] > 0
+
+
+@pytest.mark.cuda
+def test_world1_nccl_step_matches_the_step_without_a_group(card):
+    """``chip_smoke.py`` phase ``dist`` (a) at tests/test_parallel.py's
+    widths: the detector step through a one-rank NCCL group against the
+    step with no group (``checks.world1_group_step``), every gather
+    exact."""
+    from d3net_tpu_torch import checks
+
+    case = checks.detector_dp_case(2)
+    res = checks.world1_group_step(case["variables"], case["cfg"],
+                                   batch_to_torch(case["batch"], "cuda"))
+    assert res["ok"], res["compare"]
+    assert res["launches"] == res["checked"] > 0
+    assert res["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_match_world1(card):
+    """``chip_smoke.py`` phase ``dist`` (b): two gloo ranks on cuda:0
+    against world size 1 on the card at conf/debug/ widths: the detector
+    step with and without clustering, the mode-3 joint step and
+    ``MaskedBatchNorm`` in bf16 (``checks.dist_ranks_on_one_card``)."""
+    from d3net_tpu_torch import checks
+    from d3net_tpu_torch.scripts.train import load_task_config
+    from d3net_tpu_torch.train import loop, pipeline
+
+    cfg = load_task_config(os.path.join(ROOT, "conf", "debug",
+                                        "tiny_pointgroup.yaml"))
+    train_it, _ = loop.make_dataloaders(cfg, loop.spec_from_cfg(cfg))
+    det = checks.detector_case(loop.detector_cfg_dict(cfg),
+                               next(iter(train_it)))
+    jcfg = checks.joint_parity_config(load_task_config(os.path.join(
+        ROOT, "conf", "debug", "tiny_joint.yaml")))
+    vocab, emb = pipeline.build_vocab(jcfg)
+    res = checks.dist_ranks_on_one_card(
+        det, jcfg, checks.joint_step_case(jcfg, vocab, emb))
+    assert res["ok"], res["outside_tolerance"]

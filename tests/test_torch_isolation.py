@@ -77,7 +77,9 @@ def test_port_imports_no_jax_flax_or_reference():
                 "d3net_tpu_torch.scripts.visualize_captioning",
                 "d3net_tpu_torch.scripts.visualize_grounding",
                 "d3net_tpu_torch.scripts.visualize_scannet",
-                "d3net_tpu_torch.scripts.port_enet_weights"):
+                "d3net_tpu_torch.scripts.port_enet_weights",
+                "d3net_tpu_torch.parallel.mesh",
+                "d3net_tpu_torch.parallel.dryrun"):
         assert mod in res["modules"]
     assert os.path.exists(os.path.join(ROOT, "d3net_tpu_torch", "train",
                                        "__init__.py"))
