@@ -8,7 +8,11 @@ With ``--cards N`` it runs only the train entry (``scripts.train.train``)
 on conf/pointgroup.yaml for CARDS_STEPS steps on one card and then over N
 cards (one NCCL process a card), after the host's cost of a rank's batch
 build: lines ``cards_collate`` and ``cards_run`` (rank 0's ``iter_time``
-a step, its traced device and NCCL ms a step), then ``nvidia-smi``'s line.
+a step, its traced device and NCCL ms a step); then the detection eval
+of the N-card run dir on one card and over N (line ``cards_eval``: the
+eval entry's seconds of each at the default settings, then both under
+parity precision and deterministic algorithms, their metrics held equal);
+then ``nvidia-smi``'s line.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -283,6 +287,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               ``dist_dryrun``: ``parallel/dryrun.py``'s two steps in the
               same two ranks (one start of the ranks for both), its two
               lines printed, finite losses.
+34. dist_eval — the eval CLI's tasks over two ranks on cuda:0 (gloo), one
+              start of the ranks: ``captioning`` and ``grounding`` on the
+              ``joint_train`` run dir (f32; one val batch of 4, two scenes
+              a rank) held against the ``joint_eval`` phase's one-process
+              evals; ``detection`` on the ``run`` phase's (bf16, two
+              batches) beside the ``eval`` phase's, reported (the bf16
+              eval forward does not reproduce itself run to run at the
+              default settings), and held under parity precision and
+              deterministic algorithms against a one-process eval under
+              the same settings. Held: metrics and the json file (ints
+              and strings exact, floats within rtol 1e-5), both ranks'
+              metrics equal, every ``gather_rows`` call of every rank
+              exact against ``gather_rows_plain`` as it runs, 75 a rank a
+              val batch; each rank's seconds beside the one process's.
 
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
@@ -293,7 +311,8 @@ of the ``run``, ``spk_train``, ``lis_train`` and ``joint_train`` phases
 and per batch of the ``caption``, ``grounding`` and ``tools`` phases, with
 the three train stages' bounds and device times, and the same three for
 the ``flagship_train`` scan step (its ``max_abs_err`` covers every checked
-gather), and the ``dist_step``'s launches per step. The last two lines are
+gather), the ``dist_step``'s launches per step and ``dist_eval``'s a rank
+a val batch. The last two lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, the script exits non-zero
 and prints no result. It imports nothing of JAX or of the JAX package.
@@ -320,12 +339,12 @@ import torch
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch.checks import (
-    GatherRecorder, detector_case, dist_ranks_on_one_card, enet_cuda_vs_cpu,
-    joint_parity_config, joint_step_case,
-    joint_step_cuda_vs_cpu, joint_step_kw, listener_cuda_vs_cpu,
-    listener_step_case, listener_step_cuda_vs_cpu, randomize, relu_sides, speaker_cuda_vs_cpu,
-    speaker_step_case, speaker_step_cuda_vs_cpu, tools_cuda_vs_cpu,
-    world1_group_step,
+    GatherRecorder, detector_case, detector_repro, dist_ranks_on_one_card,
+    enet_cuda_vs_cpu, eval_outputs, evals_world_vs_one, joint_parity_config,
+    joint_step_case, joint_step_cuda_vs_cpu, joint_step_kw,
+    listener_cuda_vs_cpu, listener_step_case, listener_step_cuda_vs_cpu,
+    randomize, relu_sides, speaker_cuda_vs_cpu, speaker_step_case,
+    speaker_step_cuda_vs_cpu, tools_cuda_vs_cpu, world1_group_step,
 )
 from d3net_tpu_torch.config import save as save_cfg
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
@@ -1519,7 +1538,8 @@ def _tensors(tree):
 
 
 def phase_eval(run_dir, val_batches, per_forward):
-    """The detection eval CLI on the run dir."""
+    """The detection eval CLI on the run dir; returns its outputs
+    (``checks.eval_outputs``), metrics and seconds for ``dist_eval``."""
     gather.gather_rows.launches = 0
     t0 = time.time()
     eval_cli.main(["--folder", run_dir, "--task", "detection"])
@@ -1534,9 +1554,19 @@ def phase_eval(run_dir, val_batches, per_forward):
         raise AssertionError(f"eval: checkpoint {res['checkpoint']}")
     if launches != val_batches * per_forward:
         raise AssertionError(f"eval: {launches} gather_rows launches")
+    seconds = time.time() - t0
     emit({"phase": "eval", **{k: res[k] for k in keys},
           "checkpoint": res["checkpoint"], "gather_launches": launches,
-          "seconds": round(time.time() - t0, 3)})
+          "seconds": round(seconds, 3)})
+    return world1_eval("detection", run_dir, seconds)
+
+
+def world1_eval(task, run_dir, seconds):
+    """A one-process eval CLI's outputs in ``checks.eval_rank``'s form."""
+    out = eval_outputs(task, run_dir)
+    metrics = json.loads(out["json"])
+    metrics.pop("checkpoint")
+    return {**out, "metrics": metrics, "seconds": seconds}
 
 
 # --------------------------------------------------------------------------
@@ -2534,10 +2564,11 @@ def phase_joint_train(root, det_run_dir, spk_run_dir, lis_run_dir,
 def phase_joint_eval(run_dir, per_forward):
     """The eval CLI's captioning and grounding tasks on the joint run dir,
     one val batch each: finite metrics, the checkpoint stamped, 75
-    ``gather_rows`` launches a batch."""
+    ``gather_rows`` launches a batch. Returns each task's outputs for
+    ``dist_eval``."""
     t0 = time.time()
     cfg = load_task_config(os.path.join(run_dir, "config.yaml"))
-    report = {}
+    report, outputs = {}, {}
     for task, keys in (("captioning", ("bleu4", "cider", "rouge")),
                        ("grounding", ("ref_iou_rate_0.25", "ref_iou_rate_0.5",
                                       "iou_mean"))):
@@ -2555,14 +2586,90 @@ def phase_joint_eval(run_dir, per_forward):
             raise AssertionError(f"joint_eval {task}: {res['checkpoint']}")
         if launches != per_forward:
             raise AssertionError(f"joint_eval {task}: {launches} gathers")
+        outputs[task] = world1_eval(task, run_dir, time.time() - t1)
         report[task] = {**{k: res[k] for k in keys},
                         "checkpoint": res["checkpoint"],
                         "gather_launches": launches,
-                        "cli_s": round(time.time() - t1, 3)}
+                        "cli_s": round(outputs[task]["seconds"], 3)}
     emit({"phase": "joint_eval", **report,
           "reduced": [f"{cfg.data.batch_size} val scenes, one batch, of the "
                       f"config's {max(2, cfg.data.synthetic.num_scenes // 8)}"],
           "seconds": round(time.time() - t0, 3)})
+    return outputs
+
+
+def phase_dist_eval(run_dir, joint_run, world1, per_forward):
+    """The eval CLI's tasks over two ranks on cuda:0 (gloo: NCCL takes one
+    rank a card), one start of the ranks for all four evals:
+    ``captioning`` and ``grounding`` on the joint run dir (f32; one val
+    batch of 4, two scenes a rank), held against the ``joint_eval``
+    phase's one-process evals; ``detection`` on the ``run`` phase's run dir
+    (bf16; its 8 val scenes, two batches) at the default settings, beside
+    the ``eval`` phase's, reported and not held: the bf16 eval forward
+    does not reproduce itself run to run at those settings (atomic adds,
+    bf16 reductions); and ``detection`` again with ``exact``
+    (``device.parity_precision()`` and ``checks.deterministic()``, where it
+    reproduces itself whatever the batch's size) against a one-process
+    eval under the same settings, held. Held: ``checks.eval_mismatches``
+    (metrics and the json file: ints and strings exact, floats within rtol
+    1e-5; both ranks' metrics equal), every gather of every rank exact
+    against the plain version as it runs, 75 gathers a rank a val batch.
+    Then ``checks.detector_repro`` on the run dir's detector and first val
+    batch, the cause in numbers: run to run and in halves (two ranks' rows),
+    at the default settings (reported) and under the exact ones (held:
+    nothing differs run to run, no cluster id or proposal in halves).
+    Returns the launches a rank makes a val batch."""
+    t0 = time.time()
+    cfg = load_task_config(os.path.join(joint_run, "config.yaml"))
+    b = int(cfg.data.batch_size)
+    evals = [("captioning", joint_run, b), ("grounding", joint_run, b),
+             ("detection", run_dir, None), ("detection", run_dir, None, True)]
+    res = evals_world_vs_one(
+        evals, world=2, dev="cuda:0", check_gathers=True,
+        one=[world1["captioning"], world1["grounding"], world1["detection"],
+             None])
+    bad, report = [], {}
+    for rec in res["evals"]:
+        name = rec["task"] + ("_exact" if rec["exact"] else "")
+        per_batch = [n // v for n, v in zip(rec["launches_per_rank"],
+                                            rec["val_batches_per_rank"])]
+        if per_batch != [per_forward] * res["world"] or any(
+                n % v for n, v in zip(rec["launches_per_rank"],
+                                      rec["val_batches_per_rank"])):
+            bad.append(f"{name}: launches {rec['launches_per_rank']} over "
+                       f"batches {rec['val_batches_per_rank']}")
+        gathers = [m for m in rec["mismatches"] if "gathers checked" in m]
+        held = name != "detection"
+        bad += [f"{name}: {m}" for m in (rec["mismatches"] if held
+                                         else gathers)]
+        report[name] = {
+            "held": held,
+            **{k: rec[k] for k in ("metrics_world1", "metrics_world2",
+                                   "val_batches_per_rank",
+                                   "launches_per_rank", "checked_per_rank",
+                                   "max_abs_err", "mismatches")},
+            "gathers_per_rank_per_batch": per_batch,
+            "seconds_world1": round(rec["seconds_world1"], 3),
+            "seconds_world2_per_rank": [round(x, 3)
+                                        for x in rec["seconds_world2"]]}
+    # why the bf16 detection eval is held under the exact settings: its
+    # forward on the run dir's first val batch, run to run and in halves
+    rcfg = load_task_config(os.path.join(run_dir, "config.yaml"))
+    spec = spec_from_cfg(rcfg)
+    state, _ = eval_cli.restore_for_eval(
+        init_detector(detector_from_cfg(rcfg), 0).to("cuda"), rcfg, run_dir)
+    _, scenes = next(iter(make_val_loader(rcfg, spec, return_scenes=True)))
+    repro = detector_repro(state.model.eval(), scenes, spec, "cuda")
+    if any(repro["exact"]["run_to_run"].values()) or any(
+            v for k, v in repro["exact"]["halves"].items()
+            if k.endswith("_differ")):
+        bad.append(f"detector forward under the exact settings: {repro}")
+    emit({"phase": "dist_eval", "ranks": 2, "backend": "gloo",
+          "device": "cuda:0", **report, "detector_repro": repro,
+          "seconds": round(time.time() - t0, 3)})
+    if bad:
+        raise AssertionError(f"dist_eval against one process: {bad}")
+    return report["detection_exact"]["gathers_per_rank_per_batch"][0]
 
 
 # --------------------------------------------------------------------------
@@ -3119,15 +3226,49 @@ def cards_run(root, world: int):
             "run_s": run_s}
 
 
+def cards_eval(run_dir, n: int):
+    """The detection eval of ``run_dir`` on one card and over ``n`` (one
+    NCCL process a card): first the eval entry as users call it
+    (``eval_detection(world_size=)``, default settings), the seconds of
+    each and their metrics, reported (the bf16 forward differs run to run
+    there); then both with ``exact`` settings (``checks.eval_rank``:
+    parity precision, deterministic algorithms, where the forward
+    reproduces itself), their seconds, and the metrics held equal (ints
+    exact, floats within rtol 1e-5)."""
+    cfg = load_task_config(os.path.join(run_dir, "config.yaml"))
+    keys = ("mAP@0.25", "mAP@0.5", "AR@0.25", "AR@0.5")
+    out = {"phase": "cards_eval", "task": "detection"}
+    for world in (1, n):
+        t0 = time.time()
+        m = eval_cli.eval_detection(cfg, run_dir, "cuda", world_size=world)
+        out[f"seconds_{world}_cards"] = time.time() - t0
+        out.update({f"{k}_{world}_cards": m[k] for k in keys})
+    res = evals_world_vs_one([("detection", run_dir, None, True)], world=n,
+                             dev="cuda:0", backend="nccl",
+                             devices=[f"cuda:{i}" for i in range(n)])
+    rec = res["evals"][0]
+    out.update({"exact_seconds_1_card": rec["seconds_world1"],
+                f"exact_seconds_{n}_cards_per_rank": rec[
+                    f"seconds_world{n}"],
+                "exact_metrics": {k: rec["metrics_world1"][k] for k in keys},
+                "exact_mismatches": rec["mismatches"]})
+    emit(out)
+    if not res["ok"]:
+        raise AssertionError(f"cards_eval: {n} cards against one: "
+                             f"{res['mismatches']}")
+
+
 def cards_main(n: int) -> int:
     """The collate's cost of a rank's rows, then ``cards_run`` on one card
-    and on ``n``; the ``nvidia-smi`` line last."""
+    and on ``n``, then ``cards_eval`` on the ``n``-card run dir; the
+    ``nvidia-smi`` line last."""
     smi = nvidia_smi_line()
     with tempfile.TemporaryDirectory(prefix="d3net_cards_") as root:
         emit({"phase": "cards_collate",
               **collate_ms(run_config(root), max(n, 2))})
         for world in sorted({1, n}):
             emit(cards_run(root, world))
+        cards_eval(os.path.join(root, f"cards_{n}"), n)
     print(smi, flush=True)
     return 0
 
@@ -3178,7 +3319,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="d3net_run_") as root:
         run_dir, val_batches, run_per_step = phase_run(
             root, train["train_launches"], launches, train["step_ms"])
-        phase_eval(run_dir, val_batches, launches)
+        world1 = {"detection": phase_eval(run_dir, val_batches, launches)}
         phase_caption_parity()
         det_weights = run_detector_weights(run_dir)
         caption_launches, caption_err = phase_caption(det_weights, launches)
@@ -3209,7 +3350,7 @@ def main(argv=None) -> int:
             stage_run_dir(os.path.join(root, "spk"), CAPTION_CONFIG),
             stage_run_dir(os.path.join(root, "lis"), GROUNDING_CONFIG),
             train["train_launches"], launches)
-        phase_joint_eval(joint_run, launches)
+        world1.update(phase_joint_eval(joint_run, launches))
         tools_launches = phase_tools(joint_run, launches)
         phase_tools_parity(os.path.join(root, "tools"))
         phase_enet_parity()
@@ -3218,6 +3359,8 @@ def main(argv=None) -> int:
             os.path.join(root, "flagship"), store, train["train_launches"],
             launches)
         phase_scannet_eval(flagship_run, launches)
+        dist_eval_launches = phase_dist_eval(run_dir, joint_run, world1,
+                                             launches)
     phase_dist_ranks()
     kernels[0]["run_launches_per_step"] = run_per_step
     kernels[0]["caption_launches_per_batch"] = caption_launches
@@ -3225,6 +3368,7 @@ def main(argv=None) -> int:
     kernels[0]["grounding_launches_per_batch"] = grounding_launches
     kernels[0]["grounding_max_abs_err"] = grounding_err
     kernels[0]["tools_launches_per_batch"] = tools_launches
+    kernels[0]["dist_eval_launches_per_rank_per_batch"] = dist_eval_launches
     kernels[0].update(spk)
     kernels[0].update(lis)
     kernels[0].update(joint)

@@ -41,7 +41,10 @@ devices' noise must stay under 1e-5 of the largest gradient.
 from __future__ import annotations
 
 import contextlib
+import json
+import math
 import os
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -1459,6 +1462,283 @@ def train_rank(cfg, run_dir: str, steps: Sequence[int]) -> Dict[str, Any]:
             and _tree_equal(fresh.scheduler.state_dict(),
                             state.scheduler.state_dict()))
     return out
+
+
+EVAL_RTOL = 1e-5     # a float of an eval's output, world N against world 1
+
+
+def eval_outputs(task: str, run_dir: str) -> Dict[str, Any]:
+    """What an eval of ``task`` left in ``run_dir``: ``eval_<task>.json``
+    as text and, for ``scannet``, every file of ``split_pred`` as bytes by
+    its path under it."""
+    with open(os.path.join(run_dir, f"eval_{task}.json")) as f:
+        out: Dict[str, Any] = {"json": f.read()}
+    if task == "scannet":
+        root = os.path.join(run_dir, "split_pred")
+        out["tree"] = {}
+        for d, _, files in os.walk(root):
+            for name in files:
+                path = os.path.join(d, name)
+                with open(path, "rb") as f:
+                    out["tree"][os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def seeded_run_dir(config: str, run_dir: str, seed: int = 0,
+                   min_iou: Optional[float] = None) -> Dict[str, Any]:
+    """A run dir of the task YAML ``config`` (``scripts.train.
+    load_task_config``) holding one checkpoint, step 3, of seeded weights
+    with nonzero biases and BN statistics (``randomize``), no training:
+    the detector's for a detector config (task mode (1, 0, 0)), else the
+    pipeline's; with ``eval.min_iou_threshold`` at ``min_iou`` when given.
+    Returns the weights as a Flax tree of numpy leaves."""
+    from d3net_tpu_torch import config as cfg_lib
+    from d3net_tpu_torch.params import (
+        flax_to_state_dict, init_flax_variables,
+    )
+    from d3net_tpu_torch.scripts.train import load_task_config
+    from d3net_tpu_torch.train.loop import Checkpointer, detector_from_cfg
+    from d3net_tpu_torch.train.pipeline import (
+        build_vocab, pipeline_from_cfg, task_mode,
+    )
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    cfg = load_task_config(config)
+    if min_iou is not None:
+        cfg.eval.min_iou_threshold = min_iou
+    os.makedirs(run_dir)
+    cfg_lib.save(cfg, os.path.join(run_dir, "config.yaml"))
+    model = (detector_from_cfg(cfg) if task_mode(cfg) == (1, 0, 0)
+             else pipeline_from_cfg(cfg, build_vocab(cfg)[0]))
+    variables = randomize(init_flax_variables(model, seed),
+                          np.random.default_rng(seed))
+    model.load_state_dict(flax_to_state_dict(variables, model))
+    Checkpointer(run_dir, "total_loss").save(
+        3, create_train_state(model), {"total_loss": 1.0})
+    return variables
+
+
+def eval_rank(task: str, run_dir: str, val_scenes: Optional[int] = None,
+              dev=None, check_gathers: bool = False,
+              exact: bool = False) -> Dict[str, Any]:
+    """This rank's ``task`` eval of ``run_dir`` as the eval CLI runs it
+    (its ``config.yaml``, ``scripts.eval.tasks()``), on this rank's device
+    (with no process group, in this process on ``dev`` alone, however many
+    cards it sees), with ``D3NET_VAL_SCENES`` at
+    ``val_scenes`` while it runs; a ``scannet`` eval first clears the run
+    dir's ``split_pred`` (rank 0, the others waiting). With ``exact`` on
+    the card it runs inside ``device.parity_precision()`` and
+    ``deterministic()``: at the default settings the bf16 detector's eval
+    forward does not reproduce itself run to run (atomic adds, bf16
+    reductions), under them it does (``detector_repro``). Returns the
+    metrics; on rank 0 ``eval_outputs``; the val batches this rank ran
+    rows of, its ``gather_rows`` launches (the card's count) and, with
+    ``check_gathers``, the gathers held exact against the plain version as
+    they ran and their largest error; the seconds."""
+    import shutil
+
+    from d3net_tpu_torch import config as cfg_lib
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.parallel import mesh
+    from d3net_tpu_torch.scripts.eval import tasks
+    from d3net_tpu_torch.train.loop import num_val_scenes
+
+    dev = _rank_device(dev)
+    saved = os.environ.get("D3NET_VAL_SCENES")
+    if val_scenes is not None:
+        os.environ["D3NET_VAL_SCENES"] = str(val_scenes)
+    try:
+        cfg = cfg_lib.load(os.path.join(run_dir, "config.yaml"))
+        if task == "scannet":
+            if mesh.is_main():
+                shutil.rmtree(os.path.join(run_dir, "split_pred"),
+                              ignore_errors=True)
+            mesh.barrier()
+        n, b = num_val_scenes(cfg), int(cfg.data.batch_size)
+        batches = sum(
+            mesh.split_rows(min(b, n - lo), mesh.rank(), mesh.world())[1] > 0
+            for lo in range(0, n, b))
+        gather.gather_rows.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if exact and dev.type == "cuda":
+                stack.enter_context(device.parity_precision())
+                stack.enter_context(deterministic())
+            rec = (stack.enter_context(checked_gathers(f"the {task} eval"))
+                   if check_gathers else None)
+            metrics = tasks()[task](cfg, run_dir, dev, world_size=1)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        out = {"task": task, "metrics": metrics, "val_batches": batches,
+               "seconds": time.perf_counter() - t0,
+               "launches": gather.gather_rows.launches}
+        if rec is not None:
+            out.update(checked=rec.checked, max_abs_err=rec.max_abs_err)
+        if mesh.is_main():
+            out.update(eval_outputs(task, run_dir))
+        return out
+    finally:
+        if saved is None:
+            os.environ.pop("D3NET_VAL_SCENES", None)
+        else:
+            os.environ["D3NET_VAL_SCENES"] = saved
+
+
+def values_differ(got, want, where: str, rtol: float) -> List[str]:
+    """Where ``got`` differs from ``want`` (nested dicts and lists): ints,
+    bools and strings exact, floats within ``rtol``."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or got.keys() != want.keys():
+            return [f"{where}: keys {sorted(got)} against {sorted(want)}"]
+        return [d for k in want
+                for d in values_differ(got[k], want[k], f"{where}.{k}",
+                                        rtol)]
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [f"{where}: {got!r} against {want!r}"]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in values_differ(g, w, f"{where}[{i}]", rtol)]
+    if isinstance(want, float) and isinstance(got, (int, float)):
+        same = (math.isnan(want) and math.isnan(got)) or math.isclose(
+            got, want, rel_tol=rtol, abs_tol=0.0)
+    else:
+        same = type(got) is type(want) and got == want
+    return [] if same else [f"{where}: {got!r} against {want!r}"]
+
+
+def eval_mismatches(got: List[Dict[str, Any]], want: Dict[str, Any],
+                    rtol: float = EVAL_RTOL) -> List[str]:
+    """Where a world-N eval (``eval_rank``'s results, in rank order)
+    differs from world 1's (``want``: ``metrics`` and ``eval_outputs``):
+    the metrics and the json file's values (ints and strings exact, floats
+    within ``rtol``), every rank's metrics equal to rank 0's, the
+    ``split_pred`` trees byte-equal, and every gather a rank checked
+    exact."""
+    bad = values_differ(got[0]["metrics"], want["metrics"], "metrics", rtol)
+    bad += values_differ(json.loads(got[0]["json"]),
+                          json.loads(want["json"]), "json", rtol)
+    for r, g in enumerate(got[1:], 1):
+        if g["metrics"] != got[0]["metrics"]:
+            bad.append(f"rank {r}'s metrics differ from rank 0's")
+    if "tree" in want:
+        t0, t1 = got[0].get("tree", {}), want["tree"]
+        if sorted(t0) != sorted(t1):
+            bad.append(f"split_pred files {sorted(set(t0) ^ set(t1))}")
+        bad += [f"split_pred/{k} differs" for k in t1
+                if k in t0 and t0[k] != t1[k]]
+    for r, g in enumerate(got):
+        if "checked" in g and g["checked"] != g["launches"]:
+            bad.append(f"rank {r}: {g['checked']} of {g['launches']} "
+                       "gathers checked")
+    return bad
+
+
+def evals_world_vs_one(evals: Sequence[Tuple], world: int = 2,
+                       one: Optional[List[Optional[Dict[str, Any]]]] = None,
+                       dev=None, check_gathers: bool = False,
+                       threads: Optional[int] = None, backend: str = "gloo",
+                       devices: Optional[Sequence[str]] = None
+                       ) -> Dict[str, Any]:
+    """Each eval ``(task, run_dir, val_scenes[, exact])`` (``eval_rank``'s
+    arguments) over ``world`` ranks in one spawn for all of them (gloo, on
+    ``dev`` each: cuda:0 for two ranks on one card, where NCCL takes one
+    rank a card; or ``backend`` over ``devices``, one a rank) against world
+    size 1: ``one[i]`` (an ``eval_rank`` result) where given, else eval
+    ``i`` run here on ``dev`` first. Returns per eval its
+    ``eval_mismatches``, both worlds' metrics and seconds and each rank's
+    launches a val batch, and ``ok`` when none differs."""
+    from d3net_tpu_torch.parallel import mesh
+
+    def calls(d):
+        return [(eval_rank, (task, run_dir, n, d, check_gathers, *exact), {})
+                for task, run_dir, n, *exact in evals]
+
+    one = [o if o is not None else rank_calls([c])[0] for o, c in zip(
+        one or [None] * len(evals), calls(dev))]
+    if devices is None and dev is not None:
+        devices = [dev] * world
+    # a rank evaluates on its own device (``devices[r]``)
+    ranks = mesh.spawn(rank_calls, world, calls(None), backend=backend,
+                       devices=devices, threads=threads)
+    report, bad = [], []
+    for i, (task, _, n, *exact) in enumerate(evals):
+        got = [r[i] for r in ranks]
+        miss = eval_mismatches(got, one[i])
+        bad += [f"{task} (val scenes {n}): {m}" for m in miss]
+        report.append({
+            "task": task, "val_scenes": n, "exact": bool(exact and exact[0]),
+            "mismatches": miss,
+            "metrics_world1": one[i]["metrics"],
+            f"metrics_world{world}": got[0]["metrics"],
+            "seconds_world1": one[i].get("seconds"),
+            f"seconds_world{world}": [g["seconds"] for g in got],
+            "val_batches_per_rank": [g["val_batches"] for g in got],
+            "launches_per_rank": [g["launches"] for g in got],
+            "checked_per_rank": [g.get("checked") for g in got],
+            "max_abs_err": max((g.get("max_abs_err") or 0.0) for g in got)})
+    return {"ok": not bad, "world": world, "mismatches": bad,
+            "evals": report}
+
+
+REPRO_FLOATS = ("semantic_scores", "pt_offsets", "proposal_scores_all")
+REPRO_INTS = ("member_pt", "cluster_mask_all", "proposal_batch_mask")
+
+
+def detector_repro(model, scenes: Sequence[Any], spec,
+                   dev) -> Dict[str, Dict[str, Any]]:
+    """Whether the detector's eval forward on ``dev`` reproduces itself,
+    at the default settings and under ``device.parity_precision()`` with
+    ``deterministic()``: ``scenes`` (an even count) as one batch twice
+    (``run_to_run``), and each half as a batch of its own against its rows
+    of the whole (``halves``: what two ranks run). Per case the largest
+    difference of each of ``REPRO_FLOATS`` and the count of differing
+    entries of each of ``REPRO_INTS`` (cluster ids, proposal masks)."""
+    from d3net_tpu_torch.data.collate import batch_to_torch, build_batch
+
+    h = len(scenes) // 2
+    batches = [build_batch(list(part), spec)
+               for part in (scenes, scenes[:h], scenes[h:])]
+
+    def forward(b):
+        with torch.no_grad():
+            out = model(batch_to_torch(b, dev), train=False)
+        return {k: out[k].float().cpu().numpy()
+                for k in REPRO_FLOATS + REPRO_INTS}
+
+    def differ(a, b):
+        return {**{k: float(np.abs(a[k] - b[k]).max()) for k in REPRO_FLOATS},
+                **{f"{k}_differ": int((a[k] != b[k]).sum())
+                   for k in REPRO_INTS}}
+
+    out = {}
+    for name, exact in (("default", False), ("exact", True)):
+        with contextlib.ExitStack() as stack:
+            if exact:
+                stack.enter_context(device.parity_precision())
+                stack.enter_context(deterministic())
+            whole, again, first, second = [forward(b)
+                                           for b in batches[:1] + batches]
+        out[name] = {
+            "run_to_run": differ(whole, again),
+            "halves": differ({k: np.concatenate([first[k], second[k]])
+                              for k in whole}, whole)}
+    return out
+
+
+def checkpoint_rank(run_dir: str) -> Dict[str, Any]:
+    """``Checkpointer.save`` of step 5 (monitor ``total_loss`` at 0.5) on
+    this rank: whether this rank's checkpointer took it as its best (rank
+    0 alone decides), and whether the checkpoint was on disk when save
+    returned."""
+    from d3net_tpu_torch.train.loop import Checkpointer
+    from d3net_tpu_torch.train.trainer import create_train_state
+
+    ckpt = Checkpointer(run_dir, "total_loss")
+    ckpt.save(5, create_train_state(torch.nn.Linear(2, 2)),
+              {"total_loss": 0.5})
+    return {"wrote": ckpt.best_step == 5,
+            "on_disk": os.path.exists(os.path.join(
+                run_dir, "ckpt_best", "5", "state.pt"))}
 
 
 def cap_counters_rank() -> Dict[str, float]:

@@ -29,6 +29,7 @@ from d3net_tpu_torch.data.multiview import (
     open_multiview_store, read_multiview_store,
 )
 from d3net_tpu_torch.data.synthetic import Scene, make_scene
+from d3net_tpu_torch.parallel.mesh import split_rows
 from d3net_tpu_torch.utils import transform as T
 
 
@@ -194,13 +195,22 @@ class BatchIterator:
         n = len(self.scenes)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def splits(self, b: int) -> bool:
+        """Whether the ranks split batch ``b`` of the epoch: its scenes are
+        a multiple of ``world`` (always at world 1; only a short last batch
+        can fail it)."""
+        rows = min(self.batch_size, len(self.scenes) - b * self.batch_size)
+        return rows % self.world == 0
+
     def _build_one(self, order: np.ndarray, b: int):
         """Batch ``b`` of the epoch, from its own generator (so builds in any
         order and on any worker give the same batch).
 
-        With ``world`` ranks, rank ``r`` collates rows ``[r·B/N, (r+1)·B/N)``
-        alone, after augmenting every scene of the batch in order (one
-        generator runs through them, so the rows equal the global batch's);
+        With ``world`` ranks, rank ``r`` collates its rows of the batch
+        (``mesh.split_rows``: ``[r·b/N, (r+1)·b/N)``, or the whole of a
+        short last batch on rank 0 and None on the others), after
+        augmenting every scene of the batch in order (one generator runs
+        through them, so the rows equal the global batch's);
         ``return_scenes`` gives every scene of the global batch, over which
         the description rows are drawn."""
         rng = np.random.default_rng(
@@ -217,9 +227,8 @@ class BatchIterator:
                     s = crop_scene(s, self.spec.max_points, self.spec.scale,
                                    self.spec.full_scale, rng)
             scenes.append(s)
-        n = len(scenes) // self.world
-        batch = build_batch(scenes[self.rank * n:(self.rank + 1) * n],
-                            self.spec)
+        lo, hi = split_rows(len(scenes), self.rank, self.world)
+        batch = build_batch(scenes[lo:hi], self.spec) if hi > lo else None
         return (batch, scenes) if self.return_scenes else batch
 
     def _order(self) -> np.ndarray:

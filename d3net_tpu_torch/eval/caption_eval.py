@@ -54,14 +54,37 @@ class CaptionEvaluator:
     candidates and the assignment IoUs, so ``diagnostics()`` can separate
     detector quality (how many candidates the IoU<k rule wiped) from
     caption quality (metrics on the raw candidates).
+
+    Over ranks (``parallel.mesh.gather_records``) each key's record is
+    tagged with ``batch``, the val batch it was added in; ``records()``
+    hands them over and ``load_records`` takes every rank's, merged in the
+    global scene order (CIDEr's document frequencies are the whole
+    corpus's, and the dicts' order is the order the metrics sum in).
     """
 
     def __init__(self, min_iou: float = 0.5):
         self.min_iou = min_iou
+        self.batch = 0
+        self.load_records([])
+
+    def records(self) -> List[Tuple[int, tuple]]:
+        """``(batch, (key, refs, iou, raw candidate, candidate))`` of every
+        key, in the order added."""
+        return [(b, (k, self.gts[k], self.ious[k], self.raw_cands[k],
+                     self.cands[k])) for b, k in self._batch_of]
+
+    def load_records(self, records) -> None:
+        """The evaluator holding exactly ``records`` (``records()``'s
+        tuples without the batch), in their order."""
         self.gts: Dict[str, List[str]] = {}
         self.cands: Dict[str, List[str]] = {}
         self.raw_cands: Dict[str, List[str]] = {}
         self.ious: Dict[str, float] = {}
+        self._batch_of: List[Tuple[int, str]] = []
+        for key, refs, iou, raw, cand in records:
+            self._batch_of.append((self.batch, key))
+            self.gts[key], self.ious[key] = refs, iou
+            self.raw_cands[key], self.cands[key] = raw, cand
 
     def add_scene(
         self,
@@ -79,6 +102,8 @@ class CaptionEvaluator:
             if not refs:
                 continue
             key = f"{scene_id}|{g}"
+            if key not in self.gts:
+                self._batch_of.append((self.batch, key))
             self.gts[key] = [f"sos {r} eos" for r in refs]
             self.ious[key] = float(iou)
             self.raw_cands[key] = [captions[p]] if p >= 0 else ["sos eos"]

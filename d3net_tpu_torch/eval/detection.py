@@ -145,21 +145,41 @@ def eval_det(
 
 
 class APCalculator:
-    """Accumulate batches and compute mAP/AR (``lib/det/ap_helper.py:195``)."""
+    """Accumulate batches and compute mAP/AR (``lib/det/ap_helper.py:195``).
+
+    Over ranks (``parallel.mesh.gather_records``) each scene is tagged with
+    ``batch``, the val batch it was added in: ``records()`` hands them over
+    and ``load_records`` takes every rank's, numbered in the global scene
+    order (the order ties in score keep)."""
 
     def __init__(self, ovthresh: float = 0.25):
         self.ovthresh = ovthresh
+        self.batch = 0
         self.reset()
 
     def reset(self):
+        self.load_records([])
+
+    def records(self) -> List[Tuple[int, tuple]]:
+        """``(batch, (predictions, ground truths))`` of every scene."""
+        return [(b, (self.pred[i], self.gt[i]))
+                for i, b in enumerate(self._batch_of)]
+
+    def load_records(self, records) -> None:
+        """The calculator holding exactly ``records`` (``records()``'s
+        tuples without the batch), scenes numbered in their order."""
         self.pred: Dict[int, list] = {}
         self.gt: Dict[int, list] = {}
+        self._batch_of: List[int] = []
         self._next = 0
+        for p, g in records:
+            self.step([p], [g])
 
     def step(self, batch_pred, batch_gt):
         for p, g in zip(batch_pred, batch_gt):
             self.pred[self._next] = p
             self.gt[self._next] = g
+            self._batch_of.append(self.batch)
             self._next += 1
 
     def compute_metrics(self) -> Dict[str, float]:

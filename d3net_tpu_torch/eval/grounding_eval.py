@@ -13,7 +13,7 @@ Numpy throughout.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -21,10 +21,28 @@ from d3net_tpu_torch.utils.bbox import aabb_iou_minmax, corners_to_minmax
 
 
 class GroundingEvaluator:
+    """Accumulates the annotated rows' IoUs and flags. Over ranks
+    (``parallel.mesh.gather_records``) each row is tagged with ``batch``,
+    the val batch it was added in: ``records()`` hands them over and
+    ``load_records`` takes every rank's, merged in the global row order."""
+
     def __init__(self):
-        self.ious: List[float] = []
-        self.multiple: List[bool] = []
-        self.others: List[bool] = []
+        self.batch = 0
+        self.load_records([])
+
+    def records(self) -> List[Tuple[int, tuple]]:
+        """``(batch, (iou, multiple, others))`` of every row, in order."""
+        return list(zip(self._batch_of,
+                        zip(self.ious, self.multiple, self.others)))
+
+    def load_records(self, records) -> None:
+        """The evaluator holding exactly ``records`` (``records()``'s
+        tuples without the batch), in their order."""
+        rows = list(records)
+        self.ious: List[float] = [r[0] for r in rows]
+        self.multiple: List[bool] = [r[1] for r in rows]
+        self.others: List[bool] = [r[2] for r in rows]
+        self._batch_of: List[int] = [self.batch] * len(rows)
 
     def add(
         self,
@@ -45,6 +63,7 @@ class GroundingEvaluator:
         for i in range(len(pick)):
             if annotated[i] <= 0:
                 continue
+            self._batch_of.append(self.batch)
             self.ious.append(float(iou[i]))
             self.multiple.append(bool(unique_multiple[i] > 0)
                                  if unique_multiple is not None else False)

@@ -16,18 +16,24 @@ give mIoU and accuracy (``semantic_iou``) and AP, AP@50 and AP@25
 ``eval_scannet.json``, stamped with the checkpoint. The model comes from
 ``scripts.eval.pipeline_for_eval``, which also takes a detector-only
 checkpoint (the detector run loops') into the pipeline's detector.
+
+Over ranks (``parallel.mesh.run_world``) each rank runs its rows of every
+val batch and writes its own scenes' txt files, which are the files world
+1 writes, byte for byte; the confusion matrix is summed over the ranks and
+``InstanceEvaluator``'s scenes, their masks packed, are gathered to rank 0
+in the global scene order, where the AP is computed.
 """
 
 from __future__ import annotations
 
-import json
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from d3net_tpu_torch.device import DeviceLike, resolve_device
+from d3net_tpu_torch.parallel import mesh
 
 NYU20_CLASS_IDX = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33,
                    34, 36, 39]
@@ -42,15 +48,25 @@ def _write_ints(path: str, values: np.ndarray) -> None:
             f.write("\n".join(map(str, values.tolist())) + "\n")
 
 
-def eval_scannet(cfg, run_dir: str, device: DeviceLike = None) -> Dict:
+def eval_scannet(cfg, run_dir: str, device: DeviceLike = None,
+                 world_size: Optional[int] = None,
+                 threads: Optional[int] = None) -> Dict:
+    """The txt tree and its metrics -> ``eval_scannet.json``, over
+    ``parallel.mesh.run_world(world_size)`` ranks (``threads``: a CPU
+    rank's torch threads)."""
     from d3net_tpu_torch.data.collate import batch_to_torch
     from d3net_tpu_torch.eval.segmentation import (
         InstanceEvaluator, semantic_confusion, semantic_iou,
     )
-    from d3net_tpu_torch.scripts.eval import pipeline_for_eval, _write
+    from d3net_tpu_torch.scripts.eval import (
+        _spawned, _write, pipeline_for_eval,
+    )
     from d3net_tpu_torch.utils.nms import nms_matrix
 
     dev = resolve_device(device)
+    spawned = _spawned("scannet", cfg, run_dir, dev, world_size, threads)
+    if spawned is not None:
+        return spawned
     model, val_it, _, _, ckpt_info = pipeline_for_eval(
         cfg, run_dir, dev, detector_alone=True)
     model.eval()
@@ -64,9 +80,14 @@ def eval_scannet(cfg, run_dir: str, device: DeviceLike = None) -> Dict:
 
     conf = np.zeros((20, 20), np.int64)
     inst_eval = InstanceEvaluator()
-    for batch_np, scenes in val_it:
-        with torch.no_grad():
-            out = model.run_detector(batch_to_torch(batch_np, dev))
+    for b, (batch_np, scenes) in enumerate(val_it):
+        with mesh.eval_rows(val_it.splits(b)) as mine:
+            if not mine:
+                continue
+            lo, hi = mesh.split_rows(len(scenes))
+            scenes = scenes[lo:hi]
+            with torch.no_grad():
+                out = model.run_detector(batch_to_torch(batch_np, dev))
         out = {k: out[k].float().cpu().numpy() if out[k].is_floating_point()
                else out[k].cpu().numpy()
                for k in ("semantic_scores", "member_pt",
@@ -113,10 +134,14 @@ def eval_scannet(cfg, run_dir: str, device: DeviceLike = None) -> Dict:
                         _write_ints(os.path.join(inst_dir, mpath),
                                     mask.astype(np.int32))
                         preds.append((mask, cls, float(scores[i, slot])))
+            inst_eval.batch = b
             inst_eval.add_scene(preds, batch_np["instance_ids"][i, :n],
                                 batch_np["sem_labels"][i, :n])
 
+    conf = mesh.host_all_gather(conf[None]).sum(0)
+    if not mesh.gather_records(inst_eval):
+        return mesh.broadcast_from_main({})
     metrics = {**semantic_iou(conf), **inst_eval.compute()}
     metrics.pop("per_class_iou", None)
     _write(run_dir, "scannet", metrics, ckpt_info)
-    return metrics
+    return mesh.broadcast_from_main(metrics)

@@ -42,7 +42,12 @@ def semantic_iou(conf: np.ndarray) -> Dict[str, float]:
 
 
 class InstanceEvaluator:
-    """Accumulates scenes; predictions are (mask(N,), class, score)."""
+    """Accumulates scenes; predictions are (mask(N,), class, score).
+
+    Over ranks (``parallel.mesh.gather_records``) each scene is tagged with
+    ``batch``, the val batch it was added in: ``records()`` hands them over
+    with the masks packed 8 points a byte, and ``load_records`` takes every
+    rank's, in the global scene order."""
 
     def __init__(self, overlaps: Sequence[float] = None, min_region_size: int = 100):
         self.overlaps = (
@@ -51,11 +56,29 @@ class InstanceEvaluator:
             else [0.25, 0.5] + [0.5 + 0.05 * i for i in range(1, 10)]
         )
         self.min_region = min_region_size
+        self.batch = 0
         self.scenes: List[Tuple] = []
+        self._batch_of: List[int] = []
 
     def add_scene(self, preds: List[Tuple[np.ndarray, int, float]],
                   gt_instance_ids: np.ndarray, gt_sem: np.ndarray):
         self.scenes.append((preds, gt_instance_ids, gt_sem))
+        self._batch_of.append(self.batch)
+
+    def records(self) -> List[Tuple[int, tuple]]:
+        """``(batch, (packed predictions, points, GT ids, GT classes))`` of
+        every scene, each mask as ``np.packbits`` of its points."""
+        return [(b, ([(np.packbits(m), c, s) for m, c, s in preds],
+                     len(ids), ids, sem))
+                for b, (preds, ids, sem) in zip(self._batch_of, self.scenes)]
+
+    def load_records(self, records) -> None:
+        """The evaluator holding exactly ``records`` (``records()``'s
+        tuples without the batch), in their order, the masks unpacked."""
+        self.scenes, self._batch_of = [], []
+        for packed, n, ids, sem in records:
+            self.add_scene([(np.unpackbits(m, count=n).astype(bool), c, s)
+                            for m, c, s in packed], ids, sem)
 
     def compute(self) -> Dict[str, float]:
         classes = sorted(

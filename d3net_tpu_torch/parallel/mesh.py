@@ -19,8 +19,16 @@ written as collectives:
   ``local_rows``), so world N draws what world 1 draws.
 - ``roll_rows`` rolls the leading axis over the global batch (the
   listener's copy-paste takes the previous scene's proposals).
-- Host arrays (the CIDEr reward's ids, barriers) go through a gloo group
-  beside the main one: NCCL takes only CUDA tensors.
+- Host arrays (the CIDEr reward's ids, barriers) and host objects (the
+  evaluators' records, the metric dict) go through a gloo group beside
+  the main one: NCCL takes only CUDA tensors.
+- Evaluation splits every val batch as training does (``split_rows``).
+  A short last batch the ranks cannot split evenly runs on rank 0 alone
+  under ``local()`` (``eval_rows``), so no scene is dropped or repeated
+  and every split batch holds as many rows on each rank (``global_mean``
+  assumes it). The evaluators' per-scene records are gathered to rank 0
+  in the global scene order (``gather_records``) and its metric dict
+  broadcast back (``broadcast_from_main``).
 
 The process group is process-wide state in ``torch.distributed``; the
 module keeps the group of the step's collectives beside it. With no group
@@ -44,7 +52,9 @@ import tempfile
 import time
 import traceback
 import warnings
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (
+    Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
@@ -52,7 +62,7 @@ import torch.distributed as dist
 from torch import nn
 
 DEFAULT_TIMEOUT_S = 1800      # a collective that waits longer raises
-BARRIER_TIMEOUT_S = 3600      # ranks waiting out a validation pass on rank 0
+BARRIER_TIMEOUT_S = 3600      # ranks waiting out rank 0's checkpoint write
 
 
 class _Context:
@@ -125,7 +135,7 @@ def is_main() -> bool:
 @contextlib.contextmanager
 def local() -> Iterator[None]:
     """Run the block on this rank's tensors alone: no collective, local
-    counts and draws (rank 0's validation over the whole val set)."""
+    counts and draws (a val batch rank 0 runs alone, ``eval_rows``)."""
     _CTX.suspended += 1
     try:
         yield
@@ -186,6 +196,35 @@ def make_mesh(batch_size: int, device_count: Optional[int] = None) -> int:
             f"data.batch_size {batch_size} does not split over {n_dev} "
             f"cards: training on {n}, leaving {idle} idle", stacklevel=2)
     return n
+
+
+def run_world(batch_size: int, dev: torch.device,
+              world_size: Optional[int] = None) -> int:
+    """The ranks a run (training or an eval) on ``dev`` starts: 1 inside a
+    process group (this process is one of its ranks already);
+    ``world_size`` where given (one that does not divide ``batch_size``
+    raises); else every usable card on CUDA (``make_mesh``) and 1 on the
+    CPU."""
+    if active():
+        return 1
+    if world_size is None:
+        return make_mesh(batch_size) if dev.type == "cuda" else 1
+    if batch_size % world_size:
+        raise ValueError(f"data.batch_size {batch_size} does not split "
+                         f"over {world_size} ranks")
+    return int(world_size)
+
+
+def spawn_ranks(fn: Callable[..., Any], world_size: int, *args,
+                dev: torch.device, threads: Optional[int] = None
+                ) -> List[Any]:
+    """``spawn`` of ``fn(*args)`` over ``world_size`` ranks on ``dev``'s
+    kind: one NCCL process a card (``cuda:0``..) on CUDA, gloo processes
+    of ``threads`` threads each on the CPU."""
+    cuda = dev.type == "cuda"
+    return spawn(fn, world_size, *args, backend="nccl" if cuda else "gloo",
+                 devices=[f"cuda:{i}" for i in range(world_size)] if cuda
+                 else None, threads=threads)
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +373,85 @@ def replicate(model: nn.Module,
                             _broadcast(v)
 
 
+def gather_to_main(obj: Any) -> Optional[List[Any]]:
+    """Every rank's picklable ``obj`` on rank 0, in rank order, through the
+    gloo group; None on the other ranks; ``[obj]`` without a group."""
+    if not active():
+        return [obj]
+    out = [None] * _CTX.size if _CTX.rank == 0 else None
+    dist.gather_object(obj, out, dst=0, group=_CTX.host)
+    return out
+
+
+def broadcast_from_main(obj: Any) -> Any:
+    """Rank 0's picklable ``obj`` on every rank, through the gloo group;
+    ``obj`` without a group."""
+    if not active():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=_CTX.host)
+    return box[0]
+
+
+def merge_ordered(parts: Sequence[Sequence[Tuple[int, Any]]]) -> List[Any]:
+    """The records of ``parts`` (each rank's ``(batch, record)`` pairs, in
+    rank order) in the global scene order: batch by batch, rank 0's rows
+    first, each rank's records in the order it added them. So a merge
+    holds the records in the order one process adds them."""
+    merged = [pair for part in parts for pair in part]
+    merged.sort(key=lambda pair: pair[0])     # stable: rank order kept
+    return [record for _, record in merged]
+
+
+def gather_records(*holders: Any) -> bool:
+    """Each holder's records on rank 0, in one host gather, in the global
+    scene order (``merge_ordered``). A holder (an evaluator) hands its
+    ``(batch, record)`` pairs over with ``records()`` and takes the merged
+    records with ``load_records(records)``. Returns whether this rank holds
+    every rank's records: rank 0, or any rank without a group (nothing
+    moves then)."""
+    if not active():
+        return True
+    parts = gather_to_main([h.records() for h in holders])
+    if parts is None:
+        return False
+    for i, h in enumerate(holders):
+        h.load_records(merge_ordered([p[i] for p in parts]))
+    return True
+
+
 # ---------------------------------------------------------------------------
 # batches
 # ---------------------------------------------------------------------------
+
+def split_rows(b: int, rank_: Optional[int] = None,
+               world_size: Optional[int] = None) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` of a batch of ``b`` rows that rank ``rank_`` of
+    ``world_size`` (default: the active group's) runs: ``[r·b/w,
+    (r+1)·b/w)`` where ``w`` divides ``b``; where it does not (a short last
+    val batch), all of them on rank 0 and none on the others."""
+    r = rank() if rank_ is None else rank_
+    w = world() if world_size is None else world_size
+    if b % w == 0:
+        return r * b // w, (r + 1) * b // w
+    return (0, b) if r == 0 else (0, 0)
+
+
+@contextlib.contextmanager
+def eval_rows(split: bool) -> Iterator[bool]:
+    """The context of one val batch; yields whether this rank runs any of
+    it. A batch the ranks ``split`` (``split_rows``) runs on every rank's
+    rows with the group active, so its losses' normalisers are global; one
+    they do not runs on rank 0 alone under ``local()``. Without an active
+    group every batch is this rank's."""
+    if split or not active():
+        yield True
+    elif _CTX.rank == 0:
+        with local():
+            yield True
+    else:
+        yield False
+
 
 def shard_batch(tree: Any, rank_: int, world_size: int) -> Any:
     """Rows ``[r·B/N, (r+1)·B/N)`` of every array of a batch tree (dicts,

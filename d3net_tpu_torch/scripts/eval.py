@@ -30,6 +30,26 @@ pipeline's or a detector run's checkpoint.
 
 Each file is stamped with the checkpoint it used. Runs on CUDA unless
 ``--cpu`` is given; without a GPU and without ``--cpu`` it raises.
+
+On CUDA the eval uses every usable card, as the train entry does: the
+largest count of the visible cards that divides ``data.batch_size`` (a
+warning names the cards left idle), one spawned process a card, joined
+over NCCL; with one usable card it runs in this process with no process
+group. Each rank restores the checkpoint and runs its rows of every val
+batch (a short last batch the ranks cannot split runs on rank 0 alone);
+the evaluators' records are gathered to rank 0 in the global scene order,
+rank 0 computes the metrics and alone writes files (``--task scannet``:
+each rank writes its own scenes' txt files). The result equals the
+one-card eval's wherever the forward reproduces itself: on the CPU, and on
+the card under ``device.parity_precision()`` with deterministic
+algorithms (at the default settings a bf16 detector's forward differs
+from run to run already). Under ``torchrun`` each launched process is one
+rank:
+
+    torchrun --nproc_per_node=4 -m d3net_tpu_torch.scripts.eval \
+        --folder <run_dir> --task detection
+
+``--cpu`` is one process.
 """
 
 from __future__ import annotations
@@ -37,13 +57,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 from torch import nn
 
 from d3net_tpu_torch import config as cfg_lib
 from d3net_tpu_torch.device import DeviceLike, resolve_device
+from d3net_tpu_torch.parallel import mesh
 
 
 def restore_for_eval(model: nn.Module, cfg: cfg_lib.Config,
@@ -62,10 +84,13 @@ def restore_for_eval(model: nn.Module, cfg: cfg_lib.Config,
         model = model.detector
     state = create_train_state(model, lr=cfg.train.optim.lr)
     if ckpt.restore_weights(state) is None:
-        print("WARNING: no checkpoint found, evaluating random weights")
+        if mesh.is_main():
+            print("WARNING: no checkpoint found, evaluating random weights")
         return state, {"kind": "none", "step": -1}
     info = dict(ckpt.restored_from or {})
-    print(f"evaluating {info.get('kind')} checkpoint (step {info.get('step')})")
+    if mesh.is_main():
+        print(f"evaluating {info.get('kind')} checkpoint "
+              f"(step {info.get('step')})")
     return state, info
 
 
@@ -81,6 +106,9 @@ def _holds_detector_alone(ckpt) -> bool:
 
 
 def _write(run_dir: str, task: str, results: Dict, ckpt_info: Dict) -> None:
+    """``eval_<task>.json`` (rank 0 alone writes under a process group)."""
+    if not mesh.is_main():
+        return
     print(json.dumps(results, indent=2))
     # the checkpoint that produced this eval is stamped into the file only,
     # keeping the returned metric dict clean
@@ -88,8 +116,42 @@ def _write(run_dir: str, task: str, results: Dict, ckpt_info: Dict) -> None:
         json.dump({**results, "checkpoint": ckpt_info}, f)
 
 
+def _spawned(task: str, cfg: cfg_lib.Config, run_dir: str, dev,
+             world_size: Optional[int], threads: Optional[int]
+             ) -> Optional[Dict]:
+    """``task``'s eval over ``mesh.run_world`` ranks where that is more
+    than one (each a process on its own card, or a gloo process of
+    ``threads`` threads on the CPU): rank 0's metrics, which every rank
+    returns; None where the eval is to run in this process."""
+    n = mesh.run_world(int(cfg.data.batch_size), dev, world_size)
+    if n == 1:
+        return None
+    return mesh.spawn_ranks(_eval_rank, n, task, cfg, run_dir, dev.type,
+                            dev=dev, threads=threads)[0]
+
+
+def _eval_rank(task: str, cfg: cfg_lib.Config, run_dir: str,
+               device_type: str) -> Dict:
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    return tasks()[task](cfg, run_dir, dev)
+
+
+def tasks() -> Dict[str, Callable[..., Dict]]:
+    """The eval CLI's task functions by name."""
+    from d3net_tpu_torch.eval.scannet_eval import eval_scannet
+
+    return {"detection": eval_detection, "captioning": eval_captioning,
+            "grounding": eval_grounding, "scannet": eval_scannet}
+
+
 def eval_detection(cfg: cfg_lib.Config, run_dir: str,
-                   device: DeviceLike = None) -> Dict:
+                   device: DeviceLike = None,
+                   world_size: Optional[int] = None,
+                   threads: Optional[int] = None) -> Dict:
+    """mAP and AR at IoU 0.25 and 0.5 over the val scenes ->
+    ``eval_detection.json``; over ``mesh.run_world(world_size)`` ranks
+    (``threads``: a CPU rank's torch threads)."""
     from d3net_tpu_torch.data.collate import batch_to_torch
     from d3net_tpu_torch.eval.detection import (
         APCalculator, parse_groundtruths, parse_predictions,
@@ -100,14 +162,22 @@ def eval_detection(cfg: cfg_lib.Config, run_dir: str,
     from d3net_tpu_torch.train.trainer import detector_eval_step
 
     dev = resolve_device(device)
+    spawned = _spawned("detection", cfg, run_dir, dev, world_size, threads)
+    if spawned is not None:
+        return spawned
     spec = spec_from_cfg(cfg)
     model = init_detector(detector_from_cfg(cfg), 0).to(dev)
     val_it = make_val_loader(cfg, spec)
     state, ckpt_info = restore_for_eval(model, cfg, run_dir)
 
     calcs = {t: APCalculator(t) for t in (0.25, 0.5)}
-    for batch_np in val_it:
-        out, _ = detector_eval_step(state, batch_to_torch(batch_np, dev))
+    for b, batch_np in enumerate(val_it):
+        with mesh.eval_rows(val_it.splits(b)) as mine:
+            if not mine:
+                continue
+            # the losses' normalisers are global: every rank runs every
+            # split batch
+            out, _ = detector_eval_step(state, batch_to_torch(batch_np, dev))
         preds = parse_predictions(
             *(out[k].cpu().numpy() for k in (
                 "proposal_bbox_batched", "proposal_sem_cls_batched",
@@ -122,8 +192,11 @@ def eval_detection(cfg: cfg_lib.Config, run_dir: str,
             batch_np["gt_box_mask"],
         )
         for c in calcs.values():
+            c.batch = b
             c.step(preds, gts)
     results = {}
+    if not mesh.gather_records(*calcs.values()):
+        return mesh.broadcast_from_main(results)
     for t, c in calcs.items():
         m = c.compute_metrics()
         results[f"mAP@{t}"] = m["mAP"]
@@ -132,7 +205,7 @@ def eval_detection(cfg: cfg_lib.Config, run_dir: str,
             k: v for k, v in m.items() if k.startswith(("AP_", "Recall_"))
         }
     _write(run_dir, "detection", results, ckpt_info)
-    return results
+    return mesh.broadcast_from_main(results)
 
 
 def pipeline_for_eval(cfg: cfg_lib.Config, run_dir: str, dev,
@@ -155,26 +228,39 @@ def pipeline_for_eval(cfg: cfg_lib.Config, run_dir: str, dev,
 
 
 def eval_captioning(cfg: cfg_lib.Config, run_dir: str,
-                    device: DeviceLike = None) -> Dict[str, float]:
+                    device: DeviceLike = None,
+                    world_size: Optional[int] = None,
+                    threads: Optional[int] = None) -> Dict[str, float]:
     """The JAX package's ``eval_captioning_cli``: mode-1 validation of the
-    run dir's pipeline."""
+    run dir's pipeline, over ``mesh.run_world(world_size)`` ranks."""
     from d3net_tpu_torch.train.pipeline import run_pipeline_validation
 
+    dev = resolve_device(device)
+    spawned = _spawned("captioning", cfg, run_dir, dev, world_size, threads)
+    if spawned is not None:
+        return spawned
     model, val_it, vocab, emb, ckpt_info = pipeline_for_eval(
-        cfg, run_dir, resolve_device(device))
+        cfg, run_dir, dev)
     metrics = run_pipeline_validation(cfg, model, val_it, vocab, emb, mode=1)
     _write(run_dir, "captioning", metrics, ckpt_info)
     return metrics
 
 
 def eval_grounding(cfg: cfg_lib.Config, run_dir: str,
-                   device: DeviceLike = None) -> Dict[str, float]:
+                   device: DeviceLike = None,
+                   world_size: Optional[int] = None,
+                   threads: Optional[int] = None) -> Dict[str, float]:
     """The JAX package's ``eval_grounding_cli``: mode-2 validation of the
-    run dir's pipeline, each metric the mean of ``eval.repeat`` runs."""
+    run dir's pipeline, each metric the mean of ``eval.repeat`` runs, over
+    ``mesh.run_world(world_size)`` ranks."""
     from d3net_tpu_torch.train.pipeline import run_pipeline_validation
 
+    dev = resolve_device(device)
+    spawned = _spawned("grounding", cfg, run_dir, dev, world_size, threads)
+    if spawned is not None:
+        return spawned
     model, val_it, vocab, emb, ckpt_info = pipeline_for_eval(
-        cfg, run_dir, resolve_device(device))
+        cfg, run_dir, dev)
     runs: Dict[str, list] = {}
     for _ in range(int(cfg.eval.get("repeat", 1))):
         m = run_pipeline_validation(cfg, model, val_it, vocab, emb, mode=2)
@@ -224,10 +310,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     cfg = cfg_lib.load(os.path.join(args.folder, "config.yaml"))
     apply_overrides(cfg, args.set)
-    from d3net_tpu_torch.eval.scannet_eval import eval_scannet
-
-    run = {"detection": eval_detection, "captioning": eval_captioning,
-           "grounding": eval_grounding, "scannet": eval_scannet}[args.task]
+    run = tasks()[args.task]
+    if args.cpu:
+        run(cfg, args.folder, device)
+        return
+    launched = mesh.init_multihost()
+    if launched["process_count"] > 1:
+        # an external launcher (torchrun) made the group: this process is
+        # one of its ranks, on its LOCAL_RANK card
+        mesh.make_mesh(int(cfg.data.batch_size))
+        try:
+            run(cfg, args.folder, torch.device(
+                "cuda", torch.cuda.current_device()))
+        finally:
+            mesh.teardown()
+        return
     run(cfg, args.folder, device)
 
 

@@ -77,20 +77,12 @@ def train(cfg: cfg_lib.Config, run_dir: str, max_steps: Optional[int] = None,
     divides ``data.batch_size``, warning about the idle ones) and to 1 on
     the CPU. One rank runs in this process with no process group."""
     dev = resolve_device(device)
-    if world_size is None:
-        world_size = (mesh.make_mesh(int(cfg.data.batch_size))
-                      if dev.type == "cuda" else 1)
+    world_size = mesh.run_world(int(cfg.data.batch_size), dev, world_size)
     if world_size == 1:
         run_training(cfg, run_dir, max_steps, dev)
         return
-    if int(cfg.data.batch_size) % world_size:
-        raise ValueError(f"data.batch_size {cfg.data.batch_size} does not "
-                         f"split over {world_size} ranks")
-    cuda = dev.type == "cuda"
-    mesh.spawn(_train_rank, world_size, cfg, run_dir, max_steps, dev.type,
-               backend="nccl" if cuda else "gloo",
-               devices=[f"cuda:{i}" for i in range(world_size)] if cuda
-               else None, threads=threads)
+    mesh.spawn_ranks(_train_rank, world_size, cfg, run_dir, max_steps,
+                     dev.type, dev=dev, threads=threads)
 
 
 def _train_rank(cfg: cfg_lib.Config, run_dir: str,

@@ -190,7 +190,8 @@ class Checkpointer:
     ``ckpt/`` rotates the last 3 saves while ``ckpt_best/`` pins the single
     best step: it is saved only on monitor improvement and never rotated
     away by later saves. The best value survives a resume via
-    ``best.json``.
+    ``best.json``. Under a process group every rank calls ``save``; rank 0
+    alone decides the best and writes.
     """
 
     def __init__(self, run_dir: str, monitor: str, mode: str = "min"):
@@ -223,16 +224,22 @@ class Checkpointer:
                 "step": int(state.step)}
 
     def save(self, step: int, state: TrainState, metrics: Dict[str, float]):
-        value = metrics.get(self.monitor)
-        payload = self._payload(state)
-        self.mgr.save(step, payload)
-        if value is not None and self.is_better(value):
-            self.best = float(value)
-            self.best_step = step
-            self.best_mgr.save(step, payload)
-            with open(self._best_meta, "w") as f:
-                json.dump({"step": step, "value": self.best,
-                           "monitor": self.monitor, "mode": self.mode}, f)
+        """Checkpoint ``step`` and, where ``metrics`` improve the monitor,
+        pin it as the best. Under a process group rank 0 alone decides and
+        writes (the other ranks' ``best`` stays as restored) and every rank
+        leaves once the files are on disk (a barrier)."""
+        if mesh.is_main():
+            value = metrics.get(self.monitor)
+            payload = self._payload(state)
+            self.mgr.save(step, payload)
+            if value is not None and self.is_better(value):
+                self.best = float(value)
+                self.best_step = step
+                self.best_mgr.save(step, payload)
+                with open(self._best_meta, "w") as f:
+                    json.dump({"step": step, "value": self.best,
+                               "monitor": self.monitor, "mode": self.mode}, f)
+        mesh.barrier()
 
     def _restore(self, kind: str, mgr: StepDir,
                  state: TrainState) -> Optional[TrainState]:
@@ -367,19 +374,21 @@ def scenes_from_cfg(cfg: Config, split: str, num_scenes: int):
 def make_val_loader(cfg: Config, spec: BatchSpec,
                     return_scenes: bool = False) -> BatchIterator:
     """The val split's iterator alone (the evals need no train scenes,
-    which are made when their list is)."""
+    which are made when their list is). Under a process group it collates
+    this rank's rows of each val batch (``BatchIterator.splits``: a short
+    last batch the ranks cannot split is rank 0's alone)."""
     return BatchIterator(
         scenes_from_cfg(cfg, "val", num_val_scenes(cfg)), spec,
         cfg.data.batch_size, shuffle=False, augment=False, seed=0,
         drop_last=False, return_scenes=return_scenes,
         workers=int(cfg.data.get("num_workers", 1) or 1),
+        rank=mesh.rank(), world=mesh.world(),
     )
 
 
 def make_dataloaders(cfg: Config, spec: BatchSpec, return_scenes: bool = False):
-    """The train and val iterators of the config; under a process group the
-    train iterator collates this rank's rows of each global batch, and the
-    val iterator (rank 0's validation) the whole val set."""
+    """The train and val iterators of the config; under a process group
+    each collates this rank's rows of its batches."""
     tr = cfg.data.transform
     train_it = BatchIterator(
         scenes_from_cfg(cfg, "train", cfg.data.synthetic.num_scenes), spec,
@@ -566,14 +575,34 @@ def run_meta_extra(dev: torch.device, cfg: Config) -> Dict[str, Any]:
             "world_size": mesh.world()}
 
 
-def rank0_validation(validate: Callable[[], None]) -> None:
-    """``validate()`` on rank 0 alone with no collective (its model in eval
-    mode needs none), the other ranks waiting at a barrier; ``validate()``
-    itself without a process group."""
-    if mesh.is_main():
-        with mesh.local():
-            validate()
-    mesh.barrier()
+def detector_val_losses(state: TrainState, batches, **kw
+                        ) -> Dict[str, float]:
+    """The detector's val losses over ``batches`` ((whether the ranks split
+    it, this rank's device batch) a val batch), each key the mean over the
+    batches of the batch's value (``detector_eval_step``). Under a process
+    group each rank runs its rows of every split batch, whose losses are
+    its shares of the batch's (the normalisers are global) and summed over
+    the ranks; a batch they do not split runs on rank 0 alone; every rank
+    returns rank 0's dict."""
+    per_batch: Dict[str, list] = {}
+    for split, batch in batches:
+        with mesh.eval_rows(split) as mine:
+            if not mine:
+                continue
+            _, losses = detector_eval_step(state, batch, **kw)
+            losses = mesh.sum_metrics(losses)
+        for k, v in losses.items():
+            per_batch.setdefault(k, []).append(float(v))
+    return mesh.broadcast_from_main(
+        {k: float(np.mean(v)) for k, v in per_batch.items()})
+
+
+def device_batches(val_it: BatchIterator, dev: torch.device):
+    """(whether the ranks split it, this rank's batch on ``dev``, None
+    where it has no rows of it) for each batch of ``val_it``."""
+    for b, item in enumerate(val_it):
+        yield val_it.splits(b), (None if item is None
+                                 else batch_to_torch(item, dev))
 
 
 def run_detector_training(cfg: Config, run_dir: str,
@@ -586,8 +615,8 @@ def run_detector_training(cfg: Config, run_dir: str,
     last checkpoint; returns the train state. Runs on CUDA unless
     ``device`` says otherwise; ``on_step`` and ``sync_steps`` are
     ``StepLoop``'s. Under a process group (``parallel.mesh``) each rank
-    trains on its rows of every global batch, rank 0 alone writes the run
-    dir and validates.
+    trains and validates on its rows of every global batch, and rank 0
+    alone writes the run dir.
     """
     dev = resolve_device(device)
     setup_run(cfg, run_dir)
@@ -640,25 +669,18 @@ def run_detector_training(cfg: Config, run_dir: str,
                       "(val skipped)")
             continue
 
-        def validate():
-            val_metrics: Dict[str, list] = {}
-            cached_val = loop.cache_batches and bool(val_batches)
-            for item in (val_batches if cached_val else val_it):
-                batch = item if cached_val else batch_to_torch(item, dev)
-                if loop.cache_batches and not cached_val:
-                    val_batches.append(batch)
-                _, losses = detector_eval_step(state, batch,
-                                               do_clustering=not in_prepare)
-                for k, v in losses.items():
-                    val_metrics.setdefault(k, []).append(float(v))
-            agg = {k: float(np.mean(v)) for k, v in val_metrics.items()}
-            loop.logger.log(loop.step, agg, "val")
+        if loop.cache_batches and not val_batches:
+            val_batches.extend(device_batches(val_it, dev))
+        agg = detector_val_losses(
+            state, val_batches or device_batches(val_it, dev),
+            do_clustering=not in_prepare)
+        loop.logger.log(loop.step, agg, "val")
+        if mesh.is_main():
             print(f"epoch {epoch} VAL "
                   + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
-            ckpt.save(loop.step, state, agg)
+        ckpt.save(loop.step, state, agg)
+        if mesh.is_main():
             print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s")
-
-        rank0_validation(validate)
         if loop.done:
             break
     loop.finish()
@@ -737,8 +759,8 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
     on CUDA, ``device_ms`` (CUDA events around its steps). Runs on CUDA
     unless ``device`` says otherwise. Under a process group each rank's
     stack holds its rows of every batch, the dispatch's metrics tensor is
-    summed over the ranks once, at its read-back, and rank 0 alone
-    validates and writes the run dir.
+    summed over the ranks once, at its read-back, each rank validates its
+    rows of the val batch, and rank 0 alone writes the run dir.
     """
     dev = resolve_device(device)
     setup_run(cfg, run_dir)
@@ -795,19 +817,15 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
                 rec["device_ms"] = events[0].elapsed_time(events[1])
             on_dispatch(rec)
 
-        # one resident val batch, every dispatch
-        def validate():
-            nonlocal val_batch
-            if val_batch is None:
-                val_batch = batch_to_torch(next(iter(val_it)), dev)
-            _, losses = detector_eval_step(state, val_batch)
-            agg = {k: float(v) for k, v in losses.items()}
-            logger.log(state.step, agg, "val")
+        # one resident val batch (this rank's rows of it), every dispatch
+        if val_batch is None:
+            val_batch = next(device_batches(val_it, dev))
+        agg = detector_val_losses(state, [val_batch])
+        logger.log(state.step, agg, "val")
+        if mesh.is_main():
             print(f"step {state.step} VAL "
                   + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
-            ckpt.save(state.step, state, agg)
-
-        rank0_validation(validate)
+        ckpt.save(state.step, state, agg)
     return state
 
 

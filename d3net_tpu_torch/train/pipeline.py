@@ -80,7 +80,7 @@ from d3net_tpu_torch.params import (
 )
 from d3net_tpu_torch.train.loop import (
     Checkpointer, StepLoop, detector_cfg_dict, in_channels_from_cfg,
-    make_dataloaders, rank0_validation, run_meta_extra, setup_run,
+    make_dataloaders, run_meta_extra, setup_run,
     spec_from_cfg, step_generator, write_run_meta,
 )
 from d3net_tpu_torch.train.losses import detector_loss
@@ -686,8 +686,8 @@ def run_pipeline_training(cfg: Config, run_dir: str,
     card waited on around each part of a step. Under a process group
     (``parallel.mesh``) each rank trains on its rows of every global batch
     (the description rows drawn over the global batch's scenes), every
-    rank loads the pretrained weights, and rank 0 alone writes the run dir
-    and validates.
+    rank loads the pretrained weights and validates its rows of every val
+    batch, and rank 0 alone writes the run dir.
     """
     _, cap, grd = task_mode(cfg)
     mode = 3 if cap and grd else 1 if cap else 2
@@ -779,17 +779,16 @@ def run_pipeline_training(cfg: Config, run_dir: str,
                 and not loop.done):
             continue
 
-        def validate():
-            val_metrics = run_pipeline_validation(
-                cfg, model, val_it, vocab, emb, mode,
-                diag_path=os.path.join(run_dir, "caption_diag.json"))
-            loop.logger.log(loop.step, val_metrics, "val")
+        val_metrics = run_pipeline_validation(
+            cfg, model, val_it, vocab, emb, mode,
+            diag_path=os.path.join(run_dir, "caption_diag.json"))
+        loop.logger.log(loop.step, val_metrics, "val")
+        if mesh.is_main():
             print(f"epoch {epoch} VAL " + " ".join(
                 f"{k}={v:.4f}" for k, v in sorted(val_metrics.items())))
-            ckpt.save(loop.step, state, val_metrics)
+        ckpt.save(loop.step, state, val_metrics)
+        if mesh.is_main():
             print(f"epoch {epoch} took {time.time() - t_epoch:.1f}s")
-
-        rank0_validation(validate)
         if loop.done:
             break
     loop.finish()
@@ -831,7 +830,16 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
     ``acc@k`` named ``ref_iou_rate_k``, ``iou_mean`` and the breakdown
     keys. Mode 3: both on the same detector output (the rows drawn for
     every batch before either task) and ``combined`` = ``cider`` +
-    ``ref_iou_rate_0.5``."""
+    ``ref_iou_rate_0.5``.
+
+    Under a process group ``val_it`` is the rank's (``make_val_loader``):
+    each rank runs its rows of every val batch, the description rows drawn
+    over the global batch's scenes on every rank (one stream) and the rank
+    keeping its own; a short last batch the ranks cannot split runs on
+    rank 0 alone (``mesh.eval_rows``). The evaluators' records are merged
+    on rank 0 in the global scene order (``mesh.gather_records``), which
+    computes the metrics and writes ``diag_path``; every rank returns its
+    dict."""
     subs = {1: ("speaker",), 2: ("listener",),
             3: ("speaker", "listener")}.get(mode)
     if subs is None:
@@ -848,45 +856,58 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
     grd_eval = GroundingEvaluator()
     rng_np = np.random.default_rng(0)
     n_refs = int(cfg.eval.get("num_caption_refs", 4) or 1)
+    def score(batch_np, scenes, lang_np):
+        """One val batch's rows (``scenes``, ``lang_np``: this rank's) into
+        the evaluators."""
+        det_out = model.run_detector(batch_to_torch(batch_np, dev))
+        corners = det_out["proposal_bbox_batched"].cpu().numpy()
+        mask = det_out["proposal_batch_mask"].cpu().numpy()
+        if captions:
+            data = model.run_speaker(
+                {**det_out, "glove_embeddings": emb_t}, mode="eval")
+            ids = data["lang_cap"].cpu().numpy()
+            for i, scene in enumerate(scenes):
+                nb = len(scene.instance_bboxes)
+                gt_c = np.stack([
+                    box_corners(bb[:3], bb[3:6])
+                    for bb in scene.instance_bboxes
+                ]) if nb else np.zeros((0, 8, 3))
+                cap_eval.add_scene(
+                    scene.scene_id, decode_captions(ids[i], vocab),
+                    corners[i], mask[i], gt_c, np.ones(nb),
+                    caption_references(scene, n_refs))
+        if grounding:
+            lang = lang_rows(lang_np, emb, dev)
+            data = model.run_listener(
+                {**det_out, **lang}, emb_t[lang["lang_ids"].long()],
+                lang["lang_len"], chunk)
+            flat = {k: v.reshape((-1,) + v.shape[2:])
+                    for k, v in lang_np.items()}
+            grd_eval.add(
+                data["cluster_ref"].cpu().numpy(),
+                np.repeat(corners, chunk, axis=0),
+                np.repeat(mask, chunk, axis=0),
+                flat["ref_box_corner_label"], flat["annotated"],
+                unique_multiple=flat["unique_multiple"],
+                object_cat=flat["ref_cat_label"])
+
     with torch.no_grad():
-        for batch_np, scenes in val_it:
-            det_out = model.run_detector(batch_to_torch(batch_np, dev))
-            corners = det_out["proposal_bbox_batched"].cpu().numpy()
-            mask = det_out["proposal_batch_mask"].cpu().numpy()
-            if grounding:
-                lang_np = build_lang_batch(scenes, vocab, chunk,
-                                           cfg.data.max_spk_len, rng_np,
-                                           val_it.spec.max_instances)
-            if captions:
-                data = model.run_speaker(
-                    {**det_out, "glove_embeddings": emb_t}, mode="eval")
-                ids = data["lang_cap"].cpu().numpy()
-                for i, scene in enumerate(scenes):
-                    nb = len(scene.instance_bboxes)
-                    gt_c = np.stack([
-                        box_corners(bb[:3], bb[3:6])
-                        for bb in scene.instance_bboxes
-                    ]) if nb else np.zeros((0, 8, 3))
-                    cap_eval.add_scene(
-                        scene.scene_id, decode_captions(ids[i], vocab),
-                        corners[i], mask[i], gt_c, np.ones(nb),
-                        caption_references(scene, n_refs))
-            if grounding:
-                lang = lang_rows(lang_np, emb, dev)
-                data = model.run_listener(
-                    {**det_out, **lang}, emb_t[lang["lang_ids"].long()],
-                    lang["lang_len"], chunk)
-                flat = {k: v.reshape((-1,) + v.shape[2:])
-                        for k, v in lang_np.items()}
-                grd_eval.add(
-                    data["cluster_ref"].cpu().numpy(),
-                    np.repeat(corners, chunk, axis=0),
-                    np.repeat(mask, chunk, axis=0),
-                    flat["ref_box_corner_label"], flat["annotated"],
-                    unique_multiple=flat["unique_multiple"],
-                    object_cat=flat["ref_cat_label"])
+        for b, (batch_np, scenes) in enumerate(val_it):
+            # drawn over the global batch's scenes on every rank
+            lang_np = build_lang_batch(
+                scenes, vocab, chunk, cfg.data.max_spk_len, rng_np,
+                val_it.spec.max_instances) if grounding else None
+            with mesh.eval_rows(val_it.splits(b)) as mine:
+                if mine:
+                    lo, hi = mesh.split_rows(len(scenes))
+                    cap_eval.batch = grd_eval.batch = b
+                    score(batch_np, scenes[lo:hi],
+                          None if lang_np is None
+                          else mesh.shard_host_batch(lang_np))
 
     out: Dict[str, float] = {}
+    if not mesh.gather_records(cap_eval, grd_eval):
+        return mesh.broadcast_from_main(out)
     if captions:
         out.update(cap_eval.compute())
         diag = cap_eval.diagnostics()
@@ -904,4 +925,4 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
                     else k: v for k, v in grd_eval.compute().items()})
     if "cider" in out and "ref_iou_rate_0.5" in out:
         out["combined"] = out["cider"] + out["ref_iou_rate_0.5"]
-    return out
+    return mesh.broadcast_from_main(out)
