@@ -12,7 +12,10 @@ a step, its traced device and NCCL ms a step); then the detection eval
 of the N-card run dir on one card and over N (line ``cards_eval``: the
 eval entry's seconds of each at the default settings, then both under
 parity precision and deterministic algorithms, their metrics held equal);
-then ``nvidia-smi``'s line.
+then ``benchmark_grounding`` on an imported full-width joint run dir (the
+``import_run`` phase's archive) over one card and N (line ``cards_tools``:
+the seconds of each as users call it, then both under the exact settings,
+their files held as ``dist_tools`` holds them); then ``nvidia-smi``'s line.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -224,6 +227,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               ``utils/ply.read_ply`` with its vertex count), each with its
               seconds and 75 ``gather_rows`` launches; then
               ``visualize_scannet --synthetic 2 --pred <dir>`` (numpy).
+    Then each of the four again under the exact settings
+              (``checks.tool_rank``: parity precision, deterministic
+              algorithms, every gather checked): the one-process files
+              ``dist_tools`` holds the ranks' to.
 28. tools_parity — ``benchmark_captioning`` and ``benchmark_grounding`` on
               a tiny joint run dir (seeded weights) and ``port_enet_weights
               --selftest``, cuda against cpu inside
@@ -231,12 +238,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               equal, boxes, scores and the selftest forward within rtol
               1e-4 / atol 1e-5 (``checks.tools_cuda_vs_cpu``, shared with
               the card test).
-29. enet_parity — ENet's eval forward (light and full layouts, f32) and
+29. import_run — a run of the JAX package carried onto the card as users
+              carry it: a run archive of conf/pointgroup_joint.yaml at its
+              published widths (f32, 128 proposals, beam 3 in 3 groups)
+              written by the port's numpy writer (``jax_run``; weights
+              from ``init_flax_variables``, the pipeline loop's AdamW
+              multi_transform state with seeded non-zero moments at the
+              update before a ``step_epoch`` boundary; 8 train scenes of
+              64, so the boundary is update 960), ``import_jax_run`` on the
+              card, a fresh state restored from the run dir holding the
+              archive's step, lr, moments and weights exactly, then the
+              train CLI resuming it for 2 steps across the boundary: the
+              first step's 432 gathers each checked exact, each step's ms,
+              one val batch, the new last checkpoint at the lr past the
+              boundary, ``imported_from`` kept in ``run_meta.json``.
+30. enet_parity — ENet's eval forward (light and full layouts, f32) and
               one ``train_enet`` step (f64, same dropout masks) at tiny
               size on uniform-noise images, cuda against cpu inside
               ``device.parity_precision()`` (``checks.enet_cuda_vs_cpu``,
               shared with the card test).
-30. multiview — the flagship recipe's first two commands in process:
+31. multiview — the flagship recipe's first two commands in process:
               ``train_enet`` at its published size (16 scenes x 8
               frames, 256x328, batch 8) for ENET_STEPS steps, its peak,
               a step timed alone (``enet_train_step_ms``, CUDA events) and
@@ -246,7 +267,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               24 scenes (140-232k points), seconds a scene split into
               render, ENet and projection, the share of points seen,
               finite (N, 128) features.
-31. flagship_train — the train CLI on a copy of
+32. flagship_train — the train CLI on a copy of
               conf/flagship_converge.yaml pointed at that store (published
               widths: 131,072 points, 7 levels, 134 channels, bf16, 128
               clusters a pass, 16 + 8 scenes, 12 steps a dispatch, 2
@@ -261,46 +282,52 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               ``gather_rows_plain`` (their bytes: ``scan_train_bound_ms``),
               finite losses, the restored state bit-exact, one step
               profiled (``scan_train_device_ms``).
-32. scannet_eval — ``eval --task detection`` and ``--task scannet`` on
+33. scannet_eval — ``eval --task detection`` and ``--task scannet`` on
               that run dir, one val batch each: finite metrics, the
               checkpoint stamped, the ``split_pred/val`` txt tree, 75
               gathers a batch.
-33. dist    — data-parallel training (``parallel/mesh.py``) in three
-              lines. ``dist_step`` (right after ``train``, on its flagship
+34. dist    — data-parallel training and evaluation (``parallel/mesh.py``).
+              ``dist_step`` (right after ``train``, on its flagship
               batch and weights): the detector train step through the
               distributed path on a one-rank NCCL group against the
               ``train`` phase's step with no group on the same draws
               (``checks.world1_group_step``: bit-equal where that step is
               bit-reproducible; the card's atomic adds make it not, and
               then within 4x the step's own run-to-run difference,
-              tensor by tensor), its 216 gathers checked exact; then ``dist_step_ms`` (2 warm-up + 5 timed, CUDA
-              events) beside ``train``'s, the all-reduces a step and
-              their device ms in one profiled step, the peak.
-              ``dist_ranks``: two ranks on cuda:0 over gloo (NCCL takes
-              one rank a card) against world size 1 on the card at
+              tensor by tensor), its 216 gathers checked exact; then
+              ``dist_step_ms`` (2 warm-up + 5 timed, CUDA events) beside
+              ``train``'s, the all-reduces a step and their device ms in
+              one profiled step, the peak. Then, after ``scannet_eval``,
+              one start of two ranks on cuda:0 over gloo (NCCL takes one
+              rank a card) for four lines (``phase_dist``):
+              ``dist_ranks``: against world size 1 on the card at
               conf/debug/ widths, TF32 off: the detector step with and
               without clustering and the mode-3 joint step (rollout ids,
               host scores, losses), parameters bit-identical across the
               ranks, every gather of every rank exact
               (``checks.dist_ranks_on_one_card``), and
               ``MaskedBatchNorm`` in bf16 at counts bf16 rounds.
-              ``dist_dryrun``: ``parallel/dryrun.py``'s two steps in the
-              same two ranks (one start of the ranks for both), its two
-              lines printed, finite losses.
-34. dist_eval — the eval CLI's tasks over two ranks on cuda:0 (gloo), one
-              start of the ranks: ``captioning`` and ``grounding`` on the
-              ``joint_train`` run dir (f32; one val batch of 4, two scenes
-              a rank) held against the ``joint_eval`` phase's one-process
-              evals; ``detection`` on the ``run`` phase's (bf16, two
-              batches) beside the ``eval`` phase's, reported (the bf16
-              eval forward does not reproduce itself run to run at the
-              default settings), and held under parity precision and
+              ``dist_dryrun``: ``parallel/dryrun.py``'s two steps, its two
+              lines printed, finite losses. ``dist_eval``: the eval CLI's
+              ``captioning`` and ``grounding`` on the ``joint_train`` run
+              dir (f32; one val batch of 4, two scenes a rank) held
+              against the ``joint_eval`` phase's one-process evals;
+              ``detection`` on the ``run`` phase's (bf16, two batches)
+              beside the ``eval`` phase's, reported (the bf16 eval forward
+              does not reproduce itself run to run at the default
+              settings), and held under parity precision and
               deterministic algorithms against a one-process eval under
-              the same settings. Held: metrics and the json file (ints
-              and strings exact, floats within rtol 1e-5), both ranks'
-              metrics equal, every ``gather_rows`` call of every rank
-              exact against ``gather_rows_plain`` as it runs, 75 a rank a
-              val batch; each rank's seconds beside the one process's.
+              the same settings (metrics and the json file: ints and
+              strings exact, floats within rtol 1e-5; both ranks'
+              metrics equal); each rank's seconds beside the one
+              process's. ``dist_tools``: the four model-running tools on
+              the joint run dir's val batch under the exact settings
+              against the ``tools`` phase's exact one-process files: text
+              files byte-equal, JSON and PLY files byte-equal or within
+              rtol 1e-5 by value (the f32 ScoreNet's scores move by ulps
+              with the batch's size). Every ``gather_rows`` call of every
+              rank exact against ``gather_rows_plain`` as it runs, 75 a
+              rank a val batch.
 
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
@@ -311,8 +338,9 @@ of the ``run``, ``spk_train``, ``lis_train`` and ``joint_train`` phases
 and per batch of the ``caption``, ``grounding`` and ``tools`` phases, with
 the three train stages' bounds and device times, and the same three for
 the ``flagship_train`` scan step (its ``max_abs_err`` covers every checked
-gather), the ``dist_step``'s launches per step and ``dist_eval``'s a rank
-a val batch. The last two lines are
+gather), the ``dist_step``'s launches per step, ``dist_eval``'s and
+``dist_tools``' a rank a val batch and ``import_run``'s a resumed step.
+The last two lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, the script exits non-zero
 and prints no result. It imports nothing of JAX or of the JAX package.
@@ -338,15 +366,19 @@ import torch
 
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
+from d3net_tpu_torch import jax_run
 from d3net_tpu_torch.checks import (
-    GatherRecorder, detector_case, detector_repro, dist_ranks_on_one_card,
-    enet_cuda_vs_cpu, eval_outputs, evals_world_vs_one, joint_parity_config,
-    joint_step_case, joint_step_cuda_vs_cpu, joint_step_kw,
-    listener_cuda_vs_cpu, listener_step_case, listener_step_cuda_vs_cpu,
-    randomize, relu_sides, speaker_cuda_vs_cpu, speaker_step_case,
-    speaker_step_cuda_vs_cpu, tools_cuda_vs_cpu, world1_group_step,
+    EVAL_RTOL, GatherRecorder, detector_case, detector_repro,
+    dist_ranks_on_one_card, enet_cuda_vs_cpu, eval_calls, eval_outputs,
+    eval_reports,
+    evals_world_vs_one, joint_parity_config, joint_step_case,
+    joint_step_cuda_vs_cpu, joint_step_kw, listener_cuda_vs_cpu,
+    listener_step_case, listener_step_cuda_vs_cpu, randomize, rank_calls,
+    relu_sides, speaker_cuda_vs_cpu, speaker_step_case,
+    speaker_step_cuda_vs_cpu, tool_calls, tool_reports, tools_cuda_vs_cpu,
+    tools_world_vs_one, val_scene_count as val_scenes, world1_group_step,
 )
-from d3net_tpu_torch.config import save as save_cfg
+from d3net_tpu_torch.config import dump_yaml, save as save_cfg
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
 from d3net_tpu_torch.data import collate
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
@@ -370,13 +402,14 @@ from d3net_tpu_torch.scripts import (
     visualize_grounding, visualize_scannet,
 )
 from d3net_tpu_torch.scripts import eval as eval_cli
-from d3net_tpu_torch.scripts import prepare_weights
+from d3net_tpu_torch.scripts import import_jax_run, prepare_weights
 from d3net_tpu_torch.scripts import train as train_cli
 from d3net_tpu_torch.scripts.train import load_task_config
 from d3net_tpu_torch.train import pipeline
 from d3net_tpu_torch.train.loop import (
     Checkpointer, detector_cfg_dict, detector_from_cfg, init_detector,
-    make_dataloaders, make_val_loader, run_detector_training, spec_from_cfg,
+    make_dataloaders, make_val_loader, optimizer_kw, run_detector_training,
+    spec_from_cfg, train_steps_per_epoch,
 )
 from d3net_tpu_torch.train.losses_slt import (
     caption_loss, grounding_loss, lang_cls_loss,
@@ -434,6 +467,10 @@ SCAN_DISPATCHES = 3     # of the flagship config's 64 epochs of 8 batches:
                         # the checked step in the first, the host syncs
                         # counted in the second, the third timed clean
 SCAN_CHECKED_STEP = 6   # the step (1-based) whose gathers are checked
+IMPORT_SCENES = 8       # import_run: train scenes of the joint config's 64
+#                         (two batches an epoch)
+IMPORT_STEPS = 2        # resumed steps: the last before a step_epoch
+#                         boundary and the first after it
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
                  cluster_npoint_thre=30, test_npoint_thresh=30,
@@ -1146,33 +1183,6 @@ def phase_dist_step(variables, batch, train_step_ms, expected):
     return res["launches"]
 
 
-def phase_dist_ranks():
-    """Phase ``dist`` (b) and (c) in one start of two ranks on cuda:0 over
-    gloo: the cross-rank sums against world size 1 on the card
-    (``checks.dist_ranks_on_one_card``), then ``parallel/dryrun.py``'s two
-    steps in the same ranks, its two lines printed."""
-    t0 = time.time()
-    cfg = load_task_config(os.path.join(ROOT, "conf", "debug",
-                                        "tiny_pointgroup.yaml"))
-    train_it, _ = make_dataloaders(cfg, spec_from_cfg(cfg))
-    det = detector_case(detector_cfg_dict(cfg), next(iter(train_it)))
-    jcfg = joint_parity_config(load_task_config(TINY_JOINT_CONFIG))
-    vocab, emb = pipeline.build_vocab(jcfg)
-    res = dist_ranks_on_one_card(
-        det, jcfg, joint_step_case(jcfg, vocab, emb),
-        also=[(dryrun.dryrun_rank, (2, True), {})])
-    also = res.pop("also")
-    emit({"phase": "dist_ranks", "seconds": time.time() - t0, **res})
-    dry = dryrun.report(2, also[0])
-    emit({"phase": "dist_dryrun", "ranks": 2, "backend": "gloo",
-          "det_total_loss": dry["det"]["total_loss"],
-          "joint_loss": dry["joint"]["loss"],
-          "joint_cap_rwd": dry["joint"]["cap_rwd"]})
-    if not res["ok"]:
-        raise AssertionError(f"dist ranks against world 1: "
-                             f"{res['outside_tolerance']}")
-
-
 @contextlib.contextmanager
 def numpy_tables():
     """The collate's voxelization and tables on the numpy plain versions
@@ -1256,18 +1266,29 @@ def run_config(root):
 
 
 @contextlib.contextmanager
-def val_scenes(n):
-    """The loaders' ``D3NET_VAL_SCENES`` at ``n`` while open: one val batch
-    of the config's scenes."""
-    saved = os.environ.get("D3NET_VAL_SCENES")
-    os.environ["D3NET_VAL_SCENES"] = str(n)
+def shared_scenes():
+    """The train loops' and evals' synthetic scenes (``train.loop.
+    scenes_from_cfg``) made once for each scene count, split and scene
+    settings while open: the ``run`` phase, the three stages, the evals and
+    the import resume read the same deterministic scenes
+    (``make_scene(seed)``), which the loaders only read; each phase's
+    batches and steps are as before."""
+    from d3net_tpu_torch.data.dataset import SyntheticScenes
+    from d3net_tpu_torch.train import loop
+
+    made = {}
+
+    def shared(num_scenes=64, split="train", **kw):
+        key = (num_scenes, split, tuple(sorted(kw.items())))
+        if key not in made:
+            made[key] = SyntheticScenes(num_scenes, split, **kw)
+        return made[key]
+
+    loop.SyntheticScenes = shared
     try:
         yield
     finally:
-        if saved is None:
-            del os.environ["D3NET_VAL_SCENES"]
-        else:
-            os.environ["D3NET_VAL_SCENES"] = saved
+        loop.SyntheticScenes = SyntheticScenes
 
 
 @contextlib.contextmanager
@@ -2598,42 +2619,75 @@ def phase_joint_eval(run_dir, per_forward):
     return outputs
 
 
-def phase_dist_eval(run_dir, joint_run, world1, per_forward):
-    """The eval CLI's tasks over two ranks on cuda:0 (gloo: NCCL takes one
-    rank a card), one start of the ranks for all four evals:
-    ``captioning`` and ``grounding`` on the joint run dir (f32; one val
-    batch of 4, two scenes a rank), held against the ``joint_eval``
-    phase's one-process evals; ``detection`` on the ``run`` phase's run dir
-    (bf16; its 8 val scenes, two batches) at the default settings, beside
-    the ``eval`` phase's, reported and not held: the bf16 eval forward
-    does not reproduce itself run to run at those settings (atomic adds,
-    bf16 reductions); and ``detection`` again with ``exact``
+def phase_dist(run_dir, joint_run, world1, tools_one, per_forward):
+    """Phases ``dist_ranks``, ``dist_dryrun``, ``dist_eval`` and
+    ``dist_tools`` in one start of two ranks on cuda:0 over gloo (NCCL
+    takes one rank a card): ``checks.dist_ranks_on_one_card``'s steps
+    against world size 1, then in the same ranks ``parallel/dryrun.py``'s
+    two steps, the eval CLI's tasks and the four model-running tools.
+
+    The evals: ``captioning`` and ``grounding`` on the joint run dir (f32;
+    one val batch of 4, two scenes a rank), held against the
+    ``joint_eval`` phase's one-process evals; ``detection`` on the ``run``
+    phase's run dir (bf16; its 8 val scenes, two batches) at the default
+    settings, beside the ``eval`` phase's, reported and not held: the bf16
+    eval forward does not reproduce itself run to run at those settings
+    (atomic adds, bf16 reductions); and ``detection`` again with ``exact``
     (``device.parity_precision()`` and ``checks.deterministic()``, where it
     reproduces itself whatever the batch's size) against a one-process
-    eval under the same settings, held. Held: ``checks.eval_mismatches``
-    (metrics and the json file: ints and strings exact, floats within rtol
-    1e-5; both ranks' metrics equal), every gather of every rank exact
-    against the plain version as it runs, 75 gathers a rank a val batch.
-    Then ``checks.detector_repro`` on the run dir's detector and first val
-    batch, the cause in numbers: run to run and in halves (two ranks' rows),
-    at the default settings (reported) and under the exact ones (held:
-    nothing differs run to run, no cluster id or proposal in halves).
-    Returns the launches a rank makes a val batch."""
+    eval under the same settings, held (``checks.eval_mismatches``: ints
+    and strings exact, floats within rtol 1e-5; both ranks' metrics
+    equal). The tools: each on the joint run dir's val batch under the
+    exact settings against the ``tools`` phase's exact one-process run
+    (``checks.tool_reports``): the same files, each byte-equal or, where
+    the f32 ScoreNet's scores moved by ulps with the batch's size, its
+    JSON values or PLY vertices within rtol 1e-5 (the count of byte-equal
+    files reported). Every gather of every rank
+    is held exact against the plain version as it runs, 75 a rank a val
+    batch. Then ``checks.detector_repro`` on the run dir's detector and
+    first val batch, the cause in numbers: run to run and in halves (two
+    ranks' rows), at the default settings (reported) and under the exact
+    ones (held: nothing differs run to run, no cluster id or proposal in
+    halves). Returns the launches a rank makes a val batch in the evals
+    and in the tools."""
     t0 = time.time()
-    cfg = load_task_config(os.path.join(joint_run, "config.yaml"))
-    b = int(cfg.data.batch_size)
+    cfg = load_task_config(os.path.join(ROOT, "conf", "debug",
+                                        "tiny_pointgroup.yaml"))
+    train_it, _ = make_dataloaders(cfg, spec_from_cfg(cfg))
+    det = detector_case(detector_cfg_dict(cfg), next(iter(train_it)))
+    jcfg = joint_parity_config(load_task_config(TINY_JOINT_CONFIG))
+    vocab, emb = pipeline.build_vocab(jcfg)
+    case = joint_step_case(jcfg, vocab, emb)
+    b = int(load_task_config(os.path.join(joint_run, "config.yaml"))
+            .data.batch_size)
     evals = [("captioning", joint_run, b), ("grounding", joint_run, b),
              ("detection", run_dir, None), ("detection", run_dir, None, True)]
-    res = evals_world_vs_one(
-        evals, world=2, dev="cuda:0", check_gathers=True,
-        one=[world1["captioning"], world1["grounding"], world1["detection"],
-             None])
-    bad, report = [], {}
-    for rec in res["evals"]:
+    one = [world1["captioning"], world1["grounding"], world1["detection"],
+           rank_calls(eval_calls(evals[3:], "cuda:0", True))[0]]
+    tools = tool_runs(joint_run, b)
+    also = ([(dryrun.dryrun_rank, (2, True), {})]
+            + eval_calls(evals, None, True) + tool_calls(tools, None, True))
+    t1 = time.time()
+    res = dist_ranks_on_one_card(det, jcfg, case, also=also)
+    spawn_s = time.time() - t1
+    ranks = res.pop("also")
+    emit({"phase": "dist_ranks", "spawn_seconds": round(spawn_s, 3), **res})
+    dry = dryrun.report(2, ranks[0][0])
+    emit({"phase": "dist_dryrun", "ranks": 2, "backend": "gloo",
+          "det_total_loss": dry["det"]["total_loss"],
+          "joint_loss": dry["joint"]["loss"],
+          "joint_cap_rwd": dry["joint"]["cap_rwd"]})
+    bad = [] if res["ok"] else [f"dist ranks against world 1: "
+                                f"{res['outside_tolerance']}"]
+
+    ne = len(evals)
+    ev = eval_reports(evals, [r[1:1 + ne] for r in ranks], one)
+    report = {}
+    for rec in ev["evals"]:
         name = rec["task"] + ("_exact" if rec["exact"] else "")
         per_batch = [n // v for n, v in zip(rec["launches_per_rank"],
                                             rec["val_batches_per_rank"])]
-        if per_batch != [per_forward] * res["world"] or any(
+        if per_batch != [per_forward] * ev["world"] or any(
                 n % v for n, v in zip(rec["launches_per_rank"],
                                       rec["val_batches_per_rank"])):
             bad.append(f"{name}: launches {rec['launches_per_rank']} over "
@@ -2660,16 +2714,37 @@ def phase_dist_eval(run_dir, joint_run, world1, per_forward):
         init_detector(detector_from_cfg(rcfg), 0).to("cuda"), rcfg, run_dir)
     _, scenes = next(iter(make_val_loader(rcfg, spec, return_scenes=True)))
     repro = detector_repro(state.model.eval(), scenes, spec, "cuda")
+    del state
     if any(repro["exact"]["run_to_run"].values()) or any(
             v for k, v in repro["exact"]["halves"].items()
             if k.endswith("_differ")):
         bad.append(f"detector forward under the exact settings: {repro}")
     emit({"phase": "dist_eval", "ranks": 2, "backend": "gloo",
-          "device": "cuda:0", **report, "detector_repro": repro,
+          "device": "cuda:0", **report, "detector_repro": repro})
+
+    # the joint detector's f32 ScoreNet scores move by ulps with the
+    # batch's size even under the exact settings: the JSON and PLY values
+    # are held within EVAL_RTOL where their bytes differ
+    tr = tool_reports(tools, [r[1 + ne:] for r in ranks], tools_one,
+                      EVAL_RTOL)
+    tool_per_batch = []
+    for rec in tr["tools"]:
+        per_batch = [n // v for n, v in zip(rec["launches_per_rank"],
+                                            rec["val_batches_per_rank"])]
+        tool_per_batch += per_batch
+        if per_batch != [per_forward] * tr["world"]:
+            bad.append(f"{rec['tool']}: launches {rec['launches_per_rank']}"
+                       f" over batches {rec['val_batches_per_rank']}")
+    bad += tr["mismatches"]
+    emit({"phase": "dist_tools", "ranks": 2, "backend": "gloo",
+          "device": "cuda:0", "exact": True,
+          "tools": {rec["tool"]: {k: v for k, v in rec.items() if k != "tool"}
+                    for rec in tr["tools"]},
           "seconds": round(time.time() - t0, 3)})
     if bad:
-        raise AssertionError(f"dist_eval against one process: {bad}")
-    return report["detection_exact"]["gathers_per_rank_per_batch"][0]
+        raise AssertionError(f"dist phases against one process: {bad}")
+    return (report["detection_exact"]["gathers_per_rank_per_batch"][0],
+            tool_per_batch[0])
 
 
 # --------------------------------------------------------------------------
@@ -2693,7 +2768,11 @@ def phase_tools(run_dir, per_forward):
     the config's scenes: 75 ``gather_rows`` launches each, every scene in
     both JSONs with well-formed entries, every PLY read back with its
     vertex count; then ``visualize_scannet`` on ``--synthetic 2`` with a
-    ``--pred`` dir. Returns the launches a batch (each CLI's, all equal)."""
+    ``--pred`` dir; then the four again under the exact settings
+    (``checks.tool_rank``: parity precision, deterministic algorithms,
+    every gather checked), whose files ``dist_tools`` holds the ranks' to.
+    Returns the launches a batch (each CLI's, all equal) and those four
+    exact runs."""
     t0 = time.time()
     cfg = load_task_config(os.path.join(run_dir, "config.yaml"))
     n = cfg.data.batch_size
@@ -2803,12 +2882,35 @@ def phase_tools(run_dir, per_forward):
         raise AssertionError("tools: index.html misses a scene")
     report["visualize_scannet"] = {"plys": plys,
                                    "seconds": round(time.time() - t1, 3)}
+
+    # the one-process files ``dist_tools`` holds the ranks' to: each tool
+    # again under the exact settings, every gather checked
+    one = [rank_calls(tool_calls([r], "cuda", True))[0]
+           for r in tool_runs(run_dir, n)]
+    for o in one:
+        if o["checked"] != o["launches"] or o["launches"] != per_forward:
+            raise AssertionError(f"tools: exact {o['tool']} checked "
+                                 f"{o['checked']} of {o['launches']} gathers")
+    report["exact_one_process"] = {
+        o["tool"]: {"seconds": round(o["seconds"], 3),
+                    "files": len(o["files"]), "launches": o["launches"],
+                    "checked": o["checked"]}
+        for o in one}
     emit({"phase": "tools", **report,
           "test_score_thresh": cfg.test.TEST_SCORE_THRESH,
           "reduced": [f"{n} val scenes, one batch, of the config's "
                       f"{max(2, cfg.data.synthetic.num_scenes // 8)}"],
           "seconds": round(time.time() - t0, 3)})
-    return per_forward
+    return per_forward, one
+
+
+def tool_runs(run_dir, n):
+    """The four model-running tools on ``run_dir``'s first ``n`` val
+    scenes under the exact settings (``checks.tool_rank``'s runs)."""
+    return [(tool, run_dir, n, True) if tool.startswith("benchmark")
+            else (tool, run_dir, n, True, {"scenes": n})
+            for tool in ("benchmark_captioning", "benchmark_grounding",
+                         "visualize_captioning", "visualize_grounding")]
 
 
 def phase_tools_parity(root):
@@ -2821,6 +2923,207 @@ def phase_tools_parity(root):
           "seconds": round(time.time() - t0, 3)})
     if not res["ok"]:
         raise AssertionError(f"tools_parity: {res['outside_tolerance']}")
+
+
+# --------------------------------------------------------------------------
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def joint_archive(root):
+    """A run archive of conf/pointgroup_joint.yaml at its published widths,
+    written by the port's numpy writer (``jax_run``: the card has no JAX):
+    weights from ``params.init_flax_variables``, the pipeline loop's AdamW
+    multi_transform state (every submodule ``train``: the config freezes
+    none) with seeded non-zero moments at the update before a
+    ``step_epoch`` boundary; the train scenes cut to IMPORT_SCENES (two
+    batches an epoch, so the boundary is step_epoch · 2 updates in), every
+    step logged.
+    Returns (its ``.npz``, the config, the state written)."""
+    os.makedirs(root, exist_ok=True)
+    cfg = load_task_config(JOINT_CONFIG)
+    cfg.general.output_root = root
+    cfg.data.synthetic.num_scenes = IMPORT_SCENES
+    cfg.train.log_every_n_steps = 1
+    model = pipeline.pipeline_from_cfg(cfg, pipeline.build_vocab(cfg)[0])
+    variables = init_flax_variables(model, 11)
+    del model
+    transition = cfg.train.step_epoch * train_steps_per_epoch(cfg)
+    rng = np.random.default_rng(11)
+    mu = _map_tree(lambda a: (rng.standard_normal(a.shape) * 1e-3).astype(
+        np.float32), variables["params"])
+    nu = _map_tree(lambda a: (rng.random(a.shape) * 1e-6).astype(np.float32),
+                   variables["params"])
+    flags = pipeline.freeze_flags(cfg, pipeline.pipeline_mode(cfg))
+    labels = {k: "freeze" if flags.get(k) else "train"
+              for k in variables["params"]}
+    o = cfg.train.optim
+    st = {"step": transition - 1, **variables,
+          "opt_state": jax_run.optax_state(o.classname, transition - 1,
+                                           [mu, nu], labels)}
+    npz, _ = jax_run.write_archive(
+        os.path.join(root, "joint_archive"),
+        config_yaml=dump_yaml(cfg.to_dict()), loop="pipeline",
+        schedule={"optim": o.classname, "lr": o.lr,
+                  "multiplier": cfg.train.multiplier,
+                  "transition_steps": transition},
+        steps={"last": st, "best": st}, labels=labels,
+        folder="chip_smoke.py joint_archive",
+        best_json={"step": st["step"], "value": 0.0,
+                   "monitor": cfg.general.monitor.split("/")[-1],
+                   "mode": cfg.general.monitor_mode})
+    return npz, cfg, st
+
+
+def _adam_flax(state, key):
+    """The optimizer's ``key`` state of every trainable parameter, Flax
+    layout, flattened."""
+    model = state.model
+    return flatten(state_dict_to_flax(model, {
+        n: state.optimizer.state[p][key] for n, p in model.named_parameters()
+        if p.requires_grad})["params"])
+
+
+def _restored_import(run_dir):
+    """A fresh train state of the imported run dir's last checkpoint, as
+    the pipeline loop builds and restores it."""
+    cfg = load_task_config(os.path.join(run_dir, "config.yaml"))
+    model = import_jax_run.model_of(cfg, "pipeline").cuda()
+    state = create_train_state(
+        model, **optimizer_kw(cfg))
+    if Checkpointer(run_dir, "none").restore_last(state) is None:
+        raise AssertionError(f"import_run: no checkpoint in {run_dir}")
+    return state
+
+
+def phase_import_run(root, per_step, per_forward):
+    """A run of the JAX package carried onto the card as users carry it:
+    ``joint_archive`` (conf/pointgroup_joint.yaml at its published widths,
+    f32, 128 proposals, beam 3 in 3 groups; the step before a
+    ``step_epoch`` boundary), ``import_jax_run`` on the card, a fresh
+    state restored from the run dir holding the archive's step, lr,
+    moments and weights exactly; then the train CLI resumes it for
+    IMPORT_STEPS steps across the boundary, the first step's gathers each
+    held to the plain version as they run, its launches (two detector
+    passes and their backward) and each step's ms (the loop waiting for the
+    card around each part), one val batch, and the new last checkpoint at
+    the lr past the boundary. Returns the launches a resumed step and the
+    checked gathers' largest error."""
+    t0 = time.time()
+    npz, cfg, st = joint_archive(root)
+    archive_s = time.time() - t0
+    run = os.path.join(root, "imported")
+    t1 = time.time()
+    imported = import_jax_run.main(["--archive", npz, "--out", run])
+    import_s = time.time() - t1
+    count = st["step"]
+    transition = cfg.train.step_epoch * train_steps_per_epoch(cfg)
+    lr0 = cfg.train.optim.lr
+    bad = []
+
+    state = _restored_import(run)
+    adam = st["opt_state"].inner_states["train"].inner_state[0]
+    for key, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        got, want = _adam_flax(state, key), flatten(tree)
+        if sorted(got) != sorted(want) or any(
+                not np.array_equal(got[k], want[k]) for k in want):
+            bad.append(f"restored {key} differs from the archive's")
+    weights = flatten(state_dict_to_flax(state.model)["params"])
+    if any(not np.array_equal(weights[k], v)
+           for k, v in flatten(st["params"]).items()):
+        bad.append("restored weights differ from the archive's")
+    restored = {"step": state.step, "last_epoch": state.scheduler.last_epoch,
+                "lr": state.optimizer.param_groups[0]["lr"],
+                "adam_steps": sorted({float(v["step"]) for v in
+                                      state.optimizer.state.values()})}
+    if restored != {"step": count, "last_epoch": count, "lr": lr0,
+                    "adam_steps": [float(count)]}:
+        bad.append(f"restored {restored}")
+    del state
+    torch.cuda.empty_cache()
+
+    steps, seen = [], [0]
+    rec = GatherRecorder(gather, check=True, where="the resumed joint step")
+
+    def on_step(r):
+        r["gather_launches"] = gather.gather_rows.launches - seen[0]
+        seen[0] = gather.gather_rows.launches
+        steps.append(r)
+        sparse_conv.gather, segment.gather = gather, gather
+
+    real = pipeline.run_pipeline_training
+    pipeline.run_pipeline_training = \
+        lambda *a, **kw: real(*a, on_step=on_step, **kw)
+    t2 = time.time()
+    try:
+        with val_scenes(cfg.data.batch_size):
+            sparse_conv.gather, segment.gather = rec, rec
+            gather.gather_rows.launches = 0  # the main path, counted from here
+            train_cli.main(["--config", os.path.join(run, "config.yaml"),
+                            "--folder", run, "--max_steps",
+                            str(count + IMPORT_STEPS)])
+            torch.cuda.synchronize()
+    finally:
+        pipeline.run_pipeline_training = real
+        sparse_conv.gather, segment.gather = gather, gather
+    resume_s = time.time() - t2
+    launches = gather.gather_rows.launches
+    if rec.checked != 2 * per_step:
+        bad.append(f"{rec.checked} gathers checked in the first resumed "
+                   f"step, expected {2 * per_step}")
+    try:
+        per = _check_launches("import_run", steps, launches, 2 * per_step,
+                              per_forward)
+    except AssertionError as e:
+        bad.append(str(e))
+        per = None
+    recs = _metrics(run)
+    train = [r for r in recs if "train/loss" in r]
+    val = [r for r in recs if "val/combined" in r]
+    if [r["step"] for r in train] != [count + i + 1
+                                      for i in range(IMPORT_STEPS)] \
+            or len(val) != 1 or any(not math.isfinite(v)
+                                    for r in recs for v in r.values()):
+        bad.append(f"metrics {recs}")
+    state = _restored_import(run)
+    after = {"step": state.step, "last_epoch": state.scheduler.last_epoch,
+             "lr": state.optimizer.param_groups[0]["lr"]}
+    want_lr = lr0 * cfg.train.multiplier ** ((count + IMPORT_STEPS)
+                                             // transition)
+    if after != {"step": count + IMPORT_STEPS,
+                 "last_epoch": count + IMPORT_STEPS, "lr": want_lr}:
+        bad.append(f"resumed to {after}, lr expected {want_lr}")
+    with open(os.path.join(run, "run_meta.json")) as f:
+        meta = json.load(f)
+    if meta.get("imported_from", {}).get("step") != count:
+        bad.append(f"run_meta {meta.get('imported_from')}")
+    del state
+    torch.cuda.empty_cache()
+    published = load_task_config(JOINT_CONFIG)
+    emit({"phase": "import_run", "archive_bytes": os.path.getsize(npz),
+          "archive_s": round(archive_s, 3), "import_s": round(import_s, 3),
+          "imported": imported, "restored": restored,
+          "boundary_update": transition, "lr_before": lr0,
+          "lr_after": want_lr, "resumed": after,
+          "step_ms": [round(r["step_s"] * 1e3, 3) for r in steps],
+          "run_step_ms": [round(r["wall_s"] * 1e3, 3) for r in steps],
+          "gather_launches_per_step": [r["gather_launches"] for r in steps],
+          "gathers_checked_exact": rec.checked,
+          "gather_max_abs_err": rec.max_abs_err,
+          "val": {k[4:]: v for k, v in val[0].items() if k != "step"}
+          if val else None,
+          "resume_s": round(resume_s, 3),
+          "reduced": [f"{IMPORT_SCENES} train scenes of the config's "
+                      f"{published.data.synthetic.num_scenes}",
+                      f"{IMPORT_STEPS} resumed steps",
+                      f"{cfg.data.batch_size} val scenes, one batch",
+                      "log_every_n_steps 1 (the config's "
+                      f"{published.train.log_every_n_steps})"],
+          "mismatches": bad, "seconds": round(time.time() - t0, 3)})
+    if bad:
+        raise AssertionError(f"import_run: {bad}")
+    return per, rec.max_abs_err
 
 
 # --------------------------------------------------------------------------
@@ -3258,9 +3561,51 @@ def cards_eval(run_dir, n: int):
                              f"{res['mismatches']}")
 
 
+def cards_tools(root, n: int):
+    """``benchmark_grounding`` on the imported full-width joint run dir
+    (``joint_archive``, then ``import_jax_run``) over 2·B val scenes, one
+    card and ``n``: first as users call it (``benchmark_grounding(
+    world_size=)``, default settings), the seconds of each and whether the
+    files are equal, reported; then both under the exact settings
+    (``checks.tool_rank``), the files held as ``dist_tools`` holds them."""
+    npz, cfg, _ = joint_archive(root)
+    run = os.path.join(root, "imported")
+    import_jax_run.import_run(npz, run)
+    scenes = 2 * int(cfg.data.batch_size)
+    out = {"phase": "cards_tools", "tool": "benchmark_grounding",
+           "val_scenes": scenes}
+    files = {}
+    with val_scenes(scenes):
+        for world in (1, n):
+            path = os.path.join(root, f"grounding_{world}.json")
+            t0 = time.time()
+            benchmark_grounding.benchmark_grounding(
+                cfg, run, "cuda", out=path, world_size=world)
+            out[f"seconds_{world}_cards"] = time.time() - t0
+            with open(path, "rb") as f:
+                files[world] = f.read()
+    out["default_settings_files_equal"] = files[1] == files[n]
+    res = tools_world_vs_one([("benchmark_grounding", run, scenes, True)],
+                             world=n, dev="cuda:0", backend="nccl",
+                             devices=[f"cuda:{i}" for i in range(n)],
+                             rtol=EVAL_RTOL)
+    rec = res["tools"][0]
+    out.update({"exact_seconds_1_card": rec["seconds_world1"],
+                f"exact_seconds_{n}_cards_per_rank": rec[f"seconds_world{n}"],
+                "exact_files": rec["files"], "exact_bytes": rec["bytes"],
+                "exact_byte_equal": rec["byte_equal"],
+                "exact_launches_per_rank": rec["launches_per_rank"],
+                "exact_mismatches": rec["mismatches"]})
+    emit(out)
+    if not res["ok"]:
+        raise AssertionError(f"cards_tools: {n} cards against one: "
+                             f"{res['mismatches']}")
+
+
 def cards_main(n: int) -> int:
     """The collate's cost of a rank's rows, then ``cards_run`` on one card
-    and on ``n``, then ``cards_eval`` on the ``n``-card run dir; the
+    and on ``n``, then ``cards_eval`` on the ``n``-card run dir, then
+    ``cards_tools`` on an imported full-width joint run dir; the
     ``nvidia-smi`` line last."""
     smi = nvidia_smi_line()
     with tempfile.TemporaryDirectory(prefix="d3net_cards_") as root:
@@ -3269,6 +3614,7 @@ def cards_main(n: int) -> int:
         for world in sorted({1, n}):
             emit(cards_run(root, world))
         cards_eval(os.path.join(root, f"cards_{n}"), n)
+        cards_tools(os.path.join(root, "tools"), n)
     print(smi, flush=True)
     return 0
 
@@ -3316,7 +3662,8 @@ def main(argv=None) -> int:
     del batch, variables
     torch.cuda.empty_cache()
     phase_host_lib()
-    with tempfile.TemporaryDirectory(prefix="d3net_run_") as root:
+    with tempfile.TemporaryDirectory(prefix="d3net_run_") as root, \
+            shared_scenes():
         run_dir, val_batches, run_per_step = phase_run(
             root, train["train_launches"], launches, train["step_ms"])
         world1 = {"detection": phase_eval(run_dir, val_batches, launches)}
@@ -3351,17 +3698,18 @@ def main(argv=None) -> int:
             stage_run_dir(os.path.join(root, "lis"), GROUNDING_CONFIG),
             train["train_launches"], launches)
         world1.update(phase_joint_eval(joint_run, launches))
-        tools_launches = phase_tools(joint_run, launches)
+        tools_launches, tools_one = phase_tools(joint_run, launches)
         phase_tools_parity(os.path.join(root, "tools"))
+        import_launches, import_err = phase_import_run(
+            os.path.join(root, "import"), train["train_launches"], launches)
         phase_enet_parity()
         store = phase_multiview(os.path.join(root, "mv"))
         flagship_run, scan = phase_flagship_train(
             os.path.join(root, "flagship"), store, train["train_launches"],
             launches)
         phase_scannet_eval(flagship_run, launches)
-        dist_eval_launches = phase_dist_eval(run_dir, joint_run, world1,
-                                             launches)
-    phase_dist_ranks()
+        dist_eval_launches, dist_tools_launches = phase_dist(
+            run_dir, joint_run, world1, tools_one, launches)
     kernels[0]["run_launches_per_step"] = run_per_step
     kernels[0]["caption_launches_per_batch"] = caption_launches
     kernels[0]["caption_max_abs_err"] = caption_err
@@ -3369,6 +3717,10 @@ def main(argv=None) -> int:
     kernels[0]["grounding_max_abs_err"] = grounding_err
     kernels[0]["tools_launches_per_batch"] = tools_launches
     kernels[0]["dist_eval_launches_per_rank_per_batch"] = dist_eval_launches
+    kernels[0]["dist_tools_launches_per_rank_per_batch"] = \
+        dist_tools_launches
+    kernels[0]["import_run_launches_per_step"] = import_launches
+    kernels[0]["import_run_max_abs_err"] = import_err
     kernels[0].update(spk)
     kernels[0].update(lis)
     kernels[0].update(joint)
@@ -3378,7 +3730,8 @@ def main(argv=None) -> int:
                                     grounding_err,
                                     lis["lis_train_max_abs_err"],
                                     joint["joint_train_max_abs_err"],
-                                    scan["scan_train_max_abs_err"])
+                                    scan["scan_train_max_abs_err"],
+                                    import_err)
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

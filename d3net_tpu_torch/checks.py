@@ -1518,6 +1518,34 @@ def seeded_run_dir(config: str, run_dir: str, seed: int = 0,
     return variables
 
 
+@contextlib.contextmanager
+def val_scene_count(n: Optional[int]):
+    """The loaders' ``D3NET_VAL_SCENES`` at ``n`` while open (as it was
+    for None)."""
+    saved = os.environ.get("D3NET_VAL_SCENES")
+    if n is not None:
+        os.environ["D3NET_VAL_SCENES"] = str(n)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("D3NET_VAL_SCENES", None)
+        else:
+            os.environ["D3NET_VAL_SCENES"] = saved
+
+
+@contextlib.contextmanager
+def exact_settings(dev: torch.device):
+    """On the card, ``device.parity_precision()`` and ``deterministic()``
+    while open (the settings under which the bf16 detector's eval forward
+    reproduces itself, ``detector_repro``); nothing on the CPU."""
+    with contextlib.ExitStack() as stack:
+        if dev.type == "cuda":
+            stack.enter_context(device.parity_precision())
+            stack.enter_context(deterministic())
+        yield
+
+
 def eval_rank(task: str, run_dir: str, val_scenes: Optional[int] = None,
               dev=None, check_gathers: bool = False,
               exact: bool = False) -> Dict[str, Any]:
@@ -1544,10 +1572,7 @@ def eval_rank(task: str, run_dir: str, val_scenes: Optional[int] = None,
     from d3net_tpu_torch.train.loop import num_val_scenes
 
     dev = _rank_device(dev)
-    saved = os.environ.get("D3NET_VAL_SCENES")
-    if val_scenes is not None:
-        os.environ["D3NET_VAL_SCENES"] = str(val_scenes)
-    try:
+    with val_scene_count(val_scenes):
         cfg = cfg_lib.load(os.path.join(run_dir, "config.yaml"))
         if task == "scannet":
             if mesh.is_main():
@@ -1561,9 +1586,8 @@ def eval_rank(task: str, run_dir: str, val_scenes: Optional[int] = None,
         gather.gather_rows.launches = 0
         t0 = time.perf_counter()
         with contextlib.ExitStack() as stack:
-            if exact and dev.type == "cuda":
-                stack.enter_context(device.parity_precision())
-                stack.enter_context(deterministic())
+            if exact:
+                stack.enter_context(exact_settings(dev))
             rec = (stack.enter_context(checked_gathers(f"the {task} eval"))
                    if check_gathers else None)
             metrics = tasks()[task](cfg, run_dir, dev, world_size=1)
@@ -1577,11 +1601,6 @@ def eval_rank(task: str, run_dir: str, val_scenes: Optional[int] = None,
         if mesh.is_main():
             out.update(eval_outputs(task, run_dir))
         return out
-    finally:
-        if saved is None:
-            os.environ.pop("D3NET_VAL_SCENES", None)
-        else:
-            os.environ["D3NET_VAL_SCENES"] = saved
 
 
 def values_differ(got, want, where: str, rtol: float) -> List[str]:
@@ -1633,33 +1652,21 @@ def eval_mismatches(got: List[Dict[str, Any]], want: Dict[str, Any],
     return bad
 
 
-def evals_world_vs_one(evals: Sequence[Tuple], world: int = 2,
-                       one: Optional[List[Optional[Dict[str, Any]]]] = None,
-                       dev=None, check_gathers: bool = False,
-                       threads: Optional[int] = None, backend: str = "gloo",
-                       devices: Optional[Sequence[str]] = None
-                       ) -> Dict[str, Any]:
-    """Each eval ``(task, run_dir, val_scenes[, exact])`` (``eval_rank``'s
-    arguments) over ``world`` ranks in one spawn for all of them (gloo, on
-    ``dev`` each: cuda:0 for two ranks on one card, where NCCL takes one
-    rank a card; or ``backend`` over ``devices``, one a rank) against world
-    size 1: ``one[i]`` (an ``eval_rank`` result) where given, else eval
-    ``i`` run here on ``dev`` first. Returns per eval its
-    ``eval_mismatches``, both worlds' metrics and seconds and each rank's
-    launches a val batch, and ``ok`` when none differs."""
-    from d3net_tpu_torch.parallel import mesh
+def eval_calls(evals: Sequence[Tuple], dev=None,
+               check_gathers: bool = False) -> List[Tuple]:
+    """``rank_calls``' calls of each eval ``(task, run_dir, val_scenes[,
+    exact])``: ``eval_rank`` on ``dev`` (None: the rank's device)."""
+    return [(eval_rank, (task, run_dir, n, dev, check_gathers, *exact), {})
+            for task, run_dir, n, *exact in evals]
 
-    def calls(d):
-        return [(eval_rank, (task, run_dir, n, d, check_gathers, *exact), {})
-                for task, run_dir, n, *exact in evals]
 
-    one = [o if o is not None else rank_calls([c])[0] for o, c in zip(
-        one or [None] * len(evals), calls(dev))]
-    if devices is None and dev is not None:
-        devices = [dev] * world
-    # a rank evaluates on its own device (``devices[r]``)
-    ranks = mesh.spawn(rank_calls, world, calls(None), backend=backend,
-                       devices=devices, threads=threads)
+def eval_reports(evals: Sequence[Tuple], ranks: List[List[Dict[str, Any]]],
+                 one: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Each eval of ``evals`` on the ranks (``ranks[r][i]``: rank ``r``'s
+    ``eval_rank`` result of eval ``i``) against world size 1 (``one[i]``):
+    its ``eval_mismatches``, both worlds' metrics and seconds and each
+    rank's launches a val batch; ``ok`` when none differs."""
+    world = len(ranks)
     report, bad = [], []
     for i, (task, _, n, *exact) in enumerate(evals):
         got = [r[i] for r in ranks]
@@ -1678,6 +1685,225 @@ def evals_world_vs_one(evals: Sequence[Tuple], world: int = 2,
             "max_abs_err": max((g.get("max_abs_err") or 0.0) for g in got)})
     return {"ok": not bad, "world": world, "mismatches": bad,
             "evals": report}
+
+
+def evals_world_vs_one(evals: Sequence[Tuple], world: int = 2,
+                       one: Optional[List[Optional[Dict[str, Any]]]] = None,
+                       dev=None, check_gathers: bool = False,
+                       threads: Optional[int] = None, backend: str = "gloo",
+                       devices: Optional[Sequence[str]] = None
+                       ) -> Dict[str, Any]:
+    """Each eval ``(task, run_dir, val_scenes[, exact])`` (``eval_rank``'s
+    arguments) over ``world`` ranks in one spawn for all of them (gloo, on
+    ``dev`` each: cuda:0 for two ranks on one card, where NCCL takes one
+    rank a card; or ``backend`` over ``devices``, one a rank) against world
+    size 1: ``one[i]`` (an ``eval_rank`` result) where given, else eval
+    ``i`` run here on ``dev`` first (``eval_reports``)."""
+    from d3net_tpu_torch.parallel import mesh
+
+    one = [o if o is not None else rank_calls([c])[0] for o, c in zip(
+        one or [None] * len(evals), eval_calls(evals, dev, check_gathers))]
+    if devices is None and dev is not None:
+        devices = [dev] * world
+    # a rank evaluates on its own device (``devices[r]``)
+    ranks = mesh.spawn(rank_calls, world, eval_calls(evals, None,
+                                                     check_gathers),
+                       backend=backend, devices=devices, threads=threads)
+    return eval_reports(evals, ranks, one)
+
+
+# the file or directory each model-running tool writes in its run dir
+TOOL_OUTPUTS = {"benchmark_captioning": "benchmark_captioning.json",
+                "benchmark_grounding": "benchmark_grounding.json",
+                "visualize_captioning": "vis_captioning",
+                "visualize_grounding": "vis_grounding"}
+
+
+def tool_outputs(tool: str, run_dir: str) -> Dict[str, bytes]:
+    """What ``tool`` left in ``run_dir``: each file (its JSON, or every
+    file of its dump directory) as bytes by its path under ``run_dir``."""
+    path = os.path.join(run_dir, TOOL_OUTPUTS[tool])
+    if os.path.isfile(path):
+        paths = [path]
+    else:
+        paths = [os.path.join(d, f) for d, _, files in os.walk(path)
+                 for f in files]
+    out = {}
+    for p in sorted(paths):
+        with open(p, "rb") as f:
+            out[os.path.relpath(p, run_dir)] = f.read()
+    return out
+
+
+def tool_rank(tool: str, run_dir: str, val_scenes: Optional[int] = None,
+              dev=None, check_gathers: bool = False, exact: bool = False,
+              kw: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """This rank's run of the model-running ``tool`` (a name of
+    ``TOOL_OUTPUTS``: ``scripts.<tool>.<tool>(cfg, run_dir, device, **kw)``,
+    as its command line runs it) on ``run_dir``, as ``eval_rank`` runs an
+    eval: on this rank's device (with no process group, in this process on
+    ``dev`` alone), ``D3NET_VAL_SCENES`` at ``val_scenes`` while it runs,
+    under the ``exact`` settings on the card when asked, every gather held
+    exact with ``check_gathers``. Rank 0 first clears the tool's outputs
+    (the others waiting), and after the run, once every rank has written
+    its files, reads them all (``tool_outputs``). Returns rank 0's
+    ``files``, this rank's val batches, ``gather_rows`` launches (and with
+    ``check_gathers`` those checked and their largest error) and
+    seconds."""
+    import importlib
+    import shutil
+
+    from d3net_tpu_torch import config as cfg_lib
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.parallel import mesh
+    from d3net_tpu_torch.train.loop import num_val_scenes
+
+    dev = _rank_device(dev)
+    fn = getattr(importlib.import_module(f"d3net_tpu_torch.scripts.{tool}"),
+                 tool)
+    with val_scene_count(val_scenes):
+        cfg = cfg_lib.load(os.path.join(run_dir, "config.yaml"))
+        out = os.path.join(run_dir, TOOL_OUTPUTS[tool])
+        if mesh.is_main():
+            if os.path.isdir(out):
+                shutil.rmtree(out)
+            elif os.path.exists(out):
+                os.remove(out)
+        mesh.barrier()
+        n, b = num_val_scenes(cfg), int(cfg.data.batch_size)
+        limit = (kw or {}).get("scenes", n)
+        batches = sum(
+            mesh.split_rows(min(b, n - lo), mesh.rank(), mesh.world())[1] > 0
+            for lo in range(0, min(n, limit), b))
+        gather.gather_rows.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if exact:
+                stack.enter_context(exact_settings(dev))
+            rec = (stack.enter_context(checked_gathers(f"the {tool} run"))
+                   if check_gathers else None)
+            fn(cfg, run_dir, dev, world_size=1, **(kw or {}))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        res = {"tool": tool, "val_batches": batches,
+               "seconds": time.perf_counter() - t0,
+               "launches": gather.gather_rows.launches}
+        if rec is not None:
+            res.update(checked=rec.checked, max_abs_err=rec.max_abs_err)
+        mesh.barrier()
+        if mesh.is_main():
+            res["files"] = tool_outputs(tool, run_dir)
+        return res
+
+
+def _ply_vertices(data: bytes) -> np.ndarray:
+    """The vertex fields of a PLY file's bytes, as one float64 array."""
+    import tempfile
+
+    from d3net_tpu_torch.utils.ply import read_ply
+
+    with tempfile.NamedTemporaryFile(suffix=".ply") as f:
+        f.write(data)
+        f.flush()
+        v = read_ply(f.name)["vertex"]
+    return np.stack([v[k].astype(np.float64) for k in v.dtype.names], -1)
+
+
+def file_mismatches(got: Dict[str, bytes], want: Dict[str, bytes],
+                    rtol: Optional[float] = None) -> Tuple[List[str], int]:
+    """Where the files ``got`` differ from ``want`` (bytes by path): the
+    same paths, each byte-equal; with ``rtol``, a ``.json`` or ``.ply``
+    file whose bytes differ may hold the same values instead (its JSON
+    values: ints and strings exact, floats within ``rtol``; its vertices
+    within ``rtol`` / atol 1e-6). Returns the mismatches and how many
+    files were byte-equal."""
+    bad = []
+    if sorted(got) != sorted(want):
+        bad.append(f"files {sorted(set(got) ^ set(want))}")
+    same = 0
+    for k in want:
+        if k not in got:
+            continue
+        if got[k] == want[k]:
+            same += 1
+        elif rtol is not None and k.endswith(".json"):
+            bad += values_differ(json.loads(got[k]), json.loads(want[k]), k,
+                                 rtol)[:5]
+        elif rtol is not None and k.endswith(".ply"):
+            g, w = _ply_vertices(got[k]), _ply_vertices(want[k])
+            if g.shape != w.shape or not np.allclose(g, w, rtol=rtol,
+                                                     atol=1e-6):
+                bad.append(f"{k}: vertices differ")
+        else:
+            bad.append(f"{k} differs")
+    return bad, same
+
+
+def tool_calls(tools: Sequence[Tuple], dev=None,
+               check_gathers: bool = False) -> List[Tuple]:
+    """``rank_calls``' calls of each tool run ``(tool, run_dir, val_scenes,
+    exact[, kw])``: ``tool_rank`` on ``dev`` (None: the rank's device)."""
+    return [(tool_rank, (tool, run_dir, n, dev, check_gathers, exact,
+                         *rest), {})
+            for tool, run_dir, n, exact, *rest in tools]
+
+
+def tool_reports(tools: Sequence[Tuple], ranks: List[List[Dict[str, Any]]],
+                 one: List[Dict[str, Any]],
+                 rtol: Optional[float] = None) -> Dict[str, Any]:
+    """Each tool run of ``tools`` on the ranks (``ranks[r][i]``: rank
+    ``r``'s ``tool_rank`` result of run ``i``) against world size 1
+    (``one[i]``): the files byte-equal (the same paths, each the same
+    bytes: the JSON's scene order included), or with ``rtol`` equal in
+    value where their bytes differ (``file_mismatches``); every gather a
+    rank checked exact; both worlds' seconds, each rank's launches a val
+    batch, the files byte-equal; ``ok`` when none differs."""
+    world = len(ranks)
+    report, bad = [], []
+    for i, (tool, _, n, exact, *_) in enumerate(tools):
+        got = [r[i] for r in ranks]
+        want = one[i]["files"]
+        miss, same = file_mismatches(got[0]["files"], want, rtol)
+        for r, g in enumerate(got):
+            if "checked" in g and g["checked"] != g["launches"]:
+                miss.append(f"rank {r}: {g['checked']} of {g['launches']} "
+                            "gathers checked")
+        bad += [f"{tool} (val scenes {n}): {m}" for m in miss]
+        report.append({
+            "tool": tool, "val_scenes": n, "exact": bool(exact),
+            "mismatches": miss, "files": len(want), "byte_equal": same,
+            "bytes": sum(len(v) for v in want.values()),
+            "seconds_world1": one[i]["seconds"],
+            f"seconds_world{world}": [g["seconds"] for g in got],
+            "val_batches_per_rank": [g["val_batches"] for g in got],
+            "launches_per_rank": [g["launches"] for g in got],
+            "checked_per_rank": [g.get("checked") for g in got],
+            "max_abs_err": max((g.get("max_abs_err") or 0.0) for g in got)})
+    return {"ok": not bad, "world": world, "mismatches": bad,
+            "tools": report}
+
+
+def tools_world_vs_one(tools: Sequence[Tuple], world: int = 2,
+                       one: Optional[List[Optional[Dict[str, Any]]]] = None,
+                       dev=None, check_gathers: bool = False,
+                       threads: Optional[int] = None, backend: str = "gloo",
+                       devices: Optional[Sequence[str]] = None,
+                       rtol: Optional[float] = None) -> Dict[str, Any]:
+    """Each tool run ``(tool, run_dir, val_scenes, exact[, kw])``
+    (``tool_rank``'s arguments) over ``world`` ranks in one spawn for all
+    of them, against world size 1 (``one[i]`` where given, else run here
+    on ``dev`` first), as ``evals_world_vs_one`` holds the evals
+    (``tool_reports`` at ``rtol``)."""
+    from d3net_tpu_torch.parallel import mesh
+
+    one = [o if o is not None else rank_calls([c])[0] for o, c in zip(
+        one or [None] * len(tools), tool_calls(tools, dev, check_gathers))]
+    if devices is None and dev is not None:
+        devices = [dev] * world
+    ranks = mesh.spawn(rank_calls, world, tool_calls(tools, None,
+                                                     check_gathers),
+                       backend=backend, devices=devices, threads=threads)
+    return tool_reports(tools, ranks, one, rtol)
 
 
 REPRO_FLOATS = ("semantic_scores", "pt_offsets", "proposal_scores_all")
@@ -1978,7 +2204,8 @@ def dist_ranks_on_one_card(det_case: Dict[str, Any], joint_cfg,
     mode-3 joint step of ``joint_case`` (``joint_step_case``), and
     ``MaskedBatchNorm`` in bf16 (``bf16_bn_mismatches``). The calls
     ``also`` run after them in the same ranks only (one start of the
-    ranks); rank 0's results come back under ``also``. Held to
+    ranks); every rank's results of them come back under ``also``, in
+    rank order. Held to
     tests/test_parallel.py's bounds (clustering off: losses rtol 1e-5 /
     atol 1e-6, parameters rtol 1e-5 / atol 2e-6; on: ``score_loss``,
     ``gt_iou_mean``, ``total_loss`` and ``grad_norm`` atol 5e-3,
@@ -2053,7 +2280,7 @@ def dist_ranks_on_one_card(det_case: Dict[str, Any], joint_cfg,
     return {"ok": not bad, "world": world, "outside_tolerance": bad,
             "gathers_max_abs_err": max(r[i]["max_abs_err"] for r in ranks
                                        for i in range(4)),
-            **report, "also": ranks[0][len(calls):]}
+            **report, "also": [r[len(calls):] for r in ranks]}
 
 
 def failing_rank() -> None:

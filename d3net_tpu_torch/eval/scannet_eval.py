@@ -59,14 +59,14 @@ def eval_scannet(cfg, run_dir: str, device: DeviceLike = None,
         InstanceEvaluator, semantic_confusion, semantic_iou,
     )
     from d3net_tpu_torch.scripts.eval import (
-        _spawned, _write, pipeline_for_eval,
+        _write, pipeline_for_eval, spawned,
     )
     from d3net_tpu_torch.utils.nms import nms_matrix
 
     dev = resolve_device(device)
-    spawned = _spawned("scannet", cfg, run_dir, dev, world_size, threads)
-    if spawned is not None:
-        return spawned
+    res = spawned(eval_scannet, cfg, run_dir, dev, world_size, threads)
+    if res is not None:
+        return res
     model, val_it, _, _, ckpt_info = pipeline_for_eval(
         cfg, run_dir, dev, detector_alone=True)
     model.eval()

@@ -403,6 +403,14 @@ def merge_ordered(parts: Sequence[Sequence[Tuple[int, Any]]]) -> List[Any]:
     return [record for _, record in merged]
 
 
+def gather_ordered(pairs: Sequence[Tuple[int, Any]]) -> Optional[List[Any]]:
+    """This rank's ``(batch, record)`` pairs -> every rank's records on
+    rank 0 in the global scene order (``merge_ordered``), None on the other
+    ranks; without a group, this rank's records in that order."""
+    parts = gather_to_main(list(pairs))
+    return None if parts is None else merge_ordered(parts)
+
+
 def gather_records(*holders: Any) -> bool:
     """Each holder's records on rank 0, in one host gather, in the global
     scene order (``merge_ordered``). A holder (an evaluator) hands its

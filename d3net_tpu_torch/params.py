@@ -32,9 +32,11 @@ The conversion fails if any Flax leaf is left unused or any port
 parameter or buffer is left unset. It covers the detector alone
 (``load_detector``) and the pipeline's whole ``{detector, speaker,
 listener}`` tree (``load_pipeline``). ``state_dict_to_flax`` is its inverse
-(also for a mapping of gradients), and ``optax_adam_state_to_torch``
-carries optax's ``mu``/``nu``/``count`` into ``exp_avg``/``exp_avg_sq``/
-``step``, so a run can move between the frameworks in either direction.
+(also for a mapping of gradients), and ``optax_state_to_torch`` carries
+an optax state into the torch optimizer (Adam's ``mu``/``nu``/``count``
+into ``exp_avg``/``exp_avg_sq``/``step``, SGD's trace into its momentum
+buffers, a multi_transform's trainable partition alone), so a run can
+move between the frameworks in either direction.
 """
 
 from __future__ import annotations
@@ -212,43 +214,102 @@ def state_dict_to_flax(model: nn.Module,
     return {c: _unflatten(f) for c, f in flat.items() if f or full}
 
 
-def _params_to_tensors(tree: Mapping[str, Any],
-                       model: nn.Module) -> Dict[str, torch.Tensor]:
+def _unmasked(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """``tree`` without its optax ``MaskedNode`` leaves (the frozen
+    parameters of a multi_transform partition)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out[k] = _unmasked(v)
+        elif type(v).__name__ != "MaskedNode":
+            out[k] = v
+    return out
+
+
+def _params_to_tensors(tree: Mapping[str, Any], model: nn.Module,
+                       keys: Optional[set] = None) -> Dict[str, torch.Tensor]:
     """A Flax ``params``-shaped tree (weights, or optax moments of them) ->
-    ``{state_dict key: tensor}`` over the model's parameters."""
-    flat = flatten(tree)
+    ``{state_dict key: tensor}`` over the model's parameters (those named
+    in ``keys`` where given). Raises ValueError if one of them has no leaf
+    or a leaf is left unused."""
+    flat = flatten(_unmasked(tree))
     out: Dict[str, torch.Tensor] = {}
     for name, _, spec in _leaf_modules(model):
         for coll, leaves, key, fwd, _ in spec:
-            if coll == "params":
-                v = np.ascontiguousarray(fwd(
-                    [flat.pop(f"{name}{leaf}") for leaf in leaves]))
-                out[f"{name}{key}"] = torch.from_numpy(v.astype(np.float32))
+            if coll != "params" or (keys is not None
+                                    and f"{name}{key}" not in keys):
+                continue
+            paths = [f"{name}{leaf}" for leaf in leaves]
+            missing = [p for p in paths if p not in flat]
+            if missing:
+                raise ValueError(f"no leaves {missing} for {name}{key}")
+            v = np.ascontiguousarray(fwd([flat.pop(p) for p in paths]))
+            out[f"{name}{key}"] = torch.from_numpy(v.astype(np.float32))
     if flat:
         raise ValueError(f"unused leaves: {sorted(flat)}")
     return out
 
 
-def optax_adam_state_to_torch(opt_state: Any, model: nn.Module,
-                              optimizer: torch.optim.Optimizer) -> None:
-    """Load optax ``scale_by_adam`` state into a torch Adam/AdamW over
-    ``model.parameters()``: ``mu -> exp_avg``, ``nu -> exp_avg_sq``,
-    ``count -> step``. ``opt_state`` is the optax chain's state tuple as
-    ``optax.adam``/``adamw`` leave it (one ``ScaleByAdamState`` in it), with
-    numpy or JAX arrays as leaves."""
-    found = [s for s in opt_state if hasattr(s, "mu")]
-    if len(found) != 1:
-        raise ValueError("opt_state holds no single scale_by_adam state")
-    adam = found[0]
-    mu = _params_to_tensors(adam.mu, model)
-    nu = _params_to_tensors(adam.nu, model)
-    step = float(np.asarray(adam.count))
-    for name, p in model.named_parameters():
-        optimizer.state[p] = {
-            "step": torch.tensor(step, dtype=torch.float32),
-            "exp_avg": mu[name].to(p.device, p.dtype),
-            "exp_avg_sq": nu[name].to(p.device, p.dtype),
-        }
+def optax_state_to_torch(opt_state: Any, model: nn.Module,
+                         optimizer: torch.optim.Optimizer) -> Optional[int]:
+    """Load an optax state into ``optimizer`` over ``model``'s trainable
+    parameters (those with ``requires_grad``, which must be exactly the
+    optimizer's); returns the schedule's count (``scale_by_schedule``'s,
+    for ``trainer.seek_schedule``), None where the state has none.
+
+    It reads optax's own states (JAX or numpy leaves) and those
+    ``jax_run.read_archive`` gives back, by their fields:
+
+    - a multi_transform (``inner_states``, ``make_frozen_optimizer``'s):
+      its ``train`` partition, whose ``MaskedNode`` leaves must be exactly
+      the frozen parameters; those get no state;
+    - ``scale_by_adam``'s ``mu``/``nu``/``count`` -> Adam's and AdamW's
+      ``exp_avg``/``exp_avg_sq``/``step``;
+    - ``trace``'s ``trace`` -> SGD's ``momentum_buffer``.
+
+    Raises ValueError where the state does not fit the optimizer or the
+    model."""
+    state = opt_state
+    if hasattr(state, "inner_states"):
+        state = state.inner_states["train"]
+    if hasattr(state, "inner_state"):
+        state = state.inner_state
+    parts = list(state) if isinstance(state, (tuple, list)) else [state]
+    adam = [s for s in parts if hasattr(s, "mu")]
+    trace = [s for s in parts if hasattr(s, "trace")]
+    sched = [s for s in parts if type(s).__name__ == "ScaleByScheduleState"]
+    is_adam = isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
+    fits = len(adam) == 1 if is_adam else (
+        isinstance(optimizer, torch.optim.SGD) and len(trace) == 1)
+    if not fits:
+        raise ValueError(f"opt_state {[type(s).__name__ for s in parts]} "
+                         f"does not fit {type(optimizer).__name__}")
+    trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    if {id(p) for p in trainable.values()} != {
+            id(p) for g in optimizer.param_groups for p in g["params"]}:
+        raise ValueError("the optimizer's parameters are not the model's "
+                         "trainable ones")
+    keys = set(trainable)
+    if is_adam:
+        mu = _params_to_tensors(adam[0].mu, model, keys)
+        nu = _params_to_tensors(adam[0].nu, model, keys)
+        step = float(np.asarray(adam[0].count))
+    else:
+        buf = _params_to_tensors(trace[0].trace, model, keys)
+    for name, p in trainable.items():
+        if is_adam:
+            optimizer.state[p] = {
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": mu[name].to(p.device, p.dtype),
+                "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+        else:
+            optimizer.state[p] = {
+                "momentum_buffer": buf[name].to(p.device, p.dtype)}
+    return int(np.asarray(sched[0].count)) if sched else None
+
+
+# the name the Adam-only version had
+optax_adam_state_to_torch = optax_state_to_torch
 
 
 def init_flax_variables(model: nn.Module, seed: int,

@@ -15,6 +15,12 @@ corners) to ``--out``, by default ``<run>/benchmark_grounding.json``.
 ``object_id`` is what the JAX script writes: the argmax of the row's
 ``ref_box_label``, the target's instance slot in the scene. Runs on CUDA
 unless ``--cpu`` is given; without a GPU and without ``--cpu`` it raises.
+
+On CUDA it uses every usable card, as ``benchmark_captioning`` does: each
+rank runs its rows of every val batch, the description rows drawn over the
+global batch's scenes on every rank (one stream, as one process draws
+them) and each rank keeping its own; rank 0 gathers the entries in the
+global scene order and alone writes the file.
 """
 
 from __future__ import annotations
@@ -28,18 +34,22 @@ import numpy as np
 import torch
 
 from d3net_tpu_torch import config as cfg_lib
-from d3net_tpu_torch.device import resolve_device
+from d3net_tpu_torch.device import DeviceLike, resolve_device
+from d3net_tpu_torch.parallel import mesh
 
 
 def grounding_batches(cfg: cfg_lib.Config, model, val_it, vocab,
-                      emb: np.ndarray
-                      ) -> Iterator[Tuple[list, Dict[str, np.ndarray],
+                      emb: np.ndarray, limit: Optional[int] = None
+                      ) -> Iterator[Tuple[int, list, Dict[str, np.ndarray],
                                           np.ndarray, np.ndarray,
                                           np.ndarray]]:
-    """Each val batch's (scenes, its description rows (B, C, ...), the
-    listener's confidences (B, C, K), the proposals' corners (B, K, 8, 3)
-    and mask (B, K)), ``model`` in eval mode on its own device; the rows
-    come from one ``default_rng(0)`` drawn once a batch."""
+    """For each val batch this rank runs rows of (every one without a
+    process group; none from the one whose first scene is the ``limit``-th
+    on): (the global index of its first row, those rows' scenes, their
+    description rows (rows, C, ...), the listener's confidences (rows, C,
+    K), the proposals' corners (rows, K, 8, 3) and mask (rows, K)),
+    ``model`` in eval mode on its own device; the rows come from one
+    ``default_rng(0)`` drawn once a batch over the batch's scenes."""
     from d3net_tpu_torch.data.collate import batch_to_torch
     from d3net_tpu_torch.data.language import build_lang_batch
     from d3net_tpu_torch.train.pipeline import lang_rows
@@ -50,20 +60,30 @@ def grounding_batches(cfg: cfg_lib.Config, model, val_it, vocab,
     chunk = int(cfg.data.num_des_per_scene)
     rng_np = np.random.default_rng(0)
     with torch.no_grad():
-        for batch_np, scenes in val_it:
-            det = model.run_detector(batch_to_torch(batch_np, dev))
-            lang_np = build_lang_batch(scenes, vocab, chunk,
-                                       cfg.data.max_spk_len, rng_np,
-                                       val_it.spec.max_instances)
-            lang = lang_rows(lang_np, emb, dev)
-            data = model.run_listener(
-                {**det, **lang}, emb_t[lang["lang_ids"].long()],
-                lang["lang_len"], chunk)
-            conf = data["cluster_ref"].cpu().numpy().reshape(
-                len(scenes), chunk, -1)
-            yield (scenes, lang_np, conf,
-                   det["proposal_bbox_batched"].cpu().numpy(),
-                   det["proposal_batch_mask"].cpu().numpy())
+        for b, (batch_np, scenes) in enumerate(val_it):
+            first = b * val_it.batch_size
+            if limit is not None and first >= limit:
+                break
+            # drawn over the global batch's scenes on every rank
+            lang_all = build_lang_batch(scenes, vocab, chunk,
+                                        cfg.data.max_spk_len, rng_np,
+                                        val_it.spec.max_instances)
+            with mesh.eval_rows(val_it.splits(b)) as mine:
+                if not mine:
+                    continue
+                lo, hi = mesh.split_rows(len(scenes))
+                lang_np = mesh.shard_host_batch(lang_all)
+                det = model.run_detector(batch_to_torch(batch_np, dev))
+                lang = lang_rows(lang_np, emb, dev)
+                data = model.run_listener(
+                    {**det, **lang}, emb_t[lang["lang_ids"].long()],
+                    lang["lang_len"], chunk)
+                out = (first + lo, scenes[lo:hi], lang_np,
+                       data["cluster_ref"].cpu().numpy().reshape(
+                           hi - lo, chunk, -1),
+                       det["proposal_bbox_batched"].cpu().numpy(),
+                       det["proposal_batch_mask"].cpu().numpy())
+            yield out
 
 
 def picks(lang_np: Dict[str, np.ndarray], conf: np.ndarray,
@@ -79,7 +99,44 @@ def picks(lang_np: Dict[str, np.ndarray], conf: np.ndarray,
     return out
 
 
+def benchmark_grounding(cfg: cfg_lib.Config, run_dir: str,
+                        device: DeviceLike = None, out: Optional[str] = None,
+                        world_size: Optional[int] = None,
+                        threads: Optional[int] = None) -> List[Dict]:
+    """The submission of ``run_dir``'s pipeline, written to ``out`` (by
+    default ``<run_dir>/benchmark_grounding.json``) by rank 0, over
+    ``mesh.run_world(world_size)`` ranks (``threads``: a CPU rank's torch
+    threads); every rank returns it."""
+    from d3net_tpu_torch.scripts.eval import pipeline_for_eval, spawned
+
+    dev = resolve_device(device)
+    res = spawned(benchmark_grounding, cfg, run_dir, dev, world_size,
+                  threads, out=out)
+    if res is not None:
+        return res
+    model, val_it, vocab, emb, _ = pipeline_for_eval(cfg, run_dir, dev)
+    pairs = []
+    for first, scenes, lang_np, conf, corners, mask in grounding_batches(
+            cfg, model, val_it, vocab, emb):
+        for i, scene in enumerate(scenes):
+            for c, pick in picks(lang_np, conf, mask, i):
+                pairs.append((first, {
+                    "scene_id": scene.scene_id,
+                    "object_id": int(lang_np["ref_box_label"][i, c].argmax()),
+                    "bbox": corners[i, pick].tolist(),
+                }))
+    submission = mesh.gather_ordered(pairs)
+    if submission is not None:
+        out_path = out or os.path.join(run_dir, "benchmark_grounding.json")
+        with open(out_path, "w") as f:
+            json.dump(submission, f)
+        print(f"wrote {len(submission)} entries to {out_path}")
+    return mesh.broadcast_from_main(submission)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
+    from d3net_tpu_torch.scripts.eval import run_entry
+
     p = argparse.ArgumentParser()
     p.add_argument("--folder", required=True)
     p.add_argument("--out", default=None)
@@ -87,27 +144,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
                    help="run on the CPU (the plain PyTorch path)")
     args = p.parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else None)
-
-    from d3net_tpu_torch.scripts.eval import pipeline_for_eval
-
     cfg = cfg_lib.load(os.path.join(args.folder, "config.yaml"))
-    model, val_it, vocab, emb, _ = pipeline_for_eval(cfg, args.folder, dev)
-    submission = []
-    for scenes, lang_np, conf, corners, mask in grounding_batches(
-            cfg, model, val_it, vocab, emb):
-        for i, scene in enumerate(scenes):
-            for c, pick in picks(lang_np, conf, mask, i):
-                submission.append({
-                    "scene_id": scene.scene_id,
-                    "object_id": int(lang_np["ref_box_label"][i, c].argmax()),
-                    "bbox": corners[i, pick].tolist(),
-                })
-    out_path = args.out or os.path.join(args.folder,
-                                        "benchmark_grounding.json")
-    with open(out_path, "w") as f:
-        json.dump(submission, f)
-    print(f"wrote {len(submission)} entries to {out_path}")
-    return submission
+    return run_entry(benchmark_grounding, cfg, args.folder, dev, args.cpu,
+                     out=args.out)
 
 
 if __name__ == "__main__":

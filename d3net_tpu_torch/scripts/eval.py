@@ -57,7 +57,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -116,25 +116,45 @@ def _write(run_dir: str, task: str, results: Dict, ckpt_info: Dict) -> None:
         json.dump({**results, "checkpoint": ckpt_info}, f)
 
 
-def _spawned(task: str, cfg: cfg_lib.Config, run_dir: str, dev,
-             world_size: Optional[int], threads: Optional[int]
-             ) -> Optional[Dict]:
-    """``task``'s eval over ``mesh.run_world`` ranks where that is more
-    than one (each a process on its own card, or a gloo process of
-    ``threads`` threads on the CPU): rank 0's metrics, which every rank
-    returns; None where the eval is to run in this process."""
+def spawned(fn: Callable[..., Any], cfg: cfg_lib.Config, run_dir: str,
+            dev, world_size: Optional[int], threads: Optional[int],
+            **kw) -> Optional[Any]:
+    """``fn(cfg, run_dir, device, **kw)`` (a module-level function: an eval
+    task or a tool) over ``mesh.run_world`` ranks where that is more than
+    one (each a process on its own card, or a gloo process of ``threads``
+    threads on the CPU): rank 0's result; None where ``fn`` is to run in
+    this process."""
     n = mesh.run_world(int(cfg.data.batch_size), dev, world_size)
     if n == 1:
         return None
-    return mesh.spawn_ranks(_eval_rank, n, task, cfg, run_dir, dev.type,
+    return mesh.spawn_ranks(_rank_entry, n, fn, cfg, run_dir, dev.type, kw,
                             dev=dev, threads=threads)[0]
 
 
-def _eval_rank(task: str, cfg: cfg_lib.Config, run_dir: str,
-               device_type: str) -> Dict:
+def _rank_entry(fn: Callable[..., Any], cfg: cfg_lib.Config, run_dir: str,
+                device_type: str, kw: Dict[str, Any]) -> Any:
     dev = (torch.device("cuda", torch.cuda.current_device())
            if device_type == "cuda" else torch.device("cpu"))
-    return tasks()[task](cfg, run_dir, dev)
+    return fn(cfg, run_dir, dev, **kw)
+
+
+def run_entry(fn: Callable[..., Any], cfg: cfg_lib.Config, run_dir: str,
+              device: torch.device, cpu: bool, **kw) -> Any:
+    """A command line's ``fn(cfg, run_dir, device, **kw)``: in this process
+    with ``--cpu``; under ``torchrun`` (``WORLD_SIZE`` set) this process is
+    one rank of the launcher's group, on its ``LOCAL_RANK`` card; else over
+    every usable card (``fn``'s own spawn)."""
+    if cpu:
+        return fn(cfg, run_dir, device, **kw)
+    launched = mesh.init_multihost()
+    if launched["process_count"] > 1:
+        mesh.make_mesh(int(cfg.data.batch_size))
+        try:
+            return fn(cfg, run_dir, torch.device(
+                "cuda", torch.cuda.current_device()), **kw)
+        finally:
+            mesh.teardown()
+    return fn(cfg, run_dir, device, **kw)
 
 
 def tasks() -> Dict[str, Callable[..., Dict]]:
@@ -162,9 +182,9 @@ def eval_detection(cfg: cfg_lib.Config, run_dir: str,
     from d3net_tpu_torch.train.trainer import detector_eval_step
 
     dev = resolve_device(device)
-    spawned = _spawned("detection", cfg, run_dir, dev, world_size, threads)
-    if spawned is not None:
-        return spawned
+    res = spawned(eval_detection, cfg, run_dir, dev, world_size, threads)
+    if res is not None:
+        return res
     spec = spec_from_cfg(cfg)
     model = init_detector(detector_from_cfg(cfg), 0).to(dev)
     val_it = make_val_loader(cfg, spec)
@@ -236,9 +256,9 @@ def eval_captioning(cfg: cfg_lib.Config, run_dir: str,
     from d3net_tpu_torch.train.pipeline import run_pipeline_validation
 
     dev = resolve_device(device)
-    spawned = _spawned("captioning", cfg, run_dir, dev, world_size, threads)
-    if spawned is not None:
-        return spawned
+    res = spawned(eval_captioning, cfg, run_dir, dev, world_size, threads)
+    if res is not None:
+        return res
     model, val_it, vocab, emb, ckpt_info = pipeline_for_eval(
         cfg, run_dir, dev)
     metrics = run_pipeline_validation(cfg, model, val_it, vocab, emb, mode=1)
@@ -256,9 +276,9 @@ def eval_grounding(cfg: cfg_lib.Config, run_dir: str,
     from d3net_tpu_torch.train.pipeline import run_pipeline_validation
 
     dev = resolve_device(device)
-    spawned = _spawned("grounding", cfg, run_dir, dev, world_size, threads)
-    if spawned is not None:
-        return spawned
+    res = spawned(eval_grounding, cfg, run_dir, dev, world_size, threads)
+    if res is not None:
+        return res
     model, val_it, vocab, emb, ckpt_info = pipeline_for_eval(
         cfg, run_dir, dev)
     runs: Dict[str, list] = {}
@@ -310,22 +330,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     cfg = cfg_lib.load(os.path.join(args.folder, "config.yaml"))
     apply_overrides(cfg, args.set)
-    run = tasks()[args.task]
-    if args.cpu:
-        run(cfg, args.folder, device)
-        return
-    launched = mesh.init_multihost()
-    if launched["process_count"] > 1:
-        # an external launcher (torchrun) made the group: this process is
-        # one of its ranks, on its LOCAL_RANK card
-        mesh.make_mesh(int(cfg.data.batch_size))
-        try:
-            run(cfg, args.folder, torch.device(
-                "cuda", torch.cuda.current_device()))
-        finally:
-            mesh.teardown()
-        return
-    run(cfg, args.folder, device)
+    run_entry(tasks()[args.task], cfg, args.folder, device, args.cpu)
 
 
 if __name__ == "__main__":

@@ -51,17 +51,25 @@ def load_task_config(path: str) -> cfg_lib.Config:
     return cfg_lib.load(*paths)
 
 
+def loop_of(cfg: cfg_lib.Config) -> str:
+    """The run loop that trains ``cfg``: ``detector``, ``scan`` (the
+    detector in dispatches, ``tpu.steps_per_dispatch``) or ``pipeline``."""
+    if task_mode(cfg) != (1, 0, 0):
+        return "pipeline"
+    return "scan" if cfg.tpu.get("steps_per_dispatch") else "detector"
+
+
 def run_training(cfg: cfg_lib.Config, run_dir: str,
                  max_steps: Optional[int] = None, device: DeviceLike = None):
     """The config's run loop in this process (this rank's, under a process
     group); returns its train state."""
-    if task_mode(cfg) == (1, 0, 0):
-        if cfg.tpu.get("steps_per_dispatch"):
-            from d3net_tpu_torch.train.loop import (
-                run_detector_training_scan as run,
-            )
-        else:
-            from d3net_tpu_torch.train.loop import run_detector_training as run
+    loop = loop_of(cfg)
+    if loop == "scan":
+        from d3net_tpu_torch.train.loop import (
+            run_detector_training_scan as run,
+        )
+    elif loop == "detector":
+        from d3net_tpu_torch.train.loop import run_detector_training as run
     else:
         from d3net_tpu_torch.train.pipeline import run_pipeline_training as run
     return run(cfg, run_dir, max_steps=max_steps, device=device)

@@ -14,6 +14,10 @@ and for each annotated row ``c`` the picked proposal's box edges
 green), with ``queries.txt`` giving each row's words and pick. Runs on
 CUDA unless ``--cpu`` is given; without a GPU and without ``--cpu`` it
 raises.
+
+On CUDA it uses every usable card, as ``benchmark_grounding`` does: each
+rank runs its rows of the val batches that hold those scenes and writes
+its own scenes' files.
 """
 
 from __future__ import annotations
@@ -23,34 +27,36 @@ import os
 from typing import Optional, Sequence
 
 from d3net_tpu_torch import config as cfg_lib
-from d3net_tpu_torch.device import resolve_device
+from d3net_tpu_torch.device import DeviceLike, resolve_device
 
 
-def main(argv: Optional[Sequence[str]] = None) -> str:
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--folder", required=True)
-    parser.add_argument("--scenes", type=int, default=4)
-    parser.add_argument("--cpu", action="store_true",
-                        help="run on the CPU (the plain PyTorch path)")
-    args = parser.parse_args(argv)
-    dev = resolve_device("cpu" if args.cpu else None)
-
+def visualize_grounding(cfg: cfg_lib.Config, run_dir: str,
+                        device: DeviceLike = None, scenes: int = 4,
+                        world_size: Optional[int] = None,
+                        threads: Optional[int] = None) -> str:
+    """The dumps of the first ``scenes`` val scenes under
+    ``<run_dir>/vis_grounding``, over ``mesh.run_world(world_size)`` ranks
+    (``threads``: a CPU rank's torch threads); returns that dir."""
     from d3net_tpu_torch.scripts.benchmark_grounding import (
         grounding_batches, picks,
     )
-    from d3net_tpu_torch.scripts.eval import pipeline_for_eval
+    from d3net_tpu_torch.scripts.eval import pipeline_for_eval, spawned
     from d3net_tpu_torch.scripts.visualize_captioning import (
-        box_edges_ply, write_scene_ply,
+        box_edges_ply, report_written, write_scene_ply,
     )
 
-    cfg = cfg_lib.load(os.path.join(args.folder, "config.yaml"))
-    model, val_it, vocab, emb, _ = pipeline_for_eval(cfg, args.folder, dev)
-    out_dir = os.path.join(args.folder, "vis_grounding")
+    dev = resolve_device(device)
+    res = spawned(visualize_grounding, cfg, run_dir, dev, world_size,
+                  threads, scenes=scenes)
+    if res is not None:
+        return res
+    model, val_it, vocab, emb, _ = pipeline_for_eval(cfg, run_dir, dev)
+    out_dir = os.path.join(run_dir, "vis_grounding")
     os.makedirs(out_dir, exist_ok=True)
     done = 0
-    for scenes, lang_np, conf, corners, masks in grounding_batches(
-            cfg, model, val_it, vocab, emb):
-        for i, scene in enumerate(scenes):
+    for first, rows, lang_np, conf, corners, masks in grounding_batches(
+            cfg, model, val_it, vocab, emb, scenes):
+        for i, scene in enumerate(rows[:max(0, scenes - first)]):
             sdir = os.path.join(out_dir, scene.scene_id)
             write_scene_ply(sdir, scene)
             with open(os.path.join(sdir, "queries.txt"), "w") as f:
@@ -64,12 +70,23 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                         [(0, 255, 0)])
                     f.write(f"query {c}: {text} -> proposal {pick}\n")
             done += 1
-            if done >= args.scenes:
-                break
-        if done >= args.scenes:
-            break
-    print(f"wrote {done} scenes to {out_dir}")
+    report_written(done, out_dir)
     return out_dir
+
+
+def main(argv: Optional[Sequence[str]] = None) -> str:
+    from d3net_tpu_torch.scripts.eval import run_entry
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--folder", required=True)
+    parser.add_argument("--scenes", type=int, default=4)
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU (the plain PyTorch path)")
+    args = parser.parse_args(argv)
+    dev = resolve_device("cpu" if args.cpu else None)
+    cfg = cfg_lib.load(os.path.join(args.folder, "config.yaml"))
+    return run_entry(visualize_grounding, cfg, args.folder, dev, args.cpu,
+                     scenes=args.scenes)
 
 
 if __name__ == "__main__":

@@ -79,11 +79,20 @@ def run_fingerprint(cfg: Optional[Config] = None) -> Dict[str, str]:
 
 def write_run_meta(run_dir: str, cfg: Optional[Config] = None,
                    extra: Optional[Dict[str, Any]] = None) -> None:
-    """``run_meta.json`` (rank 0 alone writes under a process group)."""
+    """``run_meta.json`` (rank 0 alone writes under a process group). A run
+    dir imported from the JAX package keeps its ``imported_from`` and
+    ``jax_run_meta`` through every later start."""
     if not mesh.is_main():
         return
-    with open(os.path.join(run_dir, "run_meta.json"), "w") as f:
-        json.dump({**run_fingerprint(cfg), **(extra or {})}, f, indent=2)
+    path = os.path.join(run_dir, "run_meta.json")
+    kept = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            kept = {k: v for k, v in json.load(f).items()
+                    if k in ("imported_from", "jax_run_meta")}
+    with open(path, "w") as f:
+        json.dump({**run_fingerprint(cfg), **kept, **(extra or {})}, f,
+                  indent=2)
 
 
 class MetricLogger:
@@ -321,6 +330,34 @@ def detector_cfg_dict(cfg: Config) -> Dict[str, Any]:
         test_npoint_thresh=cfg.test.TEST_NPOINT_THRESH,
         compute_dtype=cfg.tpu.get("activation_dtype"),
     )
+
+
+def train_steps_per_epoch(cfg: Config, scan: bool = False) -> int:
+    """The steps an epoch the config's run loop gives StepLR: the train
+    loader's whole batches (``len(make_dataloaders(cfg, spec)[0])``, at
+    least 1); with ``scan``, the scan trainer's stack's batches
+    (``tpu.augment_variants`` such epochs when the transform is on)."""
+    per_epoch = cfg.data.synthetic.num_scenes // cfg.data.batch_size
+    if not scan:
+        return max(1, per_epoch)
+    tr = cfg.data.transform
+    aug_on = bool(tr.jitter or tr.flip or tr.rot)
+    n_var = max(1, int(cfg.tpu.get("augment_variants", 4))) if aug_on else 1
+    return n_var * per_epoch
+
+
+def optimizer_kw(cfg: Config, scan: bool = False) -> Dict[str, Any]:
+    """``create_train_state``'s optimizer and StepLR keywords in the
+    config's run loop (the scan trainer's, with ``scan``, passes no
+    momentum, as the JAX one)."""
+    o = cfg.train.optim
+    kw = dict(lr=o.lr, optim=o.classname, weight_decay=o.weight_decay,
+              step_epoch=cfg.train.step_epoch,
+              multiplier=cfg.train.multiplier,
+              steps_per_epoch=train_steps_per_epoch(cfg, scan))
+    if not scan:
+        kw["momentum"] = o.momentum
+    return kw
 
 
 def in_channels_from_cfg(cfg: Config) -> int:
@@ -627,16 +664,7 @@ def run_detector_training(cfg: Config, run_dir: str,
     model = init_detector(detector_from_cfg(cfg),
                           cfg.general.manual_seed).to(dev)
     train_it, val_it = make_dataloaders(cfg, spec)
-    state = create_train_state(
-        model,
-        lr=cfg.train.optim.lr,
-        optim=cfg.train.optim.classname,
-        weight_decay=cfg.train.optim.weight_decay,
-        momentum=cfg.train.optim.momentum,
-        step_epoch=cfg.train.step_epoch,
-        multiplier=cfg.train.multiplier,
-        steps_per_epoch=max(1, len(train_it)),
-    )
+    state = create_train_state(model, **optimizer_kw(cfg))
     if ckpt.restore_last(state) is not None and mesh.is_main():
         print(f"resumed from step {state.step}")
     mesh.replicate(state.model, state.optimizer)
@@ -771,11 +799,7 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
                           cfg.general.manual_seed).to(dev)
     train_it, val_it = make_dataloaders(cfg, spec)
     stack, nb = build_scan_stack(cfg, train_it, dev)
-    state = create_train_state(
-        model, lr=cfg.train.optim.lr, optim=cfg.train.optim.classname,
-        weight_decay=cfg.train.optim.weight_decay,
-        step_epoch=cfg.train.step_epoch, multiplier=cfg.train.multiplier,
-        steps_per_epoch=nb)
+    state = create_train_state(model, **optimizer_kw(cfg, scan=True))
     if ckpt.restore_last(state) is not None and mesh.is_main():
         print(f"resumed from step {state.step}")
     mesh.replicate(state.model, state.optimizer)

@@ -81,7 +81,7 @@ from d3net_tpu_torch.params import (
 from d3net_tpu_torch.train.loop import (
     Checkpointer, StepLoop, detector_cfg_dict, in_channels_from_cfg,
     make_dataloaders, run_meta_extra, setup_run,
-    spec_from_cfg, step_generator, write_run_meta,
+    optimizer_kw, spec_from_cfg, step_generator, write_run_meta,
 )
 from d3net_tpu_torch.train.losses import detector_loss
 from d3net_tpu_torch.train.losses_slt import (
@@ -130,6 +130,25 @@ def task_mode(cfg: Config) -> Tuple[int, int, int]:
     self-critical RL (mode 3)."""
     return (int(not cfg.model.no_detection), int(not cfg.model.no_captioning),
             int(not cfg.model.no_grounding))
+
+
+def pipeline_mode(cfg: Config) -> int:
+    """The pipeline loop's mode of the config: 1 (the speaker), 2 (the
+    listener) or 3 (both, joint self-critical RL)."""
+    _, cap, grd = task_mode(cfg)
+    return 3 if cap and grd else 1 if cap else 2
+
+
+def freeze_flags(cfg: Config, mode: int) -> Dict[str, bool]:
+    """The submodules the pipeline loop of ``mode`` freezes (``make_frozen_
+    optimizer``'s ``freeze`` labels): ``model.freeze_detector``;
+    ``freeze_speaker`` and ``freeze_listener`` where the mode does not
+    train that submodule alone."""
+    return {"detector": bool(cfg.model.freeze_detector),
+            "speaker": bool(cfg.model.get("freeze_speaker", False))
+            and mode != 1,
+            "listener": bool(cfg.model.get("freeze_listener", False))
+            and mode != 2}
 
 
 def build_vocab(cfg: Config) -> Tuple[Vocabulary, np.ndarray]:
@@ -689,8 +708,7 @@ def run_pipeline_training(cfg: Config, run_dir: str,
     rank loads the pretrained weights and validates its rows of every val
     batch, and rank 0 alone writes the run dir.
     """
-    _, cap, grd = task_mode(cfg)
-    mode = 3 if cap and grd else 1 if cap else 2
+    mode = pipeline_mode(cfg)
     dev = resolve_device(device)
     setup_run(cfg, run_dir)
     ckpt = Checkpointer(run_dir, cfg.general.monitor.split("/")[-1],
@@ -715,21 +733,8 @@ def run_pipeline_training(cfg: Config, run_dir: str,
             num_refs=int(cfg.train.get("num_caption_refs", 1) or 1))
 
     make_lang([train_it.scenes[i] for i in range(cfg.data.batch_size)])
-    freeze_submodules(model, {
-        "detector": bool(cfg.model.freeze_detector),
-        "speaker": bool(cfg.model.get("freeze_speaker", False)) and mode != 1,
-        "listener": bool(cfg.model.get("freeze_listener", False))
-        and mode != 2})
-    state = create_train_state(
-        model,
-        lr=cfg.train.optim.lr,
-        optim=cfg.train.optim.classname,
-        weight_decay=cfg.train.optim.weight_decay,
-        momentum=cfg.train.optim.momentum,
-        step_epoch=cfg.train.step_epoch,
-        multiplier=cfg.train.multiplier,
-        steps_per_epoch=max(1, len(train_it)),
-    )
+    freeze_submodules(model, freeze_flags(cfg, mode))
+    state = create_train_state(model, **optimizer_kw(cfg))
     if ckpt.restore_last(state) is not None and mesh.is_main():
         print(f"resumed from step {state.step}")
     mesh.replicate(state.model, state.optimizer)

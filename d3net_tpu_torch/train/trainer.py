@@ -66,6 +66,19 @@ def create_train_state(model: nn.Module, **optimizer_kw) -> TrainState:
     return TrainState(model, opt, sched)
 
 
+def seek_schedule(state: TrainState, count: int) -> None:
+    """Put ``state``'s StepLR where ``count`` updates leave it: its epoch
+    count at ``count`` and each group's lr ``base · gamma ** (count //
+    step_size)``, optax's staircase ``exponential_decay`` at ``count`` (a
+    run resumed from another framework's state takes its schedule so)."""
+    sched = state.scheduler
+    sched.last_epoch = int(count)
+    sched._step_count = int(count) + 1
+    for g, base in zip(sched.optimizer.param_groups, sched.base_lrs):
+        g["lr"] = base * sched.gamma ** (int(count) // sched.step_size)
+    sched._last_lr = [g["lr"] for g in sched.optimizer.param_groups]
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """L2 norm over all entries of all tensors (``optax.global_norm``)."""
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))

@@ -79,10 +79,30 @@ def test_port_imports_no_jax_flax_or_reference():
                 "d3net_tpu_torch.scripts.visualize_scannet",
                 "d3net_tpu_torch.scripts.port_enet_weights",
                 "d3net_tpu_torch.parallel.mesh",
-                "d3net_tpu_torch.parallel.dryrun"):
+                "d3net_tpu_torch.parallel.dryrun",
+                "d3net_tpu_torch.jax_run",
+                "d3net_tpu_torch.scripts.import_jax_run"):
         assert mod in res["modules"]
     assert os.path.exists(os.path.join(ROOT, "d3net_tpu_torch", "train",
                                        "__init__.py"))
+
+
+def test_jax_run_exporter_imports_no_port():
+    """``scripts/export_jax_run.py`` runs where the JAX run lives: every
+    import it makes, those inside its functions included, is of the JAX
+    package, JAX, orbax or numpy, never of the port."""
+    import ast
+
+    with open(os.path.join(ROOT, "scripts", "export_jax_run.py")) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module)
+    assert not any(m.split(".")[0] == "d3net_tpu_torch" for m in mods)
+    assert {"d3net_tpu.train.loop", "jax", "numpy"} <= mods
 
 
 def test_load_detector_without_device_raises_without_gpu(monkeypatch):
