@@ -152,8 +152,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               detector trained and frozen (``checks.
               speaker_step_cuda_vs_cpu``).
 18. spk_train — ``prepare_weights`` on the ``run`` phase's detector, then
-              the train CLI on conf/pointgroup_captioning.yaml for 8
-              steps, half an epoch (``_stage_train``: per-step times and peaks, one
+              the train CLI on conf/pointgroup_captioning.yaml for
+              SPK_STEPS steps (``_stage_train``: per-step times and peaks, one
               step's 216 gathers checked bit-exact, one val batch, the
               restored state bit-exact), the step timed alone and
               profiled, the speaker's and the teacher-forced loop's
@@ -203,7 +203,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               ``prepare_weights`` on the run phase's detector and on the
               ``spk_train`` and ``lis_train`` run dirs, then the train CLI
               on conf/pointgroup_joint.yaml pointed at those pickles for
-              8 steps, half an epoch (``_stage_train``: per-step times and
+              JOINT_STEPS steps (``_stage_train``: per-step times and
               peaks, step 2's 432 gathers, two detector passes with their
               backward, checked bit-exact, one val batch with ``cider``,
               ``ref_iou_rate_0.5`` and ``combined``, the restored state
@@ -297,7 +297,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               tensor by tensor), its 216 gathers checked exact; then
               ``dist_step_ms`` (2 warm-up + 5 timed, CUDA events) beside
               ``train``'s, the all-reduces a step and their device ms in
-              one profiled step, the peak. Then, after ``scannet_eval``,
+              one profiled step, the peak. Then, after ``import_run``,
               one start of two ranks on cuda:0 over gloo (NCCL takes one
               rank a card) for four lines (``phase_dist``):
               ``dist_ranks``: against world size 1 on the card at
@@ -328,6 +328,47 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               with the batch's size). Every ``gather_rows`` call of every
               rank exact against ``gather_rows_plain`` as it runs, 75 a
               rank a val batch.
+35. prepare_scannet — (right after ``dist_step``) PREP_SCANS synthetic
+              scans in ScanNet's raw layout at its size
+              (``data/raw_scans.py``: 100-250k mesh vertices with faces,
+              20 objects, a rigid alignment) through ``python -m
+              d3net_tpu_torch.scripts.prepare_scannet --workers 8
+              --write-inst-gt`` in a process of its own: seconds a scene,
+              every npz read back through ``NpzScenes`` (points, finite
+              arrays, labels, GT rows), then the scenes cropped and
+              collated at the flagship spec and the bf16 detector forward
+              on each batch of 4, its 75 gathers held exact.
+36. profile_ops — the profiler CLI (``scripts/profile_ops.py``) in process
+              for ``--what fwd``, ``train`` and ``conv0``: the first and
+              second call's wall time, the profiled call's total device
+              ms and events, its categories, its top 10 kernels and its
+              ``gather_rows`` launches (75, 216, 3 over three convs); the
+              first call's gathers held exact as they run.
+37. curriculum — (started after ``joint_eval``, running beside
+              ``tools``, ``tools_parity``, ``import_run`` and the two
+              ranks of ``dist``, its line after theirs and before
+              ``enet_parity``, ``multiview``, ``flagship_train`` and
+              ``scannet_eval``; all of them mostly host work, and the
+              lines of all carry ``ran_beside``: their times are
+              contended) the port's
+              ``run_r5_curriculum.sh`` on the four ``*_converge`` configs
+              at their published widths in a temporary tree (a copy of
+              conf/ and the script, the repo on PYTHONPATH), cut by
+              CURRICULUM_ENV and CURRICULUM_DET_SCENES, its 11 processes
+              watched by a ``sitecustomize`` hook
+              (``checks.watch_process``): every gather held against the
+              plain version on the card, each loop step timed with the
+              card waited on, the scan dispatch's CUDA-event ms; each
+              stage's seconds, step ms and finite losses, the evals'
+              finite CIDEr, BLEU-4 and ``ref_iou_rate_0.5``, each
+              process's gathers, each process's start, watched seconds
+              and exit; the repo's outputs/ and pretrained/ left as they
+              were.
+
+The run keeps one bytecode cache (``PYTHONPYCACHEPREFIX``, a temp dir)
+for itself and every Python process it starts.
+
+Every phase line carries ``at_s``, the seconds since the run began.
 
 Then the ``kernels`` line: one entry per kernel, with its launches on its
 path, ``max_abs_err``, per-call ``ms``, profiled ``device_ms``, the plain
@@ -339,7 +380,9 @@ and per batch of the ``caption``, ``grounding`` and ``tools`` phases, with
 the three train stages' bounds and device times, and the same three for
 the ``flagship_train`` scan step (its ``max_abs_err`` covers every checked
 gather), the ``dist_step``'s launches per step, ``dist_eval``'s and
-``dist_tools``' a rank a val batch and ``import_run``'s a resumed step.
+``dist_tools``' a rank a val batch, ``import_run``'s a resumed step,
+``prepare_scannet``'s a batch, ``profile_ops``' profiled calls and each
+curriculum process's.
 The last two lines are
 ``nvidia-smi``'s name/power limit and ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, the script exits non-zero
@@ -349,10 +392,12 @@ and prints no result. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -361,14 +406,27 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
+if __name__ == "__main__" and os.path.isdir(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "d3net_tpu_torch")):
+    # One bytecode cache for this run and every Python process it starts
+    # (ranks, CLIs, the curriculum's 11): where the PyTorch installation
+    # holds no bytecode and takes none, each start would compile some 2,000
+    # modules again, 7 s a process on an H100 host (PERF.md).
+    PYCACHE = tempfile.mkdtemp(prefix="d3net_pycache_")
+    sys.pycache_prefix, sys.dont_write_bytecode = PYCACHE, False
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    atexit.register(shutil.rmtree, PYCACHE, True)
+
 import numpy as np
 import torch
 
+from d3net_tpu_torch import config as cfg_lib
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch import jax_run
 from d3net_tpu_torch.checks import (
-    EVAL_RTOL, GatherRecorder, detector_case, detector_repro,
+    EVAL_RTOL, GatherRecorder, checked_gathers, detector_case, detector_repro,
     dist_ranks_on_one_card, enet_cuda_vs_cpu, eval_calls, eval_outputs,
     eval_reports,
     evals_world_vs_one, joint_parity_config, joint_step_case,
@@ -382,8 +440,9 @@ from d3net_tpu_torch.config import dump_yaml, save as save_cfg
 from d3net_tpu_torch.probe import check_exact, device_ms, time_ms
 from d3net_tpu_torch.data import collate
 from d3net_tpu_torch.data.collate import BatchSpec, batch_to_torch, build_batch
-from d3net_tpu_torch.data.dataset import BatchIterator
+from d3net_tpu_torch.data.dataset import BatchIterator, NpzScenes, crop_scene
 from d3net_tpu_torch.data.language import build_lang_batch
+from d3net_tpu_torch.data.raw_scans import write_raw_scan
 from d3net_tpu_torch.data.synthetic import make_scene
 from d3net_tpu_torch.kernels import gather, probe
 from d3net_tpu_torch.models.blocks import SubmConv, fold_tables
@@ -402,7 +461,9 @@ from d3net_tpu_torch.scripts import (
     visualize_grounding, visualize_scannet,
 )
 from d3net_tpu_torch.scripts import eval as eval_cli
-from d3net_tpu_torch.scripts import import_jax_run, prepare_weights
+from d3net_tpu_torch.scripts import (
+    import_jax_run, prepare_weights, profile_ops,
+)
 from d3net_tpu_torch.scripts import train as train_cli
 from d3net_tpu_torch.scripts.train import load_task_config
 from d3net_tpu_torch.train import pipeline
@@ -440,22 +501,23 @@ CAPTION_CONFIG = os.path.join(ROOT, "conf", "pointgroup_captioning.yaml")
 TINY_CAPTION_CONFIG = os.path.join(ROOT, "conf", "debug",
                                    "tiny_captioning.yaml")
 CAPTION_WARMUP, CAPTION_REPS = 2, 5
-SPK_STEPS = 8           # half an epoch of the captioning config's 64 scenes
-                        # at B=4, to keep the whole run near 7 minutes
+SPK_STEPS = 4           # a quarter epoch of the captioning config's 64
+                        # scenes at B=4 (cut from 8 to make room for the
+                        # data, profiler and curriculum phases)
 SPK_CHECKED_STEP = 2    # the step whose gathers are held to the plain version
 SPK_REPS = 5
 GROUNDING_CONFIG = os.path.join(ROOT, "conf", "pointgroup_grounding.yaml")
 TINY_GROUNDING_CONFIG = os.path.join(ROOT, "conf", "debug",
                                      "tiny_grounding.yaml")
 GROUND_WARMUP, GROUND_REPS = 2, 5
-LIS_STEPS = 8           # half an epoch, as SPK_STEPS
+LIS_STEPS = 4           # a quarter epoch, as SPK_STEPS
 LIS_CHECKED_STEP = 2    # the step whose gathers are held to the plain version
 LIS_REPS = 5
 JOINT_CONFIG = os.path.join(ROOT, "conf", "pointgroup_joint.yaml")
 TINY_JOINT_CONFIG = os.path.join(ROOT, "conf", "debug", "tiny_joint.yaml")
-JOINT_STEPS = 8         # half an epoch of the joint config's 64 scenes at
-                        # B=4 (cut from one epoch to keep the smoke near 9
-                        # minutes)
+JOINT_STEPS = 4         # a quarter epoch of the joint config's 64 scenes at
+                        # B=4 (cut from one epoch, then from 8, as
+                        # SPK_STEPS)
 JOINT_CHECKED_STEP = 2  # the step whose gathers are held to the plain version
 JOINT_REPS = 5
 
@@ -471,6 +533,9 @@ IMPORT_SCENES = 8       # import_run: train scenes of the joint config's 64
 #                         (two batches an epoch)
 IMPORT_STEPS = 2        # resumed steps: the last before a step_epoch
 #                         boundary and the first after it
+PREP_SCANS = 8          # prepare_scannet: raw scans, two flagship batches
+PREP_WORKERS = 8        # the CLI's process pool (the card host's cores)
+CURRICULUM_TIMEOUT = 600
 SMALL_CFG = dict(m=8, blocks=(1, 2, 3), cluster_blocks=(1, 2),
                  clusters_per_pass=16, max_num_proposal=8,
                  cluster_npoint_thre=30, test_npoint_thresh=30,
@@ -482,7 +547,16 @@ SMALL_SPEC = dict(max_points=3072, voxel_caps=[3072, 1536, 768],
                   max_instances=8, use_multiview=False, use_normal=True)
 
 
+T_START = [None]      # main's start: each phase line gets its ``at_s``
+RAN_BESIDE = [None]   # what runs beside the phases now emitting lines:
+#                       each line gets ``ran_beside`` (its times contended)
+
+
 def emit(obj) -> None:
+    if "phase" in obj and T_START[0] is not None:
+        obj = {**obj, "at_s": round(time.time() - T_START[0], 1)}
+    if "phase" in obj and RAN_BESIDE[0]:
+        obj = {**obj, "ran_beside": RAN_BESIDE[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -3469,6 +3543,332 @@ def phase_scannet_eval(run_dir, per_forward):
           "seconds": round(time.time() - t0, 3)})
 
 
+# the JAX package's last entry points: data preparation, the profiler and
+# the round-5 curriculum
+def _crop(scene, spec, seed):
+    """``scene`` cropped to the spec's points as the loaders crop it."""
+    if len(scene.xyz) <= spec.max_points:
+        return scene
+    return crop_scene(scene, spec.max_points, spec.scale, spec.full_scale,
+                      np.random.default_rng(seed))
+
+
+def _finite(x) -> bool:
+    return bool(np.isfinite(np.asarray(x, np.float64)).all())
+
+
+def phase_prepare_scannet(root, per_forward):
+    """PREP_SCANS synthetic scans in ScanNet's raw layout at its size
+    (``data.raw_scans``: 100-250k mesh vertices with faces, 20 objects, a
+    rigid alignment) through the port's CLI in a process of its own with
+    ``--workers PREP_WORKERS --write-inst-gt``; the npz files read back
+    through ``NpzScenes``, cropped and collated at the flagship spec (no
+    feature store: the multiview columns stay zero) and the bf16 detector
+    forward on the card for each batch of 4, its 75 gathers held exact."""
+    t0 = time.time()
+    scans, out, gt = (os.path.join(root, d) for d in ("scans", "npz", "gt"))
+    rng = np.random.default_rng(0)
+    names = [f"scene{i:04d}_00" for i in range(PREP_SCANS)]
+    raw = [write_raw_scan(scans, name, i, objects=20,
+                          vertices=int(rng.integers(100_000, 250_001)))
+           for i, name in enumerate(names)]
+    write_s = time.time() - t0
+    t1 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "d3net_tpu_torch.scripts.prepare_scannet",
+         "--scans", scans, "--out", out, "--workers", str(PREP_WORKERS),
+         "--write-inst-gt", gt], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    prep_s = time.time() - t1
+    if res.returncode or res.stdout.split() != names:
+        raise AssertionError(f"prepare_scannet: rc {res.returncode}, "
+                             f"printed {res.stdout!r}, {res.stderr[-2000:]}")
+    files = sorted(os.listdir(out))
+    if files != [f"{n}.npz" for n in names] or \
+            sorted(os.listdir(gt)) != [f"{n}.txt" for n in names]:
+        raise AssertionError(f"prepare_scannet: wrote {files}")
+    scenes = NpzScenes([os.path.join(out, f) for f in files])
+    boxes = []
+    for i, r in enumerate(raw):
+        sc = scenes[i]
+        n = len(sc.xyz)
+        if n != r["vertices"] or sc.scene_id != names[i]:
+            raise AssertionError(f"prepare_scannet: {names[i]} has {n} "
+                                 f"points of {r['vertices']}")
+        if not all(_finite(a) for a in (sc.xyz, sc.rgb, sc.normal,
+                                        sc.instance_bboxes)):
+            raise AssertionError(f"prepare_scannet: {names[i]} not finite")
+        if sc.sem_labels.min() < -1 or sc.sem_labels.max() > 19:
+            raise AssertionError(f"prepare_scannet: {names[i]} labels")
+        with open(os.path.join(gt, f"{names[i]}.txt")) as f:
+            if sum(1 for _ in f) != n:
+                raise AssertionError(f"prepare_scannet: {names[i]} GT rows")
+        boxes.append(len(sc.instance_bboxes))
+    flag = flagship_config()
+    in_ch = flag.spec.feat_dim() + 3
+    model = load_detector(init_flax_variables(
+        PointGroup(in_ch, **flag.model), seed=0), flag.model)
+    fwd = []
+    for b in range(0, len(scenes), flag.batch_size):
+        batch_np = build_batch([_crop(scenes[i], flag.spec, i) for i in
+                                range(b, b + flag.batch_size)], flag.spec)
+        batch = batch_to_torch(batch_np, "cuda")
+        with checked_gathers("the prepared scans' forward") as rec, \
+                torch.no_grad():
+            gather.gather_rows.launches = 0
+            t2 = time.time()
+            res = model(batch)
+            torch.cuda.synchronize()
+            fwd.append({"seconds": round(time.time() - t2, 3),
+                        "launches": gather.gather_rows.launches,
+                        "checked": rec.checked,
+                        "max_abs_err": rec.max_abs_err,
+                        "voxels_l0": [int(x) for x in
+                                      batch_np["tables"][0]["mask"].sum(1)],
+                        "proposals": int(res["proposal_batch_mask"].sum())})
+        if fwd[-1]["launches"] != per_forward or rec.checked != per_forward:
+            raise AssertionError(f"prepare_scannet: forward {fwd[-1]}")
+        for key, v in res.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"prepare_scannet: {key} not finite")
+    del model
+    emit({"phase": "prepare_scannet", "scans": PREP_SCANS,
+          "workers": PREP_WORKERS,
+          "vertices": [r["vertices"] for r in raw],
+          "faces": [r["faces"] for r in raw], "boxes": boxes,
+          "write_raw_s": round(write_s, 3), "prepare_s": round(prep_s, 3),
+          "seconds_per_scene": prep_s / PREP_SCANS, "forwards": fwd,
+          "seconds": round(time.time() - t0, 3)})
+    return fwd[0]["launches"], max(f["max_abs_err"] for f in fwd)
+
+
+def phase_profile_ops(root, per_forward, per_step):
+    """The profiler CLI (``scripts.profile_ops``) in process for ``fwd``,
+    ``train`` and ``conv0`` on the card: its total device ms, categories,
+    top 10 kernels and the gather launches of the profiled call (75, 216,
+    one a conv); the first call's gathers held exact (the later ones are
+    timed and profiled)."""
+    out = {}
+    for what, first in (("fwd", per_forward), ("train", per_step),
+                        ("conv0", 1)):
+        t0 = time.time()
+        with checked_gathers(f"profile_ops --what {what}", first) as rec:
+            res = profile_ops.main(["--what", what, "--top", "10", "--logdir",
+                                    os.path.join(root, what)])
+        want = first * res["calls"]
+        if res["gather_launches"] != want or rec.checked != first:
+            raise AssertionError(
+                f"profile_ops {what}: {res['gather_launches']} launches "
+                f"profiled (want {want}), {rec.checked} checked")
+        if not (res["total_ms"] > 0 and res["categories"]["gather"] > 0
+                and os.path.getsize(res["trace"]) > 0):
+            raise AssertionError(f"profile_ops {what}: {res}")
+        out[what] = {k: res[k] for k in ("total_ms", "events", "categories",
+                                         "top", "first_s", "second_s",
+                                         "calls", "gather_launches")}
+        out[what].update(gathers_checked_exact=rec.checked,
+                         max_abs_err=rec.max_abs_err,
+                         seconds=round(time.time() - t0, 3))
+        torch.cuda.empty_cache()
+    emit({"phase": "profile_ops", **out})
+    return ({f"profile_{w}_launches": out[w]["gather_launches"] for w in out},
+            max(out[w]["max_abs_err"] for w in out))
+
+
+CURRICULUM_SCRIPT = os.path.join(ROOT, "d3net_tpu_torch", "scripts",
+                                 "run_r5_curriculum.sh")
+CURRICULUM_ENV = {"DET_STEPS": "24",     # one dispatch of det_converge's 24
+                  "SPK_STEPS": "2", "LIS_STEPS": "2", "JOINT_STEPS": "2",
+                  "D3NET_VAL_SCENES": "4"}     # one val batch
+CURRICULUM_DET_SCENES = 8    # of det_converge's 128 train scenes: its
+#                              resident stack is 2 augmented epochs of them,
+#                              4 batches the dispatch's 24 steps cycle over
+CURRICULUM_HOOK = """import os
+from d3net_tpu_torch import checks
+checks.watch_process(os.environ["D3NET_WATCH_LOG"])
+"""
+CURRICULUM_STAGES = (      # the script's processes, as ``_process`` names them
+    "train det_converge", "prepare_weights det_converge",
+    "train spk_converge", "eval spk_converge_r5 captioning",
+    "prepare_weights spk_converge", "train lis_converge",
+    "eval lis_converge_r5 grounding", "prepare_weights lis_converge",
+    "train joint_converge", "eval joint_converge_r5 captioning",
+    "eval joint_converge_r5 grounding")
+
+
+def _process(argv) -> str:
+    """A curriculum process's name: its script and what it works on."""
+    kind = os.path.basename(argv[0])[:-len(".py")]
+
+    def arg(flag):
+        return argv[argv.index(flag) + 1]
+    if kind == "train":
+        return f"train {os.path.basename(arg('--config'))[:-len('.yaml')]}"
+    if kind == "eval":
+        return f"eval {os.path.basename(arg('--folder'))} {arg('--task')}"
+    return f"{kind} {arg('--name')}"
+
+
+def stop_group(proc) -> None:
+    """Kill every process of ``proc``'s session (started with
+    ``start_new_session``) and reap ``proc``."""
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def _repo_outputs():
+    return {d: sorted(os.listdir(os.path.join(ROOT, d)))
+            if os.path.isdir(os.path.join(ROOT, d)) else None
+            for d in ("outputs", "pretrained")}
+
+
+def start_curriculum(root):
+    """Start the port's ``run_r5_curriculum.sh`` on the four ``*_converge``
+    configs at their published widths, cut by CURRICULUM_ENV and
+    CURRICULUM_DET_SCENES, in a temporary tree (a copy of conf/ and the
+    script; the repo on PYTHONPATH, the smoke's interpreter as ``python``)
+    so that nothing lands in the repo's outputs/ or pretrained/, in a
+    session of its own with its output in files; ``phase_curriculum``
+    waits for it. A ``sitecustomize`` hook (``checks.watch_process``)
+    watches each of its 11 processes: every gather held against the plain
+    version on the card, each loop step timed with the card waited on,
+    each dispatch's CUDA-event ms; the ``python`` on its PATH logs each
+    process's start and end."""
+    run = {"t0": time.time(), "before": _repo_outputs(), "root": root,
+           "tree": os.path.join(root, "tree"),
+           "log": os.path.join(root, "watch.jsonl"),
+           "procs": os.path.join(root, "procs.txt")}
+    tree, hook = run["tree"], os.path.join(root, "hook")
+    shutil.copytree(os.path.join(ROOT, "conf"), os.path.join(tree, "conf"))
+    det_yaml = os.path.join(tree, "conf", "det_converge.yaml")
+    det = cfg_lib.load(det_yaml).to_dict()
+    det["data"]["synthetic"]["num_scenes"] = CURRICULUM_DET_SCENES
+    with open(det_yaml, "w") as f:
+        f.write(dump_yaml(det))
+    script = os.path.join(tree, "d3net_tpu_torch", "scripts",
+                          os.path.basename(CURRICULUM_SCRIPT))
+    os.makedirs(os.path.dirname(script))
+    shutil.copy2(CURRICULUM_SCRIPT, script)
+    os.makedirs(os.path.join(hook, "bin"))
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(CURRICULUM_HOOK)
+    python = os.path.join(hook, "bin", "python")
+    with open(python, "w") as f:    # a venv's interpreter needs its path;
+        f.write(                    # each process's start and end logged
+            f'#!/bin/sh\nstart=$(date +%s.%N)\n"{sys.executable}" "$@"\n'
+            f'rc=$?\necho "$start $(date +%s.%N)" >> "{run["procs"]}"\n'
+            f'exit $rc\n')
+    os.chmod(python, 0o755)
+    # one card: the CLIs would run a rank a visible card, each watched
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([hook, ROOT]),
+               PATH=os.pathsep.join([os.path.join(hook, "bin"),
+                                     os.environ.get("PATH", "")]),
+               CUDA_VISIBLE_DEVICES="0", D3NET_WATCH_LOG=run["log"],
+               **CURRICULUM_ENV)
+    torch.cuda.empty_cache()
+    with open(os.path.join(root, "stdout.txt"), "w") as out, \
+            open(os.path.join(root, "stderr.txt"), "w") as err:
+        run["proc"] = subprocess.Popen(["bash", script], stdout=out,
+                                       stderr=err, cwd=root, env=env,
+                                       start_new_session=True)
+    return run
+
+
+def phase_curriculum(run):
+    """Wait for ``start_curriculum``'s script (killing it past
+    CURRICULUM_TIMEOUT): it must end with rc 0 and ``CURRICULUM DONE``, no
+    traceback, its 11 processes in order; each process's wall time split
+    into its start (the interpreter and imports before the hook), the
+    watched seconds and its exit; each stage's step ms and finite losses,
+    the evals' finite CIDEr, BLEU-4 and ref_iou_rate_0.5, each process's
+    gathers all exact; the repo's outputs/ and pretrained/ as they were."""
+    proc, root, tree, log = run["proc"], run["root"], run["tree"], run["log"]
+    try:
+        proc.wait(timeout=max(1.0, CURRICULUM_TIMEOUT
+                              - (time.time() - run["t0"])))
+    finally:
+        stop_group(proc)
+    seconds = time.time() - run["t0"]
+    with open(os.path.join(root, "stdout.txt")) as f:
+        stdout = f.read()
+    with open(os.path.join(root, "stderr.txt")) as f:
+        stderr = f.read()
+    if (proc.returncode or "CURRICULUM DONE" not in stdout
+            or "Traceback" in stderr):
+        raise AssertionError(f"curriculum: rc {proc.returncode}\n"
+                             f"{stderr[-4000:]}")
+    with open(log) as f:
+        procs = [json.loads(line) for line in f]
+    with open(run["procs"]) as f:
+        spans = [[float(t) for t in line.split()] for line in f]
+    names = [_process(p["argv"]) for p in procs]
+    if names != list(CURRICULUM_STAGES) or len(spans) != len(names):
+        raise AssertionError(f"curriculum: processes {names}, {len(spans)} "
+                             f"started")
+    stages = []
+    for name, p, (start, end) in zip(names, procs, spans):
+        kind, arg = name.split()[0], name.split()[-1]
+        rec = {"process": name, "process_s": round(end - start, 3),
+               "start_s": round(p["t0"] - start, 3),
+               "seconds": round(p["seconds"], 3),
+               "exit_s": round(end - p["t0"] - p["seconds"], 3),
+               "gather_launches": p["launches"],
+               "gathers_checked_exact": p["checked"],
+               "max_abs_err": p["max_abs_err"]}
+        if p["checked"] != p["launches"]:
+            raise AssertionError(f"curriculum: {name}: {p['checked']} of "
+                                 f"{p['launches']} gathers checked")
+        if kind != "prepare_weights" and not p["launches"]:
+            raise AssertionError(f"curriculum: {name} ran no gather")
+        if kind == "train":
+            run_dir = os.path.join(tree, "outputs", f"{arg}_r5")
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                logged = [json.loads(line) for line in f]
+            losses = {k: v for m in logged for k, v in m.items()
+                      if k.endswith("loss")}
+            for s in p["steps"]:
+                losses.update({f"step{s['step']}/{k}": v for k, v in s.items()
+                               if k.endswith("loss")})
+            if not losses or not _finite(list(losses.values())):
+                raise AssertionError(f"curriculum: {arg} losses {losses}")
+            rec["losses"] = losses
+            spd = int(load_task_config(os.path.join(
+                tree, "conf", f"{arg}.yaml")).tpu.get("steps_per_dispatch", 0))
+            rec["steps"] = len(p["steps"]) or spd * len(p["dispatches"])
+            if p["steps"]:
+                rec["step_ms"] = [s["step_s"] * 1e3 for s in p["steps"]]
+                rec["run_step_ms"] = [s["wall_s"] * 1e3 for s in p["steps"]]
+            for d in p["dispatches"]:
+                rec["dispatch_wall_s"] = d["wall_s"]
+                if "device_ms" in d:        # CUDA events: on the card
+                    rec["scan_step_ms"] = d["device_ms"] / spd
+        if kind == "eval":
+            run_dir = os.path.join(
+                tree, p["argv"][p["argv"].index("--folder") + 1])
+            with open(os.path.join(run_dir, f"eval_{arg}.json")) as f:
+                res_eval = json.load(f)
+            keys = (("cider", "bleu4") if arg == "captioning"
+                    else ("ref_iou_rate_0.5",))
+            rec.update({k: res_eval[k] for k in keys})
+            if not _finite([res_eval[k] for k in keys]):
+                raise AssertionError(f"curriculum: {arg} eval {res_eval}")
+        stages.append(rec)
+    if _repo_outputs() != run["before"]:
+        raise AssertionError("curriculum: the repo's outputs/ or pretrained/ "
+                             "changed")
+    emit({"phase": "curriculum", "stages": stages,
+          "pretrained": sorted(os.listdir(os.path.join(tree, "pretrained"))),
+          "reduced": [f"{k}={v}" for k, v in CURRICULUM_ENV.items()] + [
+              f"det_converge's train scenes {CURRICULUM_DET_SCENES} of 128"],
+          "seconds": round(seconds, 3)})
+    return {"curriculum_launches": {s["process"]: s["gather_launches"]
+                                    for s in stages},
+            "curriculum_max_abs_err": max(s["max_abs_err"] for s in stages)}
+
+
 # ``--cards N``: the train CLI's run on one card and across N cards
 def collate_ms(cfg, world: int, reps: int = 3):
     """Host ms to build batch 0 of the first epoch for world size 1 (every
@@ -3632,6 +4032,7 @@ def main(argv=None) -> int:
     if args.cards:
         return cards_main(args.cards)
     t_start = time.time()
+    T_START[0] = t_start
     smi = nvidia_smi_line()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__,
@@ -3661,6 +4062,10 @@ def main(argv=None) -> int:
         variables, batch, train["step_ms"], train["train_launches"])
     del batch, variables
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="d3net_prep_") as root:
+        prep_launches, prep_err = phase_prepare_scannet(root, launches)
+        profile_launches, profile_err = phase_profile_ops(
+            root, launches, train["train_launches"])
     phase_host_lib()
     with tempfile.TemporaryDirectory(prefix="d3net_run_") as root, \
             shared_scenes():
@@ -3698,18 +4103,32 @@ def main(argv=None) -> int:
             stage_run_dir(os.path.join(root, "lis"), GROUNDING_CONFIG),
             train["train_launches"], launches)
         world1.update(phase_joint_eval(joint_run, launches))
-        tools_launches, tools_one = phase_tools(joint_run, launches)
-        phase_tools_parity(os.path.join(root, "tools"))
-        import_launches, import_err = phase_import_run(
-            os.path.join(root, "import"), train["train_launches"], launches)
+        # the curriculum's 11 processes run beside the tools, the run
+        # import and the two ranks of ``dist`` (all mostly host work: process
+        # starts, scene builds); the lines of all of them carry
+        # ``ran_beside``, and their times are contended
+        curriculum_run = start_curriculum(os.path.join(root, "curriculum"))
+        RAN_BESIDE[0] = "curriculum"
+        try:
+            tools_launches, tools_one = phase_tools(joint_run, launches)
+            phase_tools_parity(os.path.join(root, "tools"))
+            import_launches, import_err = phase_import_run(
+                os.path.join(root, "import"), train["train_launches"],
+                launches)
+            dist_eval_launches, dist_tools_launches = phase_dist(
+                run_dir, joint_run, world1, tools_one, launches)
+        except BaseException:
+            stop_group(curriculum_run["proc"])
+            raise
+        RAN_BESIDE[0] = "tools, tools_parity, import_run, dist"
+        curriculum = phase_curriculum(curriculum_run)
+        RAN_BESIDE[0] = None
         phase_enet_parity()
         store = phase_multiview(os.path.join(root, "mv"))
         flagship_run, scan = phase_flagship_train(
             os.path.join(root, "flagship"), store, train["train_launches"],
             launches)
         phase_scannet_eval(flagship_run, launches)
-        dist_eval_launches, dist_tools_launches = phase_dist(
-            run_dir, joint_run, world1, tools_one, launches)
     kernels[0]["run_launches_per_step"] = run_per_step
     kernels[0]["caption_launches_per_batch"] = caption_launches
     kernels[0]["caption_max_abs_err"] = caption_err
@@ -3725,13 +4144,17 @@ def main(argv=None) -> int:
     kernels[0].update(lis)
     kernels[0].update(joint)
     kernels[0].update(scan)
+    kernels[0]["prepare_scannet_launches_per_batch"] = prep_launches
+    kernels[0].update(profile_launches)
+    kernels[0].update(curriculum)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], caption_err,
                                     spk["spk_train_max_abs_err"],
                                     grounding_err,
                                     lis["lis_train_max_abs_err"],
                                     joint["joint_train_max_abs_err"],
                                     scan["scan_train_max_abs_err"],
-                                    import_err)
+                                    import_err, prep_err, profile_err,
+                                    curriculum["curriculum_max_abs_err"])
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     emit({"kernels": kernels + probe_entries})
     print(smi, flush=True)

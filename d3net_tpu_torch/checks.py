@@ -1107,12 +1107,16 @@ class GatherRecorder:
     call happens (in the backward too) and keeps only a count, the largest
     error, the rows gathered by dtype and width, and the bytes the calls
     need (``probe.gather_bytes``: distinct source rows reached, output,
-    index)."""
+    index). With ``limit`` only the first ``limit`` calls are checked (one
+    call's worth of work, when the later calls are timed or profiled); the
+    later ones run the wrapper alone."""
 
-    def __init__(self, real, check=False, where="the train step"):
+    def __init__(self, real, check=False, where="the train step",
+                 limit: Optional[int] = None):
         self.real = real
         self.check = check
         self.where = where
+        self.limit = limit
         self.calls = []
         self.checked = 0
         self.max_abs_err = 0.0
@@ -1123,6 +1127,8 @@ class GatherRecorder:
         from d3net_tpu_torch.probe import gather_bytes
 
         out = self.real.gather_rows(src, idx)
+        if self.limit is not None and self.checked >= self.limit:
+            return out
         if not self.check:
             self.calls.append((src, idx))
             return out
@@ -1145,19 +1151,82 @@ class GatherRecorder:
 
 
 @contextlib.contextmanager
-def checked_gathers(where: str):
-    """Every ``gather_rows`` call of the block held bit-exact against the
-    plain version as it runs (a ``GatherRecorder`` with ``check``); yields
-    the recorder."""
+def checked_gathers(where: str, limit: Optional[int] = None):
+    """Every ``gather_rows`` call of the block (the first ``limit``, if
+    given) held bit-exact against the plain version as it runs (a
+    ``GatherRecorder`` with ``check``); yields the recorder."""
     from d3net_tpu_torch.kernels import gather
     from d3net_tpu_torch.ops import segment, sparse_conv
 
-    rec = GatherRecorder(gather, check=True, where=where)
+    rec = GatherRecorder(gather, check=True, where=where, limit=limit)
     sparse_conv.gather, segment.gather = rec, rec
     try:
         yield rec
     finally:
         sparse_conv.gather, segment.gather = gather, gather
+
+
+def watch_process(log_path: str) -> None:
+    """Watch this process as a script runs it: every ``gather_rows`` call
+    held against the plain version as it runs (a checking
+    ``GatherRecorder``: a call that differs raises), every step of a
+    ``StepLoop`` timed with the loop waiting for the card around each
+    part (its ``on_step`` record, with the step's metrics), and every
+    dispatch of the scan trainer (its ``on_dispatch`` record). At exit it
+    appends one JSON line to ``log_path``: ``argv``, ``t0`` (the call's
+    ``time.time()``), ``seconds`` since the call, ``launches`` (the
+    wrapper's count), ``checked``, ``max_abs_err``, ``steps`` and
+    ``dispatches``. A ``sitecustomize``
+    module that calls it watches every Python process a script starts."""
+    import atexit
+    import sys
+
+    from d3net_tpu_torch.kernels import gather
+    from d3net_tpu_torch.ops import segment, sparse_conv
+    from d3net_tpu_torch.train import loop
+
+    t0 = time.time()
+    rec = GatherRecorder(gather, check=True, where=" ".join(sys.argv))
+    sparse_conv.gather, segment.gather = rec, rec
+    steps: List[Dict[str, Any]] = []
+    metrics: List[Dict[str, torch.Tensor]] = []
+    dispatches: List[Dict[str, Any]] = []
+
+    init, run_epoch = loop.StepLoop.__init__, loop.StepLoop.run_epoch
+    scan = loop.run_detector_training_scan
+
+    def watched_init(self, *args, **kw):
+        init(self, *args, **kw)
+        if self.on_step is None:
+            self.on_step, self.sync_steps = steps.append, True
+
+    def watched_epoch(self, epoch, train_it, to_device, train_step,
+                      log_extra=None):
+        def step(batch, i):
+            m = train_step(batch, i)
+            metrics.append({k: v.detach() for k, v in m.items()})
+            return m
+        return run_epoch(self, epoch, train_it, to_device, step, log_extra)
+
+    def watched_scan(*args, **kw):
+        kw.setdefault("on_dispatch", dispatches.append)
+        return scan(*args, **kw)
+
+    loop.StepLoop.__init__ = watched_init
+    loop.StepLoop.run_epoch = watched_epoch
+    loop.run_detector_training_scan = watched_scan
+
+    def write():
+        for step, m in zip(steps, metrics):
+            step.update({k: float(v) for k, v in m.items()})
+        line = {"argv": sys.argv, "t0": t0, "seconds": time.time() - t0,
+                "launches": gather.gather_rows.launches,
+                "checked": rec.checked, "max_abs_err": rec.max_abs_err,
+                "steps": steps, "dispatches": dispatches}
+        with open(log_path, "a") as f:
+            f.write(json.dumps(line) + "\n")
+
+    atexit.register(write)
 
 
 # tests/test_parallel.py's model, batch layout and scenes

@@ -245,13 +245,15 @@ class BatchIterator:
 
     def _epoch_batches_parallel(self) -> Iterator[dict]:
         """``workers`` threads, ``workers + prefetch`` batches in flight,
-        yielded in batch order."""
+        yielded in batch order. A consumer that stops early (a run's last
+        step) waits for the builds under way, not for the queued ones."""
         from concurrent.futures import ThreadPoolExecutor
 
         order = self._order()
         nb = len(self)
         inflight = self.workers + max(1, self.prefetch)
-        with ThreadPoolExecutor(max_workers=self.workers) as ex:
+        ex = ThreadPoolExecutor(max_workers=self.workers)
+        try:
             futs = {b: ex.submit(self._build_one, order, b)
                     for b in range(min(inflight, nb))}
             nxt = len(futs)
@@ -260,6 +262,8 @@ class BatchIterator:
                 if nxt < nb:
                     futs[nxt] = ex.submit(self._build_one, order, nxt)
                     nxt += 1
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)
 
     def __iter__(self) -> Iterator[dict]:
         if self.workers > 1:

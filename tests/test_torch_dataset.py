@@ -65,6 +65,30 @@ def test_batches_equal_jax_over_two_epochs(scenes, workers, prefetch):
     assert cropped > 0
 
 
+def test_stopping_early_skips_the_queued_builds(scenes, monkeypatch):
+    """A consumer that stops after batch 0 (a run's last step) waits for
+    the two builds under way and cancels the queued one."""
+    import threading
+
+    it = tds.BatchIterator(scenes * 4, tcollate.BatchSpec(**SPEC), 2,
+                           shuffle=False, augment=False, workers=2,
+                           prefetch=2)
+    built, release, real = [], threading.Event(), it._build_one
+
+    def build(order, b):
+        if b:
+            release.wait(10)
+        built.append(b)
+        return real(order, b)
+
+    monkeypatch.setattr(it, "_build_one", build)
+    batches = iter(it)
+    next(batches)
+    threading.Timer(0.2, release.set).start()
+    batches.close()
+    assert sorted(built) == [0, 1, 2]
+
+
 def test_val_iterator_keeps_the_last_partial_batch(scenes):
     kw = dict(shuffle=False, augment=False, seed=0, drop_last=False,
               workers=3)

@@ -7,7 +7,18 @@ Its tables are byte-identical to the port's numpy plain versions
 voxel, and through ``build_unet_maps`` level by level. The main path's
 names are the library's, and a library that does not build or load raises
 (no numpy fallback).
+
+The JAX package's library (``cc/libd3net_host.so``) is built by its first
+caller with ``make``; under pytest-xdist several workers may run that
+``make`` at once, and one whose load lands on a library still being linked
+caches ``None`` for the life of its process. The ``jax_lib`` fixture loads
+it under a lock and retries until it loads with its entry points.
 """
+
+import fcntl
+import os
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -42,30 +53,62 @@ def _levels(coords):
 
 
 SIZES = ("one", "small", "medium")
+JAX_LIB_WAIT_S = 120.0   # long enough for another worker's make to finish
+
+
+@pytest.fixture(scope="module")
+def jax_lib():
+    """The JAX package's C++ library, loaded with ``d3_voxelize``: under an
+    exclusive lock, its cached load is reset and retried until it loads or
+    ``JAX_LIB_WAIT_S`` pass, which fails the test (never a skip, never numpy
+    in its place)."""
+    path = os.path.join(tempfile.gettempdir(), "d3net_host_library.lock")
+    deadline = time.monotonic() + JAX_LIB_WAIT_S
+    last = None
+    with open(path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            while True:
+                jax_native._lib, jax_native._tried = None, False
+                try:
+                    lib = jax_native.get_lib()
+                    if lib is not None and hasattr(lib, "d3_voxelize"):
+                        return jax_native
+                    last = "get_lib() returned None"
+                except (OSError, AttributeError) as e:
+                    last = repr(e)
+                if time.monotonic() > deadline:
+                    pytest.fail(f"the JAX package's host library "
+                                f"({jax_native._LIB_PATH}) did not load with "
+                                f"d3_voxelize in {JAX_LIB_WAIT_S:.0f} s: "
+                                f"{last}")
+                time.sleep(0.5)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 
 @pytest.mark.parametrize("size", SIZES)
-def test_voxelize_matches_numpy_and_jax_library(size):
+def test_voxelize_matches_numpy_and_jax_library(size, jax_lib):
     coords = _coords(size)
     # shuffled points and negative coordinates too
     rng = np.random.default_rng(0)
     coords = coords[rng.permutation(len(coords))] - 5
     want = V.voxelize_plain(coords)
-    for got in (native.voxelize(coords), jax_native.voxelize(coords)):
+    for got in (native.voxelize(coords), jax_lib.voxelize(coords)):
         for w, g in zip(want, got):
             assert w.dtype == g.dtype and w.shape == g.shape
             np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("size", SIZES)
-def test_level_tables_match_numpy_and_jax_library(size):
+def test_level_tables_match_numpy_and_jax_library(size, jax_lib):
     levels = _levels(_coords(size))
     assert len(levels[-1]) == 1
     for fine in levels:
         nbr = V.submanifold_table_plain(fine)
         coarse, down = V.downsample_level_plain(fine)
         up = V.upsample_table_plain(fine, coarse)
-        for lib in (native, jax_native):
+        for lib in (native, jax_lib):
             got = lib.submanifold_table(fine)
             assert got.dtype == nbr.dtype
             np.testing.assert_array_equal(got, nbr)

@@ -81,10 +81,35 @@ def test_port_imports_no_jax_flax_or_reference():
                 "d3net_tpu_torch.parallel.mesh",
                 "d3net_tpu_torch.parallel.dryrun",
                 "d3net_tpu_torch.jax_run",
-                "d3net_tpu_torch.scripts.import_jax_run"):
+                "d3net_tpu_torch.scripts.import_jax_run",
+                "d3net_tpu_torch.scripts.prepare_scannet",
+                "d3net_tpu_torch.scripts.scan2cad_to_scannet",
+                "d3net_tpu_torch.scripts.profile_ops",
+                "d3net_tpu_torch.data.raw_scans"):
         assert mod in res["modules"]
     assert os.path.exists(os.path.join(ROOT, "d3net_tpu_torch", "train",
                                        "__init__.py"))
+
+
+def test_curriculum_script_runs_only_port_modules():
+    """Every command of ``run_r5_curriculum.sh`` is ``python -m`` of a port
+    module that the import test above holds to the port alone: none names
+    the JAX package or the repo's ``scripts/``."""
+    import importlib.util
+    import re
+
+    path = os.path.join(ROOT, "d3net_tpu_torch", "scripts",
+                        "run_r5_curriculum.sh")
+    with open(path) as f:
+        text = f.read().replace("\\\n", " ")
+    commands = [line.split() for line in text.splitlines()
+                if line.strip().startswith("python")]
+    assert len(commands) == 11
+    for words in commands:
+        assert not any("d3net_tpu." in w or "scripts/" in w for w in words)
+        assert words[:2] == ["python", "-m"]
+        assert re.fullmatch(r"d3net_tpu_torch\.scripts\.\w+", words[2])
+        assert importlib.util.find_spec(words[2]) is not None
 
 
 def test_jax_run_exporter_imports_no_port():
