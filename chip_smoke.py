@@ -425,6 +425,7 @@ from d3net_tpu_torch import config as cfg_lib
 from d3net_tpu_torch import device
 from d3net_tpu_torch import probe as probe_cli
 from d3net_tpu_torch import jax_run
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.checks import (
     EVAL_RTOL, GatherRecorder, checked_gathers, detector_case, detector_repro,
     dist_ranks_on_one_card, enet_cuda_vs_cpu, eval_calls, eval_outputs,
@@ -1368,16 +1369,17 @@ def shared_scenes():
 @contextlib.contextmanager
 def build_spans():
     """Every batch build of ``BatchIterator`` (train and val) while open,
-    as (start, end) on the host's clock."""
+    as (start, end) in seconds on the clock of ``on_step``'s ``t_start``
+    (``trace.clock_ns``)."""
     spans = []
     build = BatchIterator._build_one
 
     def timed(self, order, b):
-        t0 = time.perf_counter()
+        t0 = trace.clock_ns() * 1e-9
         try:
             return build(self, order, b)
         finally:
-            spans.append((t0, time.perf_counter()))
+            spans.append((t0, trace.clock_ns() * 1e-9))
 
     BatchIterator._build_one = timed
     try:

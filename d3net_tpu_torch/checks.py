@@ -2074,6 +2074,76 @@ def mesh_rank(batch_size: int) -> Dict[str, Any]:
             "error": error}
 
 
+def trace_rank() -> Dict[str, Any]:
+    """The tracer on this rank under a CPU profiler session: a reduction
+    of the step (``all_reduce_sum``, ``sum_metrics``), a host gather and
+    rank 0's object broadcast -> each span's name and counters, and the
+    window's sums."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3net_tpu_torch import trace
+    from d3net_tpu_torch.parallel import mesh
+
+    x = torch.full((4,), float(mesh.rank() + 1))
+    with profile(activities=[ProfilerActivity.CPU]):
+        total = mesh.all_reduce_sum(x)
+        mesh.sum_metrics({"a": x.sum()})
+        mesh.host_all_gather(np.ones((2, 3), np.int32))
+        mesh.broadcast_from_main({"rank": mesh.rank()})
+    w = trace.last_window()
+    return {"spans": [(s.name, dict(s.counts)) for s in w.spans],
+            "counts": w.counts, "total": total.tolist()}
+
+
+def flagship_step_syncs(dev, scenes: int = 4, warm: int = 2
+                        ) -> Dict[str, Any]:
+    """The host syncs of one scan-trainer step in conf/flagship_converge.
+    yaml's layout on ``dev`` (its stack of ``scenes`` seeded scenes with
+    their synthetic multiview features in place of the feature store,
+    bf16), after ``warm`` steps: the step traced under a CPU profiler
+    session -> ``host_syncs`` inside its ``train.step`` span and the
+    ``file:line`` of each (``trace.last_window``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from d3net_tpu_torch import trace
+    from d3net_tpu_torch.scripts.train import load_task_config
+    from d3net_tpu_torch.train import loop
+    from d3net_tpu_torch.train.trainer import (
+        create_train_state, detector_train_step,
+    )
+
+    cfg = load_task_config(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "conf", "flagship_converge.yaml"))
+    cfg.data.multiview_hdf5 = None
+    cfg.data.synthetic.num_scenes = scenes
+    cfg.data.synthetic.num_val_scenes = 1
+    cfg.data.batch_size = scenes
+    cfg.tpu.augment_variants = 1
+    train_it, _ = loop.make_dataloaders(cfg, loop.spec_from_cfg(cfg))
+    stack, nb = loop.build_scan_stack(cfg, train_it, dev)
+    state = create_train_state(
+        loop.init_detector(loop.detector_from_cfg(cfg),
+                           cfg.general.manual_seed).to(dev),
+        **loop.optimizer_kw(cfg, scan=True))
+    lw = tuple(cfg.train.loss_weight[:4])
+
+    def step():
+        detector_train_step(state, loop.stack_batch(stack, state.step % nb),
+                            loop.step_generator(1, state.step, dev),
+                            loss_weight=lw, sum_metrics=False)
+
+    for _ in range(warm):
+        step()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU]):
+        step()
+    w = trace.last_window()
+    return {"host_syncs": w.under("train.step", "host_syncs"),
+            "sites": w.sync_sites}
+
+
 def launcher_rank(r: int, world_size: int, port: int) -> None:
     """One process of a launcher-made group (``torchrun``'s environment,
     rendezvous at localhost:``port``): ``mesh.init_multihost`` joins it,

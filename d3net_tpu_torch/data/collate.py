@@ -8,15 +8,16 @@ configured capacities. The batch is byte-identical to the JAX package's.
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.data.synthetic import Scene
 from d3net_tpu_torch.ops.voxelize import build_unet_maps, voxelize
+from d3net_tpu_torch.trace import CapStats
 
 
 @dataclass
@@ -55,38 +56,16 @@ class BatchSpec:
         return caps
 
 
-class CapStats:
-    """Thread-safe counters for silent-truncation telemetry; ``build_batch``
-    increments them, loops snapshot-and-reset them per log interval. Keys
-    match the JAX package's so ``metrics.jsonl`` keeps one schema."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.reset()
-
-    def reset(self) -> Dict[str, int]:
-        with self._lock:
-            snap = dict(getattr(self, "_c", {}))
-            self._c = {
-                "cap_points_truncated": 0,   # points beyond max_points
-                "cap_voxel_overflow": 0,     # voxels past caps[0] (p2v -> pad)
-                "cap_level_overflow": 0,     # block/column voxels past caps
-                "cap_dropped_phantoms": 0,   # phantom columns past col cap
-                "batches": 0,
-            }
-        return snap
-
-    def add(self, **kw: int) -> None:
-        with self._lock:
-            for k, v in kw.items():
-                self._c[k] = self._c.get(k, 0) + int(v)
-
-    def snapshot(self) -> Dict[str, int]:
-        with self._lock:
-            return dict(self._c)
-
-
-CAP_STATS = CapStats()
+# silent-truncation telemetry: ``build_batch`` adds to it, loops take and
+# reset it per log interval; the keys are the JAX package's, so
+# ``metrics.jsonl`` keeps one schema
+CAP_STATS = CapStats((
+    "cap_points_truncated",    # points beyond max_points
+    "cap_voxel_overflow",      # voxels past caps[0] (p2v -> pad)
+    "cap_level_overflow",      # block/column voxels past caps
+    "cap_dropped_phantoms",    # phantom columns past col cap
+    "batches",
+))
 
 
 def write_scene_features(scene: Scene, spec: BatchSpec, dst: np.ndarray,
@@ -231,14 +210,21 @@ def build_batch(scenes: List[Scene], spec: BatchSpec) -> Dict[str, np.ndarray]:
 
 
 def batch_to_torch(batch: Mapping[str, Any], device) -> Dict[str, Any]:
-    """numpy batch (``build_batch`` output) -> tensors on ``device``."""
+    """numpy batch (``build_batch`` output) -> tensors on ``device``: the
+    ``data.h2d`` span, its bytes counted as ``h2d_bytes``."""
     dev = torch.device(device)
+    nbytes = [0]
 
     def conv(v):
         if isinstance(v, list):
             return [conv(x) for x in v]
         if isinstance(v, Mapping):
             return {k: conv(x) for k, x in v.items()}
-        return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        v = np.ascontiguousarray(v)
+        nbytes[0] += v.nbytes
+        return torch.from_numpy(v).to(dev)
 
-    return {k: conv(v) for k, v in batch.items()}
+    with trace.span("data.h2d"):
+        out = {k: conv(v) for k, v in batch.items()}
+        trace.count("h2d_bytes", nbytes[0])
+    return out

@@ -24,6 +24,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.data.collate import BatchSpec, build_batch
 from d3net_tpu_torch.data.multiview import (
     open_multiview_store, read_multiview_store,
@@ -212,7 +213,12 @@ class BatchIterator:
         augmenting every scene of the batch in order (one generator runs
         through them, so the rows equal the global batch's);
         ``return_scenes`` gives every scene of the global batch, over which
-        the description rows are drawn."""
+        the description rows are drawn. Its ``data.collate`` span has the
+        id ``(epoch, b)``."""
+        with trace.span("data.collate", id=(self.epoch, b)):
+            return self._build(order, b)
+
+    def _build(self, order: np.ndarray, b: int):
         rng = np.random.default_rng(
             (self.seed + 1) * 1_000_003 + self.epoch * 131_071 + b
         )
@@ -266,6 +272,18 @@ class BatchIterator:
             ex.shutdown(wait=True, cancel_futures=True)
 
     def __iter__(self) -> Iterator[dict]:
+        """The epoch's batches in order; each is handed over with its id
+        ``(epoch, b)`` given to the consumer's open spans (``trace.tag``)."""
+        epoch, batches = self.epoch, self._batches()
+        try:
+            for b, item in enumerate(batches):
+                trace.tag((epoch, b))
+                yield item
+        finally:
+            batches.close()
+        self.epoch += 1
+
+    def _batches(self) -> Iterator[dict]:
         if self.workers > 1:
             yield from self._epoch_batches_parallel()
         elif self.prefetch <= 0:
@@ -293,4 +311,3 @@ class BatchIterator:
                         raise failed[0]
                     break
                 yield item
-        self.epoch += 1

@@ -16,6 +16,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.models.lang import LangModule
 from d3net_tpu_torch.models.match import (
     MatchModule, TransformerMatchModule, gumbel_draw,
@@ -103,17 +104,22 @@ class ListenerNet(nn.Module):
                 draws: Optional[ListenerDraws] = None) -> Dict[str, Any]:
         """word_embs (B·chunk, T, E); lang_len (B·chunk,). In training the
         draws come from ``draws`` (a ``ListenerDraws`` of torch's default
-        generator when None)."""
+        generator when None). The ``lis.lang`` and ``lis.match`` spans."""
         if train and draws is None:
             draws = ListenerDraws()
         d = draws if train else None
-        lang_out = self.lang(word_embs, lang_len, d)
+        with trace.span("lis.lang"):
+            lang_out = self.lang(word_embs, lang_len, d)
         data = dict(data)
         data.update(lang_out)
-        if self.match_type == "Transformer":
-            return self.match(data, chunk_size=chunk_size, train=train,
-                              draws=d)
-        feats = data["proposal_feats_batched"].repeat_interleave(chunk_size, 0)
-        masks = data["proposal_batch_mask"].repeat_interleave(chunk_size, 0)
-        data["cluster_ref"] = self.match(feats, masks, lang_out["lang_emb"])
+        with trace.span("lis.match"):
+            if self.match_type == "Transformer":
+                return self.match(data, chunk_size=chunk_size, train=train,
+                                  draws=d)
+            feats = data["proposal_feats_batched"].repeat_interleave(
+                chunk_size, 0)
+            masks = data["proposal_batch_mask"].repeat_interleave(
+                chunk_size, 0)
+            data["cluster_ref"] = self.match(feats, masks,
+                                             lang_out["lang_emb"])
         return data

@@ -38,6 +38,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.models.blocks import (
     MaskedBatchNorm, SubmConv, UBlock, fold_tables,
 )
@@ -304,18 +305,20 @@ class PointGroup(nn.Module):
             point_feats = torch.cat([point_feats, point_xyz], dim=-1)
 
         # --- voxelize + backbone -------------------------------------
-        voxel_feats = voxelize_feats(point_feats, p2v, m0cap, point_mask)
-        if self.compute_dtype in ("bfloat16", "bf16"):
-            voxel_feats = voxel_feats.to(torch.bfloat16)
-        vfeats = self.backbone(voxel_feats, tables, train)   # (B, M0, m)
-        vmask = batch["tables"][0]["mask"]
+        with trace.span("det.backbone"):
+            voxel_feats = voxelize_feats(point_feats, p2v, m0cap, point_mask)
+            if self.compute_dtype in ("bfloat16", "bf16"):
+                voxel_feats = voxel_feats.to(torch.bfloat16)
+            vfeats = self.backbone(voxel_feats, tables, train)   # (B, M0, m)
+            vmask = batch["tables"][0]["mask"]
 
-        sem_scores_v, offsets_v = self.heads(vfeats, vmask, train)
-        out: Dict[str, Any] = {
-            "semantic_scores": seg.gather_padded_batched(sem_scores_v, p2v),
-            "pt_offsets": seg.gather_padded_batched(offsets_v, p2v),
-            "pt_feats": seg.gather_padded_batched(vfeats, p2v),
-        }
+            sem_scores_v, offsets_v = self.heads(vfeats, vmask, train)
+            out: Dict[str, Any] = {
+                "semantic_scores": seg.gather_padded_batched(sem_scores_v,
+                                                             p2v),
+                "pt_offsets": seg.gather_padded_batched(offsets_v, p2v),
+                "pt_feats": seg.gather_padded_batched(vfeats, p2v),
+            }
         if not do_clustering:
             return out
         sem_scores = out["semantic_scores"]
@@ -323,100 +326,107 @@ class PointGroup(nn.Module):
         p_total = 2 * self.clusters_per_pass
         dev = point_xyz.device
 
-        if self.requires_gt_mask:
-            # GT instances as proposals (modes 4-6): pass 0 carries the GT
-            # membership, pass 1 is empty
-            inst = batch["instance_ids"]
-            gt_member = torch.where(
-                point_mask & (inst >= 0) & (inst < p_total), inst,
-                torch.full_like(inst, -1)).to(torch.int32)
-            member_pt = torch.stack(
-                [gt_member, torch.full_like(gt_member, -1)], dim=1)
-            counts = seg.segment_count_batched(
-                torch.where(gt_member >= 0, gt_member,
-                            torch.full_like(gt_member, p_total)),
-                p_total, point_mask & (gt_member >= 0))
-            cluster_mask = counts >= float(self.cluster_npoint_thre)
-        else:
-            # --- clustering (voxel level) -----------------------------
-            vxyz = voxelize_feats(point_xyz, p2v, m0cap, point_mask)
-            vweight = seg.segment_count_batched(p2v, m0cap, point_mask)
-            vsem_pred = sem_scores_v.argmax(-1).to(torch.int32)
-            vvalid = vmask.bool() & (vsem_pred > 0)
-            vshift = vxyz + offsets_v
-            # grouping is not differentiable (JAX: stop_gradient)
-            member_v, cluster_mask, _ = self._cluster_batch(
-                torch.stack([vxyz, vshift], dim=1).detach(), vsem_pred,
-                vvalid, vweight.detach())
+        with trace.span("det.cluster"):
+            if self.requires_gt_mask:
+                # GT instances as proposals (modes 4-6): pass 0 carries the GT
+                # membership, pass 1 is empty
+                inst = batch["instance_ids"]
+                gt_member = torch.where(
+                    point_mask & (inst >= 0) & (inst < p_total), inst,
+                    torch.full_like(inst, -1)).to(torch.int32)
+                member_pt = torch.stack(
+                    [gt_member, torch.full_like(gt_member, -1)], dim=1)
+                counts = seg.segment_count_batched(
+                    torch.where(gt_member >= 0, gt_member,
+                                torch.full_like(gt_member, p_total)),
+                    p_total, point_mask & (gt_member >= 0))
+                cluster_mask = counts >= float(self.cluster_npoint_thre)
+            else:
+                # --- clustering (voxel level) -----------------------------
+                vxyz = voxelize_feats(point_xyz, p2v, m0cap, point_mask)
+                vweight = seg.segment_count_batched(p2v, m0cap, point_mask)
+                vsem_pred = sem_scores_v.argmax(-1).to(torch.int32)
+                vvalid = vmask.bool() & (vsem_pred > 0)
+                vshift = vxyz + offsets_v
+                # grouping is not differentiable (JAX: stop_gradient)
+                member_v, cluster_mask, _ = self._cluster_batch(
+                    torch.stack([vxyz, vshift], dim=1).detach(), vsem_pred,
+                    vvalid, vweight.detach())
 
-            # point-level membership: one int32 gather for both passes
-            mp = seg.gather_padded_batched(
-                member_v.permute(0, 2, 1).contiguous(), p2v)   # (B, N, 2)
-            invalid = (p2v >= m0cap)[..., None] | ~point_mask[..., None]
-            member_pt = torch.where(invalid, torch.full_like(mp, -1), mp)
-            member_pt = member_pt.permute(0, 2, 1).contiguous()  # (B, 2, N)
-        out["member_pt"] = member_pt
-        out["cluster_mask_all"] = cluster_mask              # (B, P)
+                # point-level membership: one int32 gather for both passes
+                mp = seg.gather_padded_batched(
+                    member_v.permute(0, 2, 1).contiguous(), p2v)   # (B, N, 2)
+                invalid = (p2v >= m0cap)[..., None] | ~point_mask[..., None]
+                member_pt = torch.where(invalid, torch.full_like(mp, -1), mp)
+                member_pt = member_pt.permute(0, 2, 1).contiguous()
+                # (B, 2, N)
+            out["member_pt"] = member_pt
+            out["cluster_mask_all"] = cluster_mask              # (B, P)
 
-        stats = self._cluster_stats(member_pt, point_xyz, point_mask)
-        out["cluster_npoint"] = stats["npoint"]
-        out["cluster_center"] = stats["center"]
-        out["cluster_size"] = stats["size"]
+            stats = self._cluster_stats(member_pt, point_xyz, point_mask)
+            out["cluster_npoint"] = stats["npoint"]
+            out["cluster_center"] = stats["center"]
+            out["cluster_size"] = stats["size"]
 
         # --- scorenet --------------------------------------------------
-        if not train:
-            jitter_u = torch.full((b, p_total, 3), 0.5, device=dev)
-        elif jitter_u is None:
-            jitter_u = mesh.draw_rows(lambda n: torch.rand(
-                (n, p_total, 3), generator=generator, device=dev), b)
-        else:
-            jitter_u = mesh.local_rows(jitter_u, b)
-        grids, occ = self._build_grids(member_pt, point_xyz, pt_feats,
-                                       point_mask, stats, jitter_u)
-        g = self.score_fullscale
-        scores_flat, pooled_flat = self.score_net(
-            grids.reshape(b * p_total, g, g, g, -1),
-            occ.reshape(b * p_total, g, g, g), train)
-        scores = scores_flat.reshape(b, p_total)
-        pooled = pooled_flat.reshape(b, p_total, -1)
-        out["proposal_scores_all"] = scores                 # (B, P) logits
+        with trace.span("det.scorenet"):
+            if not train:
+                jitter_u = torch.full((b, p_total, 3), 0.5, device=dev)
+            elif jitter_u is None:
+                jitter_u = mesh.draw_rows(lambda n: torch.rand(
+                    (n, p_total, 3), generator=generator, device=dev), b)
+            else:
+                jitter_u = mesh.local_rows(jitter_u, b)
+            grids, occ = self._build_grids(member_pt, point_xyz, pt_feats,
+                                           point_mask, stats, jitter_u)
+            g = self.score_fullscale
+            scores_flat, pooled_flat = self.score_net(
+                grids.reshape(b * p_total, g, g, g, -1),
+                occ.reshape(b * p_total, g, g, g), train)
+            scores = scores_flat.reshape(b, p_total)
+            pooled = pooled_flat.reshape(b, p_total, -1)
+            out["proposal_scores_all"] = scores                 # (B, P) logits
 
-        sem_pred_pt = sem_scores.argmax(-1).to(torch.int32)
-        cluster_sem = self._proposal_sem(member_pt, sem_pred_pt, point_mask)
+            sem_pred_pt = sem_scores.argmax(-1).to(torch.int32)
+            cluster_sem = self._proposal_sem(member_pt, sem_pred_pt,
+                                             point_mask)
 
-        # --- proposal selection to max_num_proposal --------------------
-        objness = torch.sigmoid(scores)
-        valid = (cluster_mask & (objness > self.test_score_thresh)
-                 & (stats["npoint"] > self.test_npoint_thresh))
-        rank = torch.where(valid, objness, torch.full_like(objness, -1.0))
-        _, top_idx = topk_stable(rank, self.max_num_proposal)  # (B, K)
-        if train:
-            if proposal_perm is None:
-                proposal_perm = mesh.draw_rows(lambda n: torch.stack([
-                    torch.randperm(self.max_num_proposal, generator=generator,
-                                   device=dev) for _ in range(n)]), b)
-            proposal_perm = mesh.local_rows(proposal_perm, b)
-            top_idx = torch.take_along_dim(
-                top_idx, proposal_perm.long().to(dev).expand(b, -1), dim=1)
+            # --- proposal selection to max_num_proposal --------------------
+            objness = torch.sigmoid(scores)
+            valid = (cluster_mask & (objness > self.test_score_thresh)
+                     & (stats["npoint"] > self.test_npoint_thresh))
+            rank = torch.where(valid, objness, torch.full_like(objness, -1.0))
+            _, top_idx = topk_stable(rank, self.max_num_proposal)  # (B, K)
+            if train:
+                if proposal_perm is None:
+                    proposal_perm = mesh.draw_rows(lambda n: torch.stack([
+                        torch.randperm(self.max_num_proposal,
+                                       generator=generator, device=dev)
+                        for _ in range(n)]), b)
+                proposal_perm = mesh.local_rows(proposal_perm, b)
+                top_idx = torch.take_along_dim(
+                    top_idx, proposal_perm.long().to(dev).expand(b, -1), dim=1)
 
-        proposal_mask = _take(valid, top_idx)
-        fmask = proposal_mask[..., None]
-        center = _take(stats["center"], top_idx)
-        size = _take(stats["size"], top_idx)
-        out["proposal_slot"] = top_idx
-        out["proposal_batch_mask"] = proposal_mask.float()
-        out["proposal_feats_batched"] = _take(pooled, top_idx).float() * fmask
-        out["proposal_center_batched"] = center * fmask
-        out["proposal_size_batched"] = size * fmask
-        out["proposal_bbox_batched"] = (box_corners(center, size)
-                                        * proposal_mask[..., None, None])
-        out["proposal_sem_cls_batched"] = torch.where(
-            proposal_mask, _take(cluster_sem, top_idx),
-            torch.zeros_like(top_idx))
-        out["proposal_scores_batched"] = _take(objness, top_idx) * proposal_mask
-        if self.pred_bbox:
-            out.update(self._bbox_head(pooled, cluster_mask, stats["center"],
-                                       train))
+            proposal_mask = _take(valid, top_idx)
+            fmask = proposal_mask[..., None]
+            center = _take(stats["center"], top_idx)
+            size = _take(stats["size"], top_idx)
+            out["proposal_slot"] = top_idx
+            out["proposal_batch_mask"] = proposal_mask.float()
+            out["proposal_feats_batched"] = (_take(pooled, top_idx).float()
+                                             * fmask)
+            out["proposal_center_batched"] = center * fmask
+            out["proposal_size_batched"] = size * fmask
+            out["proposal_bbox_batched"] = (box_corners(center, size)
+                                            * proposal_mask[..., None, None])
+            out["proposal_sem_cls_batched"] = torch.where(
+                proposal_mask, _take(cluster_sem, top_idx),
+                torch.zeros_like(top_idx))
+            out["proposal_scores_batched"] = (_take(objness, top_idx)
+                                              * proposal_mask)
+            if self.pred_bbox:
+                out.update(self._bbox_head(pooled, cluster_mask,
+                                           stats["center"], train))
 
         # GT object assignment (training/eval bookkeeping)
         if "center_label" in batch:

@@ -8,6 +8,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.models.caption import CaptionModule
 from d3net_tpu_torch.models.graph import GraphModule
 
@@ -53,10 +54,13 @@ class SpeakerNet(nn.Module):
         ``mode`` (``CaptionModule.forward``'s). In modes other than 'eval'
         the scene-level keys are repeated ``chunk_size`` times each, one
         row per description; the graph's other outputs
-        (``edge_orientations``, ``adjacent_mat``) stay per scene."""
+        (``edge_orientations``, ``adjacent_mat``) stay per scene. The
+        ``spk.graph`` and ``spk.decode`` spans."""
         if self.num_graph_steps > 0:
-            data = self.graph(data)
+            with trace.span("spk.graph"):
+                data = self.graph(data)
         if mode != "eval":
             data = expand_to_rows(data, chunk_size)
-        return self.caption(data, mode=mode, gumbel=gumbel,
-                            beam_size=beam_size, sample_topn=sample_topn)
+        with trace.span("spk.decode"):
+            return self.caption(data, mode=mode, gumbel=gumbel,
+                                beam_size=beam_size, sample_topn=sample_topn)

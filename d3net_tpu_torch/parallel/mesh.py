@@ -61,6 +61,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from d3net_tpu_torch import trace
+
 DEFAULT_TIMEOUT_S = 1800      # a collective that waits longer raises
 BARRIER_TIMEOUT_S = 3600      # ranks waiting out rank 0's checkpoint write
 
@@ -148,8 +150,8 @@ def barrier(timeout_s: float = BARRIER_TIMEOUT_S) -> None:
     arrive within ``timeout_s`` raises on the others); no-op without a
     group."""
     if _CTX.group is not None:
-        dist.monitored_barrier(group=_CTX.host, timeout=datetime.timedelta(
-            seconds=timeout_s))
+        _dist("monitored_barrier", group=_CTX.host,
+              timeout=datetime.timedelta(seconds=timeout_s))
 
 
 def init_multihost() -> Dict[str, int]:
@@ -231,6 +233,19 @@ def spawn_ranks(fn: Callable[..., Any], world_size: int, *args,
 # collectives of the step
 # ---------------------------------------------------------------------------
 
+def _dist(op: str, *args, **kw):
+    """``torch.distributed.<op>(*args, **kw)`` as the span ``dist.<op>``,
+    counted in ``collectives`` and, by the bytes of its first tensor
+    argument, ``collective_bytes``."""
+    with trace.span("dist." + op):
+        if trace.enabled():
+            trace.count("collectives")
+            t = next((a for a in args if torch.is_tensor(a)), None)
+            if t is not None:
+                trace.count("collective_bytes", t.numel() * t.element_size())
+        return getattr(dist, op)(*args, **kw)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """``dist.all_reduce(SUM)``, forward and backward."""
 
@@ -238,13 +253,13 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        _dist("all_reduce", y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        _dist("all_reduce", g, group=ctx.group)
         return g, None
 
 
@@ -256,7 +271,7 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     if x.requires_grad and torch.is_grad_enabled():
         return _AllReduceSum.apply(x, _CTX.group)
     y = x.detach().contiguous().clone()
-    dist.all_reduce(y, group=_CTX.group)
+    _dist("all_reduce", y, group=_CTX.group)
     return y
 
 
@@ -314,7 +329,7 @@ def all_reduce_grads(params: Sequence[nn.Parameter]) -> None:
         groups.setdefault((p.grad.dtype, p.grad.device), []).append(p.grad)
     for grads in groups.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=_CTX.group)
+        _dist("all_reduce", flat, group=_CTX.group)
         for g, v in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(v.view_as(g))
 
@@ -330,7 +345,7 @@ def sum_metrics(metrics: Dict[str, torch.Tensor],
     keys = [k for k in metrics if k not in replicated]
     if keys:
         vec = torch.stack([metrics[k].detach().float() for k in keys])
-        dist.all_reduce(vec, group=_CTX.group)
+        _dist("all_reduce", vec, group=_CTX.group)
         metrics = dict(metrics)
         metrics.update(zip(keys, vec.unbind()))
     return metrics
@@ -344,7 +359,7 @@ def host_all_gather(a: np.ndarray) -> np.ndarray:
         return a
     t = torch.from_numpy(np.ascontiguousarray(a))
     parts = [torch.empty_like(t) for _ in range(_CTX.size)]
-    dist.all_gather(parts, t, group=_CTX.host)
+    _dist("all_gather", parts, t, group=_CTX.host)
     return np.concatenate([p.numpy() for p in parts], axis=0)
 
 
@@ -352,8 +367,8 @@ def _broadcast(t: torch.Tensor) -> None:
     """Rank 0's ``t`` in place on every rank; a host tensor under NCCL goes
     through the gloo group."""
     nccl = dist.get_backend(_CTX.group) == "nccl"
-    dist.broadcast(t, 0, group=_CTX.host if nccl and not t.is_cuda
-                   else _CTX.group)
+    _dist("broadcast", t, 0, group=_CTX.host if nccl and not t.is_cuda
+          else _CTX.group)
 
 
 def replicate(model: nn.Module,
@@ -379,7 +394,7 @@ def gather_to_main(obj: Any) -> Optional[List[Any]]:
     if not active():
         return [obj]
     out = [None] * _CTX.size if _CTX.rank == 0 else None
-    dist.gather_object(obj, out, dst=0, group=_CTX.host)
+    _dist("gather_object", obj, out, dst=0, group=_CTX.host)
     return out
 
 
@@ -389,7 +404,7 @@ def broadcast_from_main(obj: Any) -> Any:
     if not active():
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0, group=_CTX.host)
+    _dist("broadcast_object_list", box, src=0, group=_CTX.host)
     return box[0]
 
 

@@ -41,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.config import Config, save as save_cfg
 from d3net_tpu_torch.data.collate import CAP_STATS, BatchSpec, batch_to_torch
 from d3net_tpu_torch.data.dataset import (
@@ -236,19 +237,22 @@ class Checkpointer:
         """Checkpoint ``step`` and, where ``metrics`` improve the monitor,
         pin it as the best. Under a process group rank 0 alone decides and
         writes (the other ranks' ``best`` stays as restored) and every rank
-        leaves once the files are on disk (a barrier)."""
-        if mesh.is_main():
-            value = metrics.get(self.monitor)
-            payload = self._payload(state)
-            self.mgr.save(step, payload)
-            if value is not None and self.is_better(value):
-                self.best = float(value)
-                self.best_step = step
-                self.best_mgr.save(step, payload)
-                with open(self._best_meta, "w") as f:
-                    json.dump({"step": step, "value": self.best,
-                               "monitor": self.monitor, "mode": self.mode}, f)
-        mesh.barrier()
+        leaves once the files are on disk (a barrier). The ``ckpt.save``
+        span."""
+        with trace.span("ckpt.save", id=step):
+            if mesh.is_main():
+                value = metrics.get(self.monitor)
+                payload = self._payload(state)
+                self.mgr.save(step, payload)
+                if value is not None and self.is_better(value):
+                    self.best = float(value)
+                    self.best_step = step
+                    self.best_mgr.save(step, payload)
+                    with open(self._best_meta, "w") as f:
+                        json.dump({"step": step, "value": self.best,
+                                   "monitor": self.monitor,
+                                   "mode": self.mode}, f)
+            mesh.barrier()
 
     def _restore(self, kind: str, mgr: StepDir,
                  state: TrainState) -> Optional[TrainState]:
@@ -475,14 +479,16 @@ class StepLoop:
     the steps: the ``log.profile_step`` window, the train log every
     ``train.log_every_n_steps`` steps and ``max_steps``.
 
-    ``on_step``, if given, is called after every train step with its timings
-    on the host's clock: ``t_start`` when the loop asked for the batch,
-    ``data_wait_s`` blocked on the batch iterator, ``h2d_s`` copying the
-    batch to the device (``h2d_bytes``), ``step_s`` in the step, ``wall_s``
-    all three. With ``sync_steps`` the loop waits for the device around
-    each copy and at the end of each step, so each part's time includes its
-    device work; without, the steps run as they do without ``on_step`` and
-    each time ends when the host got past that part.
+    ``on_step``, if given, is called after every train step with its timings,
+    the stamps of its ``data.wait``, ``data.h2d`` and ``train.step`` spans
+    (``trace``; seconds of Unix time): ``t_start`` when the loop asked for
+    the batch, ``data_wait_s`` blocked on the batch iterator, ``h2d_s``
+    copying the batch to the device (``h2d_bytes``), ``step_s`` in the
+    step, ``wall_s`` all three. With ``sync_steps`` the loop waits for the
+    device around each copy and at the end of each step, so each part's
+    time includes its device work; without, the steps run as they do
+    without ``on_step`` and each time ends when the host got past that
+    part.
     """
 
     def __init__(self, cfg: Config, run_dir: str, dev: torch.device,
@@ -532,41 +538,43 @@ class StepLoop:
                 self.variant_epochs.append([])
         else:
             items = iter(self.variant_epochs[epoch % self.n_var])
+        timed = on_step is not None
         while True:
-            t_wait = time.perf_counter()
-            item = next(items, None)
+            with trace.span("data.wait", timed=timed) as wait:
+                item = next(items, None)
             if item is None:
                 break
-            t_copy = time.perf_counter()
             h2d_bytes = 0
-            if from_host:
-                arrays, batch = to_device(item)
-                if on_step is not None:
-                    h2d_bytes = sum(a.nbytes for a in _arrays(arrays))
-                if caching:
-                    self.variant_epochs[-1].append(batch)
-            else:
-                batch = item
-            if on_step is not None and self.sync_steps:
-                _sync(dev)
+            with trace.span("data.h2d", id=wait.id):
+                if from_host:
+                    arrays, batch = to_device(item)
+                    if timed:
+                        h2d_bytes = sum(a.nbytes for a in _arrays(arrays))
+                    if caching:
+                        self.variant_epochs[-1].append(batch)
+                else:
+                    batch = item
+                if timed and self.sync_steps:
+                    _sync(dev)
             if self.profile_at and self.step == self.profile_at:
                 self.prof = _start_profile(dev)
-            t0 = time.perf_counter()
-            metrics = train_step(batch, self.step)
+            with trace.span("train.step", id=wait.id, timed=True) as step:
+                metrics = train_step(batch, self.step)
+                if timed and self.sync_steps:
+                    _sync(dev)
             self.step += 1
             if self.prof is not None and self.step == self.profile_at + 3:
                 self.prof = _stop_profile(self.prof, dev, self.run_dir)
-            if on_step is not None:
-                if self.sync_steps:
-                    _sync(dev)
-                t1 = time.perf_counter()
-                on_step({"step": self.step, "epoch": epoch, "t_start": t_wait,
-                         "data_wait_s": t_copy - t_wait, "h2d_s": t0 - t_copy,
-                         "h2d_bytes": h2d_bytes, "step_s": t1 - t0,
-                         "wall_s": t1 - t_wait})
+            if timed:
+                on_step({"step": self.step, "epoch": epoch,
+                         "t_start": wait.t0 * 1e-9,
+                         "data_wait_s": wait.seconds,
+                         "h2d_s": (step.t0 - wait.t1) * 1e-9,
+                         "h2d_bytes": h2d_bytes, "step_s": step.seconds,
+                         "wall_s": (step.t1 - wait.t0) * 1e-9})
             if self.step % self.log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
-                metrics["iter_time"] = time.perf_counter() - t0
+                metrics["iter_time"] = (trace.clock_ns() - step.t0) * 1e-9
                 if log_extra is not None:
                     metrics.update(log_extra())
                 self.logger.log(self.step, metrics, "train")
@@ -620,16 +628,17 @@ def detector_val_losses(state: TrainState, batches, **kw
     group each rank runs its rows of every split batch, whose losses are
     its shares of the batch's (the normalisers are global) and summed over
     the ranks; a batch they do not split runs on rank 0 alone; every rank
-    returns rank 0's dict."""
+    returns rank 0's dict. Each batch is a ``val.batch`` span."""
     per_batch: Dict[str, list] = {}
     for split, batch in batches:
-        with mesh.eval_rows(split) as mine:
+        with trace.span("val.batch"), mesh.eval_rows(split) as mine:
             if not mine:
                 continue
             _, losses = detector_eval_step(state, batch, **kw)
-            losses = mesh.sum_metrics(losses)
+            losses = {k: float(v)
+                      for k, v in mesh.sum_metrics(losses).items()}
         for k, v in losses.items():
-            per_batch.setdefault(k, []).append(float(v))
+            per_batch.setdefault(k, []).append(v)
     return mesh.broadcast_from_main(
         {k: float(np.mean(v)) for k, v in per_batch.items()})
 
@@ -782,8 +791,13 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
     dispatch. Each step draws from ``step_generator(manual_seed + 1,
     step)``, as the eager loop does.
 
+    Each dispatch, to its read-back, is a ``train.dispatch`` span; with
+    ``log.profile_step: k`` the dispatch that runs step k + 1, its val batch
+    and checkpoint are traced into ``profile/trace.json``, as
+    :class:`StepLoop` traces its steps.
+
     ``on_dispatch``, if given, is called after each dispatch with its
-    ``step``, ``wall_s`` (the host's clock, the read-back included) and,
+    ``step``, ``wall_s`` (its span's, the read-back included) and,
     on CUDA, ``device_ms`` (CUDA events around its steps). Runs on CUDA
     unless ``device`` says otherwise. Under a process group each rank's
     stack holds its rows of every batch, the dispatch's metrics tensor is
@@ -815,21 +829,30 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
     total = max_steps or cfg.train.epochs * nb
     val_batch = None
     metrics = torch.empty(spd, len(SCAN_KEYS), device=dev)
+    profile_at = int((log_cfg.get("profile_step", 0)
+                      if log_cfg is not None and mesh.is_main() else 0) or 0)
     while state.step < total:
-        t0 = time.perf_counter()
-        if dev.type == "cuda" and on_dispatch is not None:
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            events[0].record()
-        for i in range(spd):
-            _, m = detector_train_step(
-                state, stack_batch(stack, i % nb),
-                step_generator(seed, state.step, dev), loss_weight=lw,
-                sum_metrics=False)
-            metrics[i] = torch.stack([m[k].float() for k in SCAN_KEYS])
-        if dev.type == "cuda" and on_dispatch is not None:
-            events[1].record()
-        last = dict(zip(SCAN_KEYS, mesh.all_reduce_sum(metrics)[-1].tolist()))
-        dt = time.perf_counter() - t0
+        # ``log.profile_step: k`` traces the dispatch that runs step k + 1
+        # (the first that StepLoop's window traces), its val batch and
+        # checkpoint
+        prof = (_start_profile(dev) if profile_at and
+                state.step <= profile_at < state.step + spd else None)
+        with trace.span("train.dispatch", id=state.step, timed=True) as disp:
+            if dev.type == "cuda" and on_dispatch is not None:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                events[0].record()
+            for i in range(spd):
+                _, m = detector_train_step(
+                    state, stack_batch(stack, i % nb),
+                    step_generator(seed, state.step, dev), loss_weight=lw,
+                    sum_metrics=False)
+                metrics[i] = torch.stack([m[k].float() for k in SCAN_KEYS])
+            if dev.type == "cuda" and on_dispatch is not None:
+                events[1].record()
+            last = dict(zip(SCAN_KEYS,
+                            mesh.all_reduce_sum(metrics)[-1].tolist()))
+        dt = disp.seconds
         last["steps_per_sec"] = spd / dt
         logger.log(state.step, last, "train")
         if mesh.is_main():
@@ -850,6 +873,8 @@ def run_detector_training_scan(cfg: Config, run_dir: str,
             print(f"step {state.step} VAL "
                   + " ".join(f"{k}={v:.4f}" for k, v in agg.items()))
         ckpt.save(state.step, state, agg)
+        if prof is not None:
+            _stop_profile(prof, dev, run_dir)
     return state
 
 
@@ -864,10 +889,12 @@ def _start_profile(dev: torch.device):
 
 def _stop_profile(prof, dev: torch.device, run_dir: str) -> None:
     """Ends the ``log.profile_step`` trace and writes it as a Chrome trace
-    under ``run_dir/profile`` (the JAX loop's directory)."""
+    under ``run_dir/profile`` (the JAX loop's directory), with the spans of
+    the threads the profiler does not record merged in
+    (``trace.export_chrome_trace``)."""
     _sync(dev)
     prof.stop()
     out = os.path.join(run_dir, "profile")
     os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    trace.export_chrome_trace(prof, os.path.join(out, "trace.json"))
     print(f"profile written to {out}")

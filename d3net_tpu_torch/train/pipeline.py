@@ -52,6 +52,7 @@ parity: ``PipelineNet.training_step`` modes 1-3, ``model/pipeline.py:
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import pickle
@@ -61,6 +62,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.config import Config
 from d3net_tpu_torch.data.collate import batch_to_torch
 from d3net_tpu_torch.data.language import (
@@ -246,11 +248,13 @@ def speaker_train_step(state: TrainState, batch: Dict, lang: Dict,
     ``speaker_losses``, its backward through the parameters that require a
     gradient (a frozen detector's do not) and an update of those. Returns
     the state (updated in place) and the metrics, detached."""
-    total, metrics, _ = speaker_losses(
-        state.model, batch, lang, chunk_size=chunk_size,
-        loss_weight=loss_weight, generator=generator, jitter_u=jitter_u,
-        proposal_perm=proposal_perm, gumbel=gumbel)
-    return apply_gradients(state, total), step_metrics(metrics)
+    with trace.span("train.step", id=state.step):
+        with trace.span("train.forward"):
+            total, metrics, _ = speaker_losses(
+                state.model, batch, lang, chunk_size=chunk_size,
+                loss_weight=loss_weight, generator=generator,
+                jitter_u=jitter_u, proposal_perm=proposal_perm, gumbel=gumbel)
+        return apply_gradients(state, total), step_metrics(metrics)
 
 
 def step_metrics(metrics: Mapping[str, torch.Tensor]
@@ -265,19 +269,21 @@ def apply_gradients(state: TrainState, total: torch.Tensor) -> TrainState:
     gradient, then one optimizer and scheduler step; returns ``state``
     (updated in place). Under a process group ``total`` is this rank's
     share of the global loss and the gradients are summed over the ranks
-    before the step."""
+    before the step. The ``train.backward`` and ``train.optim`` spans."""
     params = [p for p in state.model.parameters() if p.requires_grad]
-    state.optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    # a parameter the loss does not reach (the orientation head without
-    # rotation labels) has a zero gradient in JAX, and optax still decays
-    # and moments it
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    mesh.all_reduce_grads(params)
-    state.optimizer.step()
-    state.scheduler.step()
+    with trace.span("train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+    with trace.span("train.optim"):
+        # a parameter the loss does not reach (the orientation head without
+        # rotation labels) has a zero gradient in JAX, and optax still
+        # decays and moments it
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        mesh.all_reduce_grads(params)
+        state.optimizer.step()
+        state.scheduler.step()
     state.step += 1
     return state
 
@@ -333,11 +339,14 @@ def listener_train_step(state: TrainState, batch: Dict, lang: Dict,
     """One mode-2 optimization step of ``state.model`` (a ``PipelineNet``
     with a listener): ``listener_losses``, then ``apply_gradients``.
     Returns the state (updated in place) and the metrics, detached."""
-    total, metrics, _ = listener_losses(
-        state.model, batch, lang, chunk_size=chunk_size,
-        loss_weight=loss_weight, loss_type=loss_type, generator=generator,
-        jitter_u=jitter_u, proposal_perm=proposal_perm, draws=draws)
-    return apply_gradients(state, total), step_metrics(metrics)
+    with trace.span("train.step", id=state.step):
+        with trace.span("train.forward"):
+            total, metrics, _ = listener_losses(
+                state.model, batch, lang, chunk_size=chunk_size,
+                loss_weight=loss_weight, loss_type=loss_type,
+                generator=generator, jitter_u=jitter_u,
+                proposal_perm=proposal_perm, draws=draws)
+        return apply_gradients(state, total), step_metrics(metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -397,8 +406,8 @@ def sample_caption_ids(model: PipelineNet, data: Dict, *, chunk_size: int,
     targets on the (N, P) draw ``gumbel``, the speaker in mode ``rl``.
     -> ``sampled_cap`` (N, topn, T), ``baseline_cap`` (N, T + 1),
     ``target_ids``, ``target_ious`` and the beam's ``sampled_logps``. No
-    host sync."""
-    with torch.no_grad():
+    host sync. The ``rl.rollout`` span."""
+    with torch.no_grad(), trace.span("rl.rollout"):
         out = model.run_speaker(data, mode="rl", chunk_size=chunk_size,
                                 gumbel=gumbel, beam_size=beam_size,
                                 sample_topn=sample_topn)
@@ -418,28 +427,31 @@ def caption_scores(reward_fn, rollout: Mapping[str, torch.Tensor],
     rank's host rows are gathered (the gloo group), both calls score all of
     them on every rank, and each rank keeps its rows (CIDEr's document
     frequencies over one rank's references would differ).
-    -> two (N·topn,) f32 tensors on the rollout's device."""
-    sampled, baseline = rollout["sampled_cap"], rollout["baseline_cap"]
-    n = sampled.shape[0]
-    gt = lang.get("gt_refs", lang["lang_ids"])
-    parts = [sampled.reshape(n, -1), baseline, gt.reshape(n, -1),
-             (lang["annotated"] > 0)[:, None]]
-    host = mesh.host_all_gather(
-        torch.cat([x.to(torch.int32) for x in parts], 1).cpu().numpy())
-    ids_s, ids_b, gt_np, ann = np.split(host, np.cumsum(
-        [x.shape[1] for x in parts[:-1]]), axis=1)
+    -> two (N·topn,) f32 tensors on the rollout's device. The
+    ``rl.reward`` span (its host sync counted)."""
+    with trace.span("rl.reward"):
+        sampled, baseline = rollout["sampled_cap"], rollout["baseline_cap"]
+        n = sampled.shape[0]
+        gt = lang.get("gt_refs", lang["lang_ids"])
+        parts = [sampled.reshape(n, -1), baseline, gt.reshape(n, -1),
+                 (lang["annotated"] > 0)[:, None]]
+        host = mesh.host_all_gather(
+            torch.cat([x.to(torch.int32) for x in parts], 1).cpu().numpy())
+        ids_s, ids_b, gt_np, ann = np.split(host, np.cumsum(
+            [x.shape[1] for x in parts[:-1]]), axis=1)
 
-    def rep(x):
-        return np.repeat(x, sample_topn, axis=0)
+        def rep(x):
+            return np.repeat(x, sample_topn, axis=0)
 
-    n_all = host.shape[0]
-    gt_np = rep(gt_np.reshape((n_all,) + tuple(gt.shape[1:])))
-    ann = rep(ann[:, 0])
-    mine = slice(mesh.rank() * n * sample_topn,
-                 (mesh.rank() + 1) * n * sample_topn)
-    return tuple(torch.from_numpy(reward_fn(ids, gt_np, ann)[mine]).to(
-        sampled.device) for ids in (ids_s.reshape(n_all * sample_topn, -1),
-                                    rep(ids_b)))
+        n_all = host.shape[0]
+        gt_np = rep(gt_np.reshape((n_all,) + tuple(gt.shape[1:])))
+        ann = rep(ann[:, 0])
+        mine = slice(mesh.rank() * n * sample_topn,
+                     (mesh.rank() + 1) * n * sample_topn)
+        return tuple(
+            torch.from_numpy(reward_fn(ids, gt_np, ann)[mine]).to(
+                sampled.device)
+            for ids in (ids_s.reshape(n_all * sample_topn, -1), rep(ids_b)))
 
 
 def speaker_stream_losses(model: PipelineNet, batch: Dict, lang: Dict,
@@ -629,10 +641,13 @@ def joint_rl_train_step(state: TrainState, spk_batch: Dict, spk_lang: Dict,
     with both submodules): ``joint_rl_losses`` (``kw`` are its keyword
     arguments), then ``apply_gradients``. Returns the state (updated in
     place), the metrics, detached, and the rollout with its scores."""
-    total, metrics, rollout = joint_rl_losses(
-        state.model, spk_batch, spk_lang, lis_batch, lis_lang, reward_fn,
-        generator=generator, **kw)
-    return apply_gradients(state, total), step_metrics(metrics), rollout
+    with trace.span("train.step", id=state.step):
+        with trace.span("train.forward"):
+            total, metrics, rollout = joint_rl_losses(
+                state.model, spk_batch, spk_lang, lis_batch, lis_lang,
+                reward_fn, generator=generator, **kw)
+        return (apply_gradients(state, total), step_metrics(metrics),
+                rollout)
 
 
 # ---------------------------------------------------------------------------
@@ -844,7 +859,12 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
     rank 0 alone (``mesh.eval_rows``). The evaluators' records are merged
     on rank 0 in the global scene order (``mesh.gather_records``), which
     computes the metrics and writes ``diag_path``; every rank returns its
-    dict."""
+    dict.
+
+    Each val batch is an ``eval.batch`` span, from asking the loader for
+    it (``data.wait``) to its captions scored: ``data.h2d``,
+    ``eval.detector`` (to its proposals read back), ``eval.speaker`` (to
+    its captions read back) and ``eval.score``."""
     subs = {1: ("speaker",), 2: ("listener",),
             3: ("speaker", "listener")}.get(mode)
     if subs is None:
@@ -861,26 +881,34 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
     grd_eval = GroundingEvaluator()
     rng_np = np.random.default_rng(0)
     n_refs = int(cfg.eval.get("num_caption_refs", 4) or 1)
+
+    def score_captions(ids, scenes, corners, mask):
+        for i, scene in enumerate(scenes):
+            nb = len(scene.instance_bboxes)
+            gt_c = np.stack([
+                box_corners(bb[:3], bb[3:6])
+                for bb in scene.instance_bboxes
+            ]) if nb else np.zeros((0, 8, 3))
+            cap_eval.add_scene(
+                scene.scene_id, decode_captions(ids[i], vocab),
+                corners[i], mask[i], gt_c, np.ones(nb),
+                caption_references(scene, n_refs))
+
     def score(batch_np, scenes, lang_np):
         """One val batch's rows (``scenes``, ``lang_np``: this rank's) into
         the evaluators."""
-        det_out = model.run_detector(batch_to_torch(batch_np, dev))
-        corners = det_out["proposal_bbox_batched"].cpu().numpy()
-        mask = det_out["proposal_batch_mask"].cpu().numpy()
+        batch = batch_to_torch(batch_np, dev)
+        with trace.span("eval.detector"):
+            det_out = model.run_detector(batch)
+            corners = det_out["proposal_bbox_batched"].cpu().numpy()
+            mask = det_out["proposal_batch_mask"].cpu().numpy()
         if captions:
-            data = model.run_speaker(
-                {**det_out, "glove_embeddings": emb_t}, mode="eval")
-            ids = data["lang_cap"].cpu().numpy()
-            for i, scene in enumerate(scenes):
-                nb = len(scene.instance_bboxes)
-                gt_c = np.stack([
-                    box_corners(bb[:3], bb[3:6])
-                    for bb in scene.instance_bboxes
-                ]) if nb else np.zeros((0, 8, 3))
-                cap_eval.add_scene(
-                    scene.scene_id, decode_captions(ids[i], vocab),
-                    corners[i], mask[i], gt_c, np.ones(nb),
-                    caption_references(scene, n_refs))
+            with trace.span("eval.speaker"):
+                data = model.run_speaker(
+                    {**det_out, "glove_embeddings": emb_t}, mode="eval")
+                ids = data["lang_cap"].cpu().numpy()
+            with trace.span("eval.score"):
+                score_captions(ids, scenes, corners, mask)
         if grounding:
             lang = lang_rows(lang_np, emb, dev)
             data = model.run_listener(
@@ -896,8 +924,15 @@ def run_pipeline_validation(cfg: Config, model: PipelineNet, val_it,
                 unique_multiple=flat["unique_multiple"],
                 object_cat=flat["ref_cat_label"])
 
-    with torch.no_grad():
-        for b, (batch_np, scenes) in enumerate(val_it):
+    items = iter(val_it)
+    for b in itertools.count():
+        with torch.no_grad(), trace.span("eval.batch") as batch_span:
+            with trace.span("data.wait"):
+                item = next(items, None)
+            if item is None:
+                batch_span.drop()
+                break
+            batch_np, scenes = item
             # drawn over the global batch's scenes on every rank
             lang_np = build_lang_batch(
                 scenes, vocab, chunk, cfg.data.max_spk_len, rng_np,

@@ -22,6 +22,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.parallel import mesh
 from d3net_tpu_torch.train.losses import detector_loss
 
@@ -104,28 +105,37 @@ def detector_train_step(state: TrainState, batch: Dict,
     update (``grad_norm`` is the global gradient's), and the losses are the
     global values, or this rank's shares with ``sum_metrics=False`` (a
     caller that sums many steps' at once).
+
+    The step is a ``train.step`` span (id: the step) over ``train.forward``,
+    ``train.loss``, ``train.backward`` and ``train.optim``.
     """
     model = state.model
     params = [p for p in model.parameters() if p.requires_grad]
-    state.optimizer.zero_grad(set_to_none=True)
-    out = model(batch, train=True, do_clustering=do_clustering,
-                generator=generator, jitter_u=jitter_u,
-                proposal_perm=proposal_perm)
-    losses = detector_loss(out, batch, loss_weight=loss_weight,
-                           with_score=do_clustering)
-    losses["total_loss"].backward()
-    # a parameter the loss does not reach (the ScoreNet without clustering)
-    # has a zero gradient in JAX, and optax still decays and moments it
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    mesh.all_reduce_grads(params)
-    metrics = {k: v.detach() for k, v in losses.items()}
-    if sum_metrics:
-        metrics = mesh.sum_metrics(metrics)
-    metrics["grad_norm"] = global_norm([p.grad for p in params])
-    state.optimizer.step()
-    state.scheduler.step()
+    with trace.span("train.step", id=state.step):
+        state.optimizer.zero_grad(set_to_none=True)
+        with trace.span("train.forward"):
+            out = model(batch, train=True, do_clustering=do_clustering,
+                        generator=generator, jitter_u=jitter_u,
+                        proposal_perm=proposal_perm)
+        with trace.span("train.loss"):
+            losses = detector_loss(out, batch, loss_weight=loss_weight,
+                                   with_score=do_clustering)
+        with trace.span("train.backward"):
+            losses["total_loss"].backward()
+        with trace.span("train.optim"):
+            # a parameter the loss does not reach (the ScoreNet without
+            # clustering) has a zero gradient in JAX, and optax still
+            # decays and moments it
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            mesh.all_reduce_grads(params)
+            metrics = {k: v.detach() for k, v in losses.items()}
+            if sum_metrics:
+                metrics = mesh.sum_metrics(metrics)
+            metrics["grad_norm"] = global_norm([p.grad for p in params])
+            state.optimizer.step()
+            state.scheduler.step()
     state.step += 1
     return state, metrics
 

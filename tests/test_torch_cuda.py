@@ -361,6 +361,62 @@ def test_checkpoint_round_trip_on_cuda_is_bit_exact(card, tmp_path):
             assert g.device == v.device and torch.equal(v, g), (i, k)
 
 
+@pytest.mark.cuda
+def test_profile_step_trace_holds_spans_beside_kernels(card, tmp_path):
+    """``log.profile_step: 3`` on the card: ``profile/trace.json`` holds the
+    kernels, the main thread's ``d3net.train.step`` spans of the traced
+    steps and the collate workers' ``d3net.data.collate`` spans, each
+    worker on a row of its own, on one timeline."""
+    import json
+
+    from d3net_tpu_torch.train.loop import run_detector_training
+
+    cfg = _tiny_run_cfg(tmp_path)
+    cfg.data.num_workers = 2
+    cfg.log = {"profile_step": 3}
+    run = str(tmp_path / "run")
+    run_detector_training(cfg, run, max_steps=6, device="cuda")
+    with open(os.path.join(run, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    host = [e for e in events if e.get("cat") == "user_annotation"]
+    steps = [e for e in host if e["name"] == "d3net.train.step"]
+    collates = [e for e in host if e["name"] == "d3net.data.collate"]
+    assert kernels and len(steps) == 3 and collates
+    workers = {e["tid"] for e in collates}
+    assert not workers & {e["tid"] for e in steps}
+    assert workers == {e["tid"] for e in events if e.get("ph") == "M" and
+                       "d3net spans" in e.get("args", {}).get("name", "")}
+    # the workers' spans lie inside the main thread's traced window
+    main = [e for e in events if e.get("ph") == "X"
+            and e.get("tid") in {s["tid"] for s in steps}]
+    t0 = min(e["ts"] for e in main)
+    t1 = max(e["ts"] + e["dur"] for e in main)
+    assert all(t0 <= e["ts"] <= t1 for e in collates)
+    assert sum(t0 <= k["ts"] <= t1 for k in kernels) > 100
+
+
+# the host syncs of one flagship-layout scan step, by file:line (PERF.md,
+# section 3): A19's capture of a dispatch needs each of them gone
+FLAGSHIP_STEP_SYNCS = {
+    "d3net_tpu_torch/ops/cluster.py:48": 1,    # the curve offsets' upload
+    "d3net_tpu_torch/utils/bbox.py:25": 1,     # the box corner signs'
+}
+
+
+@pytest.mark.cuda
+def test_flagship_step_host_syncs_are_the_listed_ones(card):
+    """One scan-trainer step in conf/flagship_converge.yaml's layout,
+    traced: the ``host_syncs`` counted inside its ``train.step`` span are
+    the syncs listed by ``file:line``, no more (``checks.
+    flagship_step_syncs``)."""
+    from d3net_tpu_torch import checks
+
+    res = checks.flagship_step_syncs(torch.device("cuda"))
+    assert res["sites"] == FLAGSHIP_STEP_SYNCS
+    assert res["host_syncs"] == [sum(FLAGSHIP_STEP_SYNCS.values())]
+
+
 def _tiny_caption_cfg(root=None):
     from d3net_tpu_torch import config
 
