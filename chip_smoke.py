@@ -1368,28 +1368,34 @@ def shared_scenes():
 
 @contextlib.contextmanager
 def build_spans():
-    """Every batch build of ``BatchIterator`` (train and val) while open,
-    as (start, end) in seconds on the clock of ``on_step``'s ``t_start``
-    (``trace.clock_ns``)."""
+    """Every task of ``BatchIterator``'s batch builds (train and val) while
+    open: a batch's draw and each row's collate, as (start, end) in seconds
+    on the clock of ``on_step``'s ``t_start`` (``trace.clock_ns``)."""
     spans = []
-    build = BatchIterator._build_one
+    tasks = {name: getattr(BatchIterator, name)
+             for name in ("_draw", "_collate_row")}
 
-    def timed(self, order, b):
-        t0 = trace.clock_ns() * 1e-9
-        try:
-            return build(self, order, b)
-        finally:
-            spans.append((t0, trace.clock_ns() * 1e-9))
+    def timed(task):
+        def run(self, *args):
+            t0 = trace.clock_ns() * 1e-9
+            try:
+                return task(self, *args)
+            finally:
+                spans.append((t0, trace.clock_ns() * 1e-9))
+        return run
 
-    BatchIterator._build_one = timed
+    for name, task in tasks.items():
+        setattr(BatchIterator, name, timed(task))
     try:
         yield spans
     finally:
-        BatchIterator._build_one = build
+        for name, task in tasks.items():
+            setattr(BatchIterator, name, task)
 
 
 def builds_during(spans, t0, t1):
-    """How many batch builds ran on average over [t0, t1]."""
+    """How many batch-build tasks (loader threads at work) ran on average
+    over [t0, t1]."""
     busy = sum(max(0.0, min(e, t1) - max(s, t0)) for s, e in spans)
     return busy / (t1 - t0) if t1 > t0 else 0.0
 

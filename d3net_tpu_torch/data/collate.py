@@ -56,9 +56,9 @@ class BatchSpec:
         return caps
 
 
-# silent-truncation telemetry: ``build_batch`` adds to it, loops take and
-# reset it per log interval; the keys are the JAX package's, so
-# ``metrics.jsonl`` keeps one schema
+# silent-truncation telemetry: ``new_batch`` and ``collate_scene`` add to
+# it, loops take and reset it per log interval; the keys are the JAX
+# package's, so ``metrics.jsonl`` keeps one schema
 CAP_STATS = CapStats((
     "cap_points_truncated",    # points beyond max_points
     "cap_voxel_overflow",      # voxels past caps[0] (p2v -> pad)
@@ -118,12 +118,14 @@ def instance_info(xyz: np.ndarray, sem_labels: np.ndarray,
     return mean_xyz, num_point, centers, sizes, sem, mask
 
 
-def build_batch(scenes: List[Scene], spec: BatchSpec) -> Dict[str, np.ndarray]:
-    """Assemble a fully padded batch dict of numpy arrays.
+def new_batch(b: int, spec: BatchSpec) -> Dict[str, np.ndarray]:
+    """Every padded array of a ``b``-row batch, for :func:`collate_scene`
+    to fill a row at a time (counted in ``CAP_STATS`` as one batch).
 
     ``tables`` is a list (one per U-Net level) of dicts of stacked arrays:
-    ``nbr (B, M_l, 27)``, ``mask (B, M_l)``, and on all but the last level
-    ``down (B, M_{l+1}, 8)`` and ``up (B, M_l, 8)``.
+    ``nbr (b, M_l, 27)``, ``mask (b, M_l)``, and on all but the last level
+    ``down (b, M_{l+1}, 8)`` and ``up (b, M_l, 8)``. The tables are left
+    unset: ``collate_scene`` writes each of their rows whole.
     """
     if spec.conv_impl != "gather":
         raise NotImplementedError(
@@ -132,17 +134,11 @@ def build_batch(scenes: List[Scene], spec: BatchSpec) -> Dict[str, np.ndarray]:
             "(ROADMAP.md, queue A item 17 keeps them unported)")
     caps = spec.caps()
     np_cap = spec.max_points
-    b = len(scenes)
-
-    keys = ["nbr", "mask", "down", "up"]
-    per_level: List[Dict[str, List[np.ndarray]]] = [
-        {k: [] for k in keys} for _ in caps
-    ]
 
     def zeros(shape, dtype=np.float32):
         return np.zeros((b,) + shape, dtype)
 
-    out: Dict[str, np.ndarray] = {}
+    out: Dict[str, Any] = {}
     out["point_xyz"] = zeros((np_cap, 3))
     out["point_feats"] = zeros((np_cap, spec.feat_dim()))
     out["point_mask"] = zeros((np_cap,), bool)
@@ -155,57 +151,76 @@ def build_batch(scenes: List[Scene], spec: BatchSpec) -> Dict[str, np.ndarray]:
     out["size_label"] = zeros((spec.max_instances, 3))
     out["sem_cls_label"] = zeros((spec.max_instances,), np.int32)
     out["gt_box_mask"] = zeros((spec.max_instances,), bool)
-
-    for s_i, scene in enumerate(scenes):
-        n = min(len(scene.xyz), np_cap)
-        if len(scene.xyz) > np_cap:
-            CAP_STATS.add(cap_points_truncated=len(scene.xyz) - np_cap)
-        xyz = scene.xyz[:n]
-        # quantize: shift to non-negative, scale, floor (reference scales x50)
-        scaled = (xyz - xyz.min(0)) * spec.scale
-        coords_int = np.floor(scaled).astype(np.int32)
-        vc, p2v, _counts = voxelize(coords_int)
-        # truncate voxels beyond cap; orphaned points -> INVALID
-        n_over = int((p2v >= caps[0]).sum())
-        if n_over:
-            CAP_STATS.add(cap_voxel_overflow=n_over)
-        p2v = np.where(p2v >= caps[0], caps[0], p2v).astype(np.int32)
-        levels = build_unet_maps(vc, caps)
-
-        out["point_xyz"][s_i, :n] = xyz
-        write_scene_features(scene, spec, out["point_feats"][s_i], n)
-        out["point_mask"][s_i, :n] = True
-        out["p2v"][s_i, :n] = p2v
-        out["sem_labels"][s_i, :n] = scene.sem_labels[:n]
-        out["instance_ids"][s_i, :n] = np.where(
-            scene.instance_ids[:n] >= spec.max_instances, -1,
-            scene.instance_ids[:n]
-        )
-        mean_xyz, num_point, centers, sizes, sem, mask = instance_info(
-            xyz, scene.sem_labels[:n], scene.instance_ids[:n],
-            spec.max_instances,
-        )
-        out["instance_mean_xyz"][s_i, :n] = mean_xyz
-        out["instance_num_point"][s_i] = num_point
-        out["center_label"][s_i] = centers
-        out["size_label"][s_i] = sizes
-        out["sem_cls_label"][s_i] = sem
-        out["gt_box_mask"][s_i] = mask
-
-        for li, lv in enumerate(levels):
-            lvl_mask = np.zeros(caps[li], np.float32)
-            lvl_mask[: lv.num_voxels] = 1.0
-            per_level[li]["mask"].append(lvl_mask)
-            per_level[li]["nbr"].append(lv.nbr)
-            if lv.down is not None:
-                per_level[li]["down"].append(lv.down)
-                per_level[li]["up"].append(lv.up)
-
-    out["tables"] = [
-        {k: np.stack(v) for k, v in per_level[li].items() if v}
-        for li in range(len(caps))
-    ]
+    out["tables"] = []
+    for li, cap in enumerate(caps):
+        level = {"nbr": np.empty((b, cap, 27), np.int32),
+                 "mask": np.empty((b, cap), np.float32)}
+        if li + 1 < len(caps):
+            level["down"] = np.empty((b, caps[li + 1], 8), np.int32)
+            level["up"] = np.empty((b, cap, 8), np.int32)
+        out["tables"].append(level)
     CAP_STATS.add(batches=1)
+    return out
+
+
+def collate_scene(scene: Scene, spec: BatchSpec, out: Dict[str, Any],
+                  row: int) -> None:
+    """Quantize, voxelize and tabulate one scene into row ``row`` of a
+    :func:`new_batch` batch, in place. Rows are independent: any order, or
+    several threads at once, gives the same batch."""
+    caps = spec.caps()
+    np_cap = spec.max_points
+    n = min(len(scene.xyz), np_cap)
+    if len(scene.xyz) > np_cap:
+        CAP_STATS.add(cap_points_truncated=len(scene.xyz) - np_cap)
+    xyz = scene.xyz[:n]
+    # quantize: shift to non-negative, scale, floor (reference scales x50)
+    scaled = (xyz - xyz.min(0)) * spec.scale
+    coords_int = np.floor(scaled).astype(np.int32)
+    vc, p2v, _counts = voxelize(coords_int)
+    # truncate voxels beyond cap; orphaned points -> INVALID
+    n_over = int((p2v >= caps[0]).sum())
+    if n_over:
+        CAP_STATS.add(cap_voxel_overflow=n_over)
+    p2v = np.where(p2v >= caps[0], caps[0], p2v).astype(np.int32)
+    levels = build_unet_maps(vc, caps)
+
+    out["point_xyz"][row, :n] = xyz
+    write_scene_features(scene, spec, out["point_feats"][row], n)
+    out["point_mask"][row, :n] = True
+    out["p2v"][row, :n] = p2v
+    out["sem_labels"][row, :n] = scene.sem_labels[:n]
+    out["instance_ids"][row, :n] = np.where(
+        scene.instance_ids[:n] >= spec.max_instances, -1,
+        scene.instance_ids[:n]
+    )
+    mean_xyz, num_point, centers, sizes, sem, mask = instance_info(
+        xyz, scene.sem_labels[:n], scene.instance_ids[:n],
+        spec.max_instances,
+    )
+    out["instance_mean_xyz"][row, :n] = mean_xyz
+    out["instance_num_point"][row] = num_point
+    out["center_label"][row] = centers
+    out["size_label"][row] = sizes
+    out["sem_cls_label"][row] = sem
+    out["gt_box_mask"][row] = mask
+
+    for table, lv in zip(out["tables"], levels):
+        lvl_mask = table["mask"][row]
+        lvl_mask[: lv.num_voxels] = 1.0
+        lvl_mask[lv.num_voxels:] = 0.0
+        table["nbr"][row] = lv.nbr
+        if lv.down is not None:
+            table["down"][row] = lv.down
+            table["up"][row] = lv.up
+
+
+def build_batch(scenes: List[Scene], spec: BatchSpec) -> Dict[str, np.ndarray]:
+    """Assemble a fully padded batch dict of numpy arrays (the layout of
+    :func:`new_batch`), a scene a row."""
+    out = new_batch(len(scenes), spec)
+    for row, scene in enumerate(scenes):
+        collate_scene(scene, spec, out, row)
     return out
 
 

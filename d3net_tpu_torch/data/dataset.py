@@ -4,10 +4,11 @@ Counterpart of ``d3net_tpu/data/dataset.py``: sources provide scenes, the
 iterator applies augmentation (jitter/flip/rotz/elastic and the box
 transform), crops, assembles static-shape batches with
 :mod:`d3net_tpu_torch.data.collate` and builds them ahead of the consumer:
-one prefetch thread, or ``workers`` threads (the hot collate work, numpy
-and the C++ host library, releases the GIL). Each batch draws from its own
-generator seeded by ``(seed, epoch, batch)``, so batches do not depend on
-the worker count and equal the JAX package's byte for byte.
+one prefetch thread, or ``workers`` threads that collate a batch a scene
+row a task, earliest batch first (the hot collate work, numpy and the C++
+host library, releases the GIL). Each batch draws from its own generator
+seeded by ``(seed, epoch, batch)``, so batches do not depend on the worker
+count and equal the JAX package's byte for byte.
 
 Multiview features come from the scene source (the synthetic scenes' noise,
 an npz's own ``multiview``) or from a feature store
@@ -17,15 +18,17 @@ an npz's own ``multiview``) or from a feature store
 
 from __future__ import annotations
 
+import heapq
 import queue
 import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import replace
-from typing import Iterator, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
 from d3net_tpu_torch import trace
-from d3net_tpu_torch.data.collate import BatchSpec, build_batch
+from d3net_tpu_torch.data.collate import BatchSpec, collate_scene, new_batch
 from d3net_tpu_torch.data.multiview import (
     open_multiview_store, read_multiview_store,
 )
@@ -155,6 +158,73 @@ def crop_scene(scene: Scene, max_points: int, scale: float, full_scale: float,
     return subset_scene(scene, keep)
 
 
+class _Batch:
+    """A batch in the making: its drawn scenes, this rank's rows of them,
+    their preallocated arrays and the threads that collated them. On the
+    loader threads' path, ``done`` resolves when its last row is
+    written."""
+
+    def __init__(self, span, scenes, rows, out, return_scenes: bool):
+        self.span, self.scenes, self.rows, self.out = span, scenes, rows, out
+        self.return_scenes = return_scenes
+        self.left = len(rows)
+        self.threads = set()
+        self.lock = threading.Lock()
+        self.done: Optional[Future] = None
+
+    def collated(self) -> bool:
+        """Count a row written on this thread; whether it was the last."""
+        with self.lock:
+            self.threads.add(threading.get_ident())
+            self.left -= 1
+            return self.left == 0
+
+    def item(self):
+        """What the iterator hands over; charges ``collate_threads``, the
+        threads that collated its rows, to its ``data.collate`` span."""
+        self.span.count("collate_threads", len(self.threads))
+        return (self.out, self.scenes) if self.return_scenes else self.out
+
+    def fail(self, e: BaseException) -> None:
+        with self.lock:
+            if not self.done.done():
+                self.done.set_exception(e)
+
+
+class _EarliestFirst:
+    """``workers`` threads that run queued tasks lowest key first, so an
+    earlier batch's rows go before a later batch's. No task waits on
+    another; each catches its own errors. ``close`` drops the tasks not
+    started and waits for those under way."""
+
+    def __init__(self, workers: int):
+        self._ex = ThreadPoolExecutor(max_workers=workers)
+        self._heap: list = []
+        self._lock = threading.Lock()
+        self._closed = False
+
+    def submit(self, key, fn, *args) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            heapq.heappush(self._heap, (key, fn, args))
+            # one run a task: each takes the lowest key queued when it starts
+            self._ex.submit(self._run_next)
+
+    def _run_next(self) -> None:
+        with self._lock:
+            if not self._heap:          # dropped by close
+                return
+            _, fn, args = heapq.heappop(self._heap)
+        fn(*args)
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            self._heap.clear()
+        self._ex.shutdown(wait=True, cancel_futures=True)
+
+
 class BatchIterator:
     """Shuffled, augmented, prefetched static-shape batches (numpy)."""
 
@@ -205,7 +275,7 @@ class BatchIterator:
 
     def _build_one(self, order: np.ndarray, b: int):
         """Batch ``b`` of the epoch, from its own generator (so builds in any
-        order and on any worker give the same batch).
+        order and on any worker give the same batch), on this thread.
 
         With ``world`` ranks, rank ``r`` collates its rows of the batch
         (``mesh.split_rows``: ``[r·b/N, (r+1)·b/N)``, or the whole of a
@@ -214,11 +284,17 @@ class BatchIterator:
         through them, so the rows equal the global batch's);
         ``return_scenes`` gives every scene of the global batch, over which
         the description rows are drawn. Its ``data.collate`` span has the
-        id ``(epoch, b)``."""
-        with trace.span("data.collate", id=(self.epoch, b)):
-            return self._build(order, b)
+        id ``(epoch, b)``; a ``data.collate.scene`` span inside it a row."""
+        with trace.span("data.collate", id=(self.epoch, b)) as span:
+            job = self._draw(order, b, span)
+            for r in range(len(job.rows)):
+                self._collate_row(job, r)
+            return job.item()
 
-    def _build(self, order: np.ndarray, b: int):
+    def _draw(self, order: np.ndarray, b: int, span) -> _Batch:
+        """Batch ``b``'s scenes, augmented and cropped in order by its
+        generator, and the arrays of this rank's rows (None where it has
+        none)."""
         rng = np.random.default_rng(
             (self.seed + 1) * 1_000_003 + self.epoch * 131_071 + b
         )
@@ -234,8 +310,17 @@ class BatchIterator:
                                    self.spec.full_scale, rng)
             scenes.append(s)
         lo, hi = split_rows(len(scenes), self.rank, self.world)
-        batch = build_batch(scenes[lo:hi], self.spec) if hi > lo else None
-        return (batch, scenes) if self.return_scenes else batch
+        rows = scenes[lo:hi]
+        out = new_batch(len(rows), self.spec) if rows else None
+        return _Batch(span, scenes, rows, out, self.return_scenes)
+
+    def _collate_row(self, job: _Batch, r: int) -> bool:
+        """Row ``r`` of ``job`` collated on this thread, in a
+        ``data.collate.scene`` span inside the batch's; whether it was the
+        batch's last."""
+        with trace.span("data.collate.scene", under=job.span):
+            collate_scene(job.rows[r], self.spec, job.out, r)
+        return job.collated()
 
     def _order(self) -> np.ndarray:
         rng = np.random.default_rng(self.seed + self.epoch)
@@ -251,25 +336,60 @@ class BatchIterator:
 
     def _epoch_batches_parallel(self) -> Iterator[dict]:
         """``workers`` threads, ``workers + prefetch`` batches in flight,
-        yielded in batch order. A consumer that stops early (a run's last
-        step) waits for the builds under way, not for the queued ones."""
-        from concurrent.futures import ThreadPoolExecutor
-
+        yielded in batch order. A batch's draw (its generator through the
+        augmentation and crop of its scenes) is one task; each of its rows
+        is then a task, taken earliest batch first, so a batch's rows are
+        collated on several threads at once and the first batch waits for
+        one scene's tables, not all of them. Its ``data.collate`` span runs
+        from its draw to its last row. A consumer that stops early (a run's
+        last step) waits for the tasks under way, not for the queued ones.
+        """
         order = self._order()
         nb = len(self)
         inflight = self.workers + max(1, self.prefetch)
-        ex = ThreadPoolExecutor(max_workers=self.workers)
+        pool = _EarliestFirst(self.workers)
+        jobs: Dict[int, Future] = {}
+
+        def draw(b: int, done: Future) -> None:
+            try:
+                job = self._draw(order, b, trace.begin(
+                    "data.collate", id=(self.epoch, b)))
+                job.done = done
+                if not job.rows:
+                    finish(job)
+            except BaseException as e:   # re-raised by the consumer
+                done.set_exception(e)
+                return
+            for r in range(len(job.rows)):
+                pool.submit((b, r), row, job, r)
+
+        def row(job: _Batch, r: int) -> None:
+            if job.done.done():              # an earlier row failed
+                return
+            try:
+                if self._collate_row(job, r):
+                    finish(job)
+            except BaseException as e:   # re-raised by the consumer
+                job.fail(e)
+
+        def finish(job: _Batch) -> None:
+            item = job.item()
+            job.span.end()
+            job.done.set_result(item)
+
+        def start(b: int) -> None:
+            jobs[b] = Future()
+            pool.submit((b, -1), draw, b, jobs[b])
+
         try:
-            futs = {b: ex.submit(self._build_one, order, b)
-                    for b in range(min(inflight, nb))}
-            nxt = len(futs)
+            for b in range(min(inflight, nb)):
+                start(b)
             for b in range(nb):
-                yield futs.pop(b).result()
-                if nxt < nb:
-                    futs[nxt] = ex.submit(self._build_one, order, nxt)
-                    nxt += 1
+                yield jobs.pop(b).result()
+                if b + inflight < nb:
+                    start(b + inflight)
         finally:
-            ex.shutdown(wait=True, cancel_futures=True)
+            pool.close()
 
     def __iter__(self) -> Iterator[dict]:
         """The epoch's batches in order; each is handed over with its id

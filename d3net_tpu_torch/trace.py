@@ -17,7 +17,10 @@ kernels, and is kept in memory: its name, thread, start and end
 by the spans of one step or one batch (a batch's is ``(epoch, index)``, so
 a worker's ``data.collate`` and the main thread's spans of that batch
 join), and the counters charged to it. A span opened inside an open span
-of the same name on its thread is that span. ``last_window()`` holds the
+of the same name on its thread is that span. ``begin(name)`` starts a span
+that lies on no thread's stack and ends with ``.end()`` on any thread (a
+batch whose rows several loader threads collate); a span opened on
+another thread with ``under=`` it is inside it. ``last_window()`` holds the
 latest session's spans and counters; a new session clears it.
 
 Counters are charged to the innermost open span of their thread and summed
@@ -89,6 +92,12 @@ class _Null:
     def drop(self) -> None:
         pass
 
+    def end(self) -> None:
+        pass
+
+    def count(self, name: str, n: int = 1) -> None:
+        pass
+
 
 _NULL = _Null()
 
@@ -122,7 +131,7 @@ class Span(Stamp):
     and ``id`` the nearest given one up its parents."""
 
     __slots__ = ("name", "parent", "tid", "thread", "counts", "traced",
-                 "_up", "_gen", "_rf", "_dropped")
+                 "detached", "_up", "_gen", "_rf", "_dropped")
 
     def __init__(self, name: str, id, up: Optional["Span"]):
         super().__init__(id)
@@ -130,7 +139,7 @@ class Span(Stamp):
         self.tid, self.thread = _LOCAL.tid, _LOCAL.thread
         self._up = up
         self._gen, self._rf, self._dropped = _STATE.gen, None, False
-        self.traced = False
+        self.traced = self.detached = False
 
     def __enter__(self):
         _LOCAL.stack.append(self)
@@ -147,9 +156,23 @@ class Span(Stamp):
             self._rf.__exit__(*exc)
             self._rf = None
         _LOCAL.stack.pop()
+        self._keep()
+        return False
+
+    def end(self) -> None:
+        """End a span of ``begin``, on any thread."""
+        self.t1 = clock_ns()
+        self._keep()
+
+    def _keep(self) -> None:
         if not self._dropped and self._gen == _STATE.gen:
             _STATE.spans.append(self)
-        return False
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Charge ``n`` to counter ``name`` of this span, from any thread
+        (one thread at a time), and to the window's sum."""
+        self.counts[name] = self.counts.get(name, 0) + n
+        _STATE.totals.add(**{name: n})
 
     def drop(self) -> None:
         """Keep this span out of the record (a loop's last ask that got
@@ -212,17 +235,31 @@ def enabled() -> bool:
     return _STATE.on
 
 
-def span(name: str, id=None, timed: bool = False):
+def span(name: str, id=None, timed: bool = False, under=None):
     """A span of ``name`` (``id``: the step's or batch's, else the nearest
     given one up the open spans). ``timed`` stamps its start and end
-    (``.t0``, ``.t1``) while the tracer is off too."""
+    (``.t0``, ``.t1``) while the tracer is off too. ``under``: the span it
+    lies inside, where that one is not on this thread's stack (``begin``'s
+    span of a batch, around a row on a loader thread)."""
     if not _STATE.on:
         return Stamp(id) if timed else _NULL
     stack = _LOCAL.stack
-    up = stack[-1] if stack else None
+    up = under if isinstance(under, Span) else (stack[-1] if stack else None)
     if up is not None and up.name == name:
         return Stamp(id) if timed else _NULL
     return Span(name, id, up)
+
+
+def begin(name: str, id=None):
+    """A span of ``name`` started now on no thread's stack, ended by its
+    ``.end()`` on any thread; its counters are charged with its
+    ``.count()``. The exported trace shows it as an async slice."""
+    if not _STATE.on:
+        return _NULL
+    s = Span(name, id, None)
+    s.detached = True
+    s.t0 = clock_ns()
+    return s
 
 
 def count(name: str, n: int = 1) -> None:
@@ -361,9 +398,17 @@ def export_chrome_trace(prof, path: str) -> None:
     events.extend({"ph": "M", "name": "thread_name", "pid": pid, "tid": t,
                    "args": {"name": f"{name} (d3net spans)"}}
                   for t, name in threads.items())
-    events.extend({"ph": "X", "cat": "user_annotation",
-                   "name": "d3net." + s.name, "pid": pid, "tid": s.tid,
-                   "ts": (s.t0 - base) / 1e3, "dur": (s.t1 - s.t0) / 1e3,
-                   "args": {"id": repr(s.id), **s.counts}} for s in extra)
+    for n, s in enumerate(extra):
+        ev = {"cat": "user_annotation", "name": "d3net." + s.name,
+              "pid": pid, "tid": s.tid, "ts": (s.t0 - base) / 1e3,
+              "args": {"id": repr(s.id), **s.counts}}
+        if s.detached:
+            # started and ended on other threads: an async slice, which
+            # may overlap its thread's own
+            events.append({**ev, "ph": "b", "id": n})
+            events.append({**ev, "ph": "e", "id": n,
+                           "ts": (s.t1 - base) / 1e3, "args": {}})
+        else:
+            events.append({**ev, "ph": "X", "dur": (s.t1 - s.t0) / 1e3})
     with open(path, "w") as f:
         json.dump(doc, f)

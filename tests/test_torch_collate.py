@@ -1,5 +1,9 @@
 """Port host path vs d3net_tpu: synthetic scenes and gather-mode batches
-must be byte-identical (integers and floats alike)."""
+must be byte-identical (integers and floats alike); a batch collated a row
+at a time, in any order or from several threads, equals ``build_batch``."""
+
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -55,6 +59,56 @@ def test_build_batch_byte_identical(max_points, caps):
                     _assert_same(tg[kk], tw[kk], f"level {li} {kk}")
         else:
             _assert_same(got[k], want[k], k)
+
+
+def _assert_tree_same(a, b, what=""):
+    if isinstance(b, dict):
+        assert set(a) == set(b), what
+        for k in b:
+            _assert_tree_same(a[k], b[k], f"{what}.{k}")
+    elif isinstance(b, list):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_tree_same(x, y, f"{what}[{i}]")
+    else:
+        _assert_same(a, b, what)
+
+
+@pytest.mark.parametrize("order", ["forward", "reversed", "threads"])
+def test_rows_in_any_order_equal_build_batch(order):
+    """``new_batch`` then ``collate_scene`` a row at a time gives
+    ``build_batch``'s bytes and counters, whatever order the rows come in;
+    scene 0 overflows the first level's cap (7,591 voxels over 7,500)."""
+    spec = collate.BatchSpec(**dict(SPEC, max_points=12288,
+                                    voxel_caps=[7500, 4096, 2048]))
+    scenes = [make_scene(seed=i, **SCENE) for i in range(3)]
+    collate.CAP_STATS.reset()
+    want = collate.build_batch(scenes, spec)
+    want_stats = collate.CAP_STATS.reset()
+    assert want_stats["cap_voxel_overflow"] > 0
+    assert want["tables"][0]["mask"].sum(1).tolist() == [7500, 6091, 7424]
+
+    out = collate.new_batch(len(scenes), spec)
+    rows = list(range(len(scenes)))
+    if order == "threads":
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            pool = [threading.Thread(target=collate.collate_scene,
+                                     args=(scenes[r], spec, out, r))
+                    for r in rows]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in pool)
+        finally:
+            sys.setswitchinterval(old)
+    else:
+        for r in (rows if order == "forward" else rows[::-1]):
+            collate.collate_scene(scenes[r], spec, out, r)
+    assert collate.CAP_STATS.reset() == want_stats
+    _assert_tree_same(out, want)
 
 
 def test_voxelize_tables_match_numpy_path():

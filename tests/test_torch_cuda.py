@@ -365,8 +365,10 @@ def test_checkpoint_round_trip_on_cuda_is_bit_exact(card, tmp_path):
 def test_profile_step_trace_holds_spans_beside_kernels(card, tmp_path):
     """``log.profile_step: 3`` on the card: ``profile/trace.json`` holds the
     kernels, the main thread's ``d3net.train.step`` spans of the traced
-    steps and the collate workers' ``d3net.data.collate`` spans, each
-    worker on a row of its own, on one timeline."""
+    steps and the collate workers' ``d3net.data.collate`` spans (async
+    slices: a batch's rows run on both workers) and
+    ``d3net.data.collate.scene`` spans, each worker on a row of its own,
+    on one timeline."""
     import json
 
     from d3net_tpu_torch.train.loop import run_detector_training
@@ -381,9 +383,11 @@ def test_profile_step_trace_holds_spans_beside_kernels(card, tmp_path):
     kernels = [e for e in events if e.get("cat") == "kernel"]
     host = [e for e in events if e.get("cat") == "user_annotation"]
     steps = [e for e in host if e["name"] == "d3net.train.step"]
-    collates = [e for e in host if e["name"] == "d3net.data.collate"]
-    assert kernels and len(steps) == 3 and collates
-    workers = {e["tid"] for e in collates}
+    collates = [e for e in host if e["name"] == "d3net.data.collate"
+                and e["ph"] == "b"]
+    scenes = [e for e in host if e["name"] == "d3net.data.collate.scene"]
+    assert kernels and len(steps) == 3 and collates and scenes
+    workers = {e["tid"] for e in collates + scenes}
     assert not workers & {e["tid"] for e in steps}
     assert workers == {e["tid"] for e in events if e.get("ph") == "M" and
                        "d3net spans" in e.get("args", {}).get("name", "")}

@@ -4,21 +4,32 @@
 ``BatchIterator`` batches are byte-identical to the JAX iterator's, every
 array and every level table, with shuffle, augmentation (jitter, flip,
 rotation, elastic), the random crop and the C++ host library on the port's
-side, for one worker (the prefetch thread), three workers (the thread
-pool) and no prefetch, over two epochs. Augmented scenes and their boxes
-equal the JAX package's, and so do ``crop_scene``, ``NpzScenes`` and the
-run loop's loaders.
+side, for one worker (the prefetch thread), three, four and eight workers
+(a batch's rows collated on the loader threads) and no prefetch, over two
+epochs, and each rank's rows equal the serial build's. Augmented scenes
+and their boxes equal the JAX package's, and so do ``crop_scene``,
+``NpzScenes`` and the run loop's loaders. With rows that take time, the
+loader threads hand the first batch over before the last is collated,
+spread each batch over several threads, never deadlock when the consumer
+stops early, and pass a row's error on.
 """
+
+import threading
+import time
+from dataclasses import replace
 
 import numpy as np
 import pytest
+from torch.profiler import ProfilerActivity, profile
 
 from d3net_tpu.data import collate as jcollate
 from d3net_tpu.data import dataset as jds
 from d3net_tpu.data.synthetic import make_scene as jax_make_scene
 from d3net_tpu_torch.data import collate as tcollate
+from d3net_tpu_torch import trace
 from d3net_tpu_torch.data import dataset as tds
 from d3net_tpu_torch.data.synthetic import make_scene
+from d3net_tpu_torch.parallel import mesh
 
 SCENE = dict(num_instances=3, points_per_instance=600, floor_points=1000,
              room=4.0)
@@ -46,7 +57,8 @@ def scenes():
     return [make_scene(seed=i, **SCENE) for i in range(5)]
 
 
-@pytest.mark.parametrize("workers,prefetch", [(1, 2), (3, 2), (1, 0)])
+@pytest.mark.parametrize("workers,prefetch",
+                         [(1, 2), (3, 2), (1, 0), (8, 2), (4, 0)])
 def test_batches_equal_jax_over_two_epochs(scenes, workers, prefetch):
     kw = dict(shuffle=True, augment=True, elastic=True, seed=7,
               workers=workers, prefetch=prefetch, return_scenes=True)
@@ -65,28 +77,214 @@ def test_batches_equal_jax_over_two_epochs(scenes, workers, prefetch):
     assert cropped > 0
 
 
+def _within(seconds, fn):
+    """``fn()`` on a thread of its own; fails the test if it has not
+    returned within ``seconds`` (a deadlock), else returns its value or
+    raises its error."""
+    got = {}
+
+    def run():
+        try:
+            got["value"] = fn()
+        except BaseException as e:     # re-raised below
+            got["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    assert not t.is_alive(), f"not done within {seconds} s"
+    if "error" in got:
+        raise got["error"]
+    return got["value"]
+
+
+def _distinct(scenes, n):
+    """``n`` scene objects (copies of ``scenes`` in turn), each its own
+    object, so a row tells its scene's index."""
+    return [replace(scenes[i % len(scenes)]) for i in range(n)]
+
+
+def _timed_rows(monkeypatch, scenes, delay, fail=None):
+    """``collate_scene`` as the loader calls it, made to take ``delay`` s a
+    row; logs (scene index, thread, end time) and raises on scene
+    ``fail``."""
+    log, lock, real = [], threading.Lock(), tds.collate_scene
+    index = {id(s): i for i, s in enumerate(scenes)}
+
+    def collate(scene, spec, out, row):
+        i = index[id(scene)]
+        if i == fail:
+            raise ValueError(f"scene {i}")
+        time.sleep(delay)
+        real(scene, spec, out, row)
+        with lock:
+            log.append((i, threading.get_ident(), time.perf_counter()))
+
+    monkeypatch.setattr(tds, "collate_scene", collate)
+    return log
+
+
+def _serial(scenes, batch_size, **kw):
+    return list(tds.BatchIterator(scenes, tcollate.BatchSpec(**SPEC),
+                                  batch_size, workers=1, prefetch=0, **kw))
+
+
 def test_stopping_early_skips_the_queued_builds(scenes, monkeypatch):
     """A consumer that stops after batch 0 (a run's last step) waits for
-    the two builds under way and cancels the queued one."""
-    import threading
+    the rows under way (at most one a thread: each holds until 0.2 s
+    after the close) and drops the queued ones."""
+    many = _distinct(scenes, 20)
+    index = {id(s): i for i, s in enumerate(many)}
+    started, finished, release = [], [], threading.Event()
+    real = tds.collate_scene
 
-    it = tds.BatchIterator(scenes * 4, tcollate.BatchSpec(**SPEC), 2,
+    def collate(scene, spec, out, row):
+        i = index[id(scene)]
+        started.append(i)
+        if i >= 2:
+            release.wait(10)
+        real(scene, spec, out, row)
+        finished.append(i)
+
+    monkeypatch.setattr(tds, "collate_scene", collate)
+    it = tds.BatchIterator(many, tcollate.BatchSpec(**SPEC), 2,
                            shuffle=False, augment=False, workers=2,
                            prefetch=2)
-    built, release, real = [], threading.Event(), it._build_one
-
-    def build(order, b):
-        if b:
-            release.wait(10)
-        built.append(b)
-        return real(order, b)
-
-    monkeypatch.setattr(it, "_build_one", build)
     batches = iter(it)
     next(batches)
     threading.Timer(0.2, release.set).start()
     batches.close()
-    assert sorted(built) == [0, 1, 2]
+    assert {0, 1} <= set(started) and len(started) <= 2 + 2
+    assert sorted(finished) == sorted(started)
+
+
+def test_first_batch_is_handed_over_before_the_last_is_collated(
+        scenes, monkeypatch):
+    """Four workers, four batches of four rows at 0.2 s a row: batch 0's
+    rows go first (a thread whose later draw ended first may take a later
+    row), so it is handed over before a third round of rows is done (a
+    batch a thread would have done 13 rows by then) and before batch 3 is
+    collated; the batches equal the serial build's."""
+    many = _distinct(scenes, 16)
+    want = _serial(many, 4, shuffle=False, augment=False)
+    log = _timed_rows(monkeypatch, many, 0.2)
+    it = tds.BatchIterator(many, tcollate.BatchSpec(**SPEC), 4,
+                           shuffle=False, augment=False, workers=4)
+
+    def consume():
+        batches = iter(it)
+        first = next(batches)
+        done_then = {i for i, _, _ in list(log)}
+        return [first, *batches], done_then
+
+    got, done_then = _within(60, consume)
+    assert set(range(4)) <= done_then and len(done_then) < 12
+    assert not set(range(12, 16)) <= done_then
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_collate_threads_counts_each_batchs_threads(scenes, monkeypatch,
+                                                    workers):
+    """Traced, each batch's ``data.collate`` span holds ``collate_threads``:
+    1 on the serial path, more than 1 where its rows spread over the
+    loader threads; a ``data.collate.scene`` span a row lies inside its
+    batch's."""
+    many = _distinct(scenes, 16)
+    _timed_rows(monkeypatch, many, 0.1)
+    it = tds.BatchIterator(many, tcollate.BatchSpec(**SPEC), 4,
+                           shuffle=False, augment=False, workers=workers)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _within(60, lambda: list(it))
+    w = trace.last_window()
+    batches = {s.id: s for s in w.named("data.collate")}
+    assert sorted(batches) == [(0, b) for b in range(4)]
+    n = [batches[(0, b)].counts["collate_threads"] for b in range(4)]
+    assert n == [1] * 4 if workers == 1 else all(k > 1 for k in n), n
+    assert w.counts["collate_threads"] == sum(n)
+    rows = w.named("data.collate.scene")
+    assert len(rows) == 16
+    for s in rows:
+        top = batches[s.id]
+        assert s.parent is top and top.t0 <= s.t0 <= s.t1 <= top.t1
+
+
+def test_a_consumer_that_stops_after_the_first_batch_returns(
+        scenes, monkeypatch):
+    """Two workers, no prefetch: taking batch 0 and closing returns, with
+    batch 0 whole."""
+    many = _distinct(scenes, 16)
+    want = _serial(many[:4], 4, shuffle=False, augment=False)
+    _timed_rows(monkeypatch, many, 0.02)
+    it = tds.BatchIterator(many, tcollate.BatchSpec(**SPEC), 4,
+                           shuffle=False, augment=False, workers=2,
+                           prefetch=0)
+
+    def first():
+        batches = iter(it)
+        got = next(batches)
+        batches.close()
+        return got
+
+    _assert_same(_within(60, first), want[0])
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_a_row_that_raises_reaches_the_consumer(scenes, monkeypatch,
+                                                workers):
+    many = _distinct(scenes, 16)
+    _timed_rows(monkeypatch, many, 0.01, fail=9)    # batch 2, row 1
+    it = tds.BatchIterator(many, tcollate.BatchSpec(**SPEC), 4,
+                           shuffle=False, augment=False, workers=workers)
+
+    def consume():
+        got = []
+        with pytest.raises(ValueError, match="scene 9"):
+            for b in it:
+                got.append(b)
+        return got
+
+    assert len(_within(60, consume)) == 2
+
+
+def test_rank_rows_equal_the_serial_build(scenes):
+    """Two ranks, three workers each: a rank's rows of each batch equal the
+    serial world-1 build's, and a short last batch is rank 0's alone."""
+    kw = dict(shuffle=True, augment=True, elastic=True, seed=5,
+              drop_last=False, return_scenes=True)
+    whole = _serial(scenes, 4, **kw)
+    assert len(whole) == 2
+    for r in range(2):
+        it = tds.BatchIterator(scenes, tcollate.BatchSpec(**SPEC), 4,
+                               workers=3, rank=r, world=2, **kw)
+        got = list(it)
+        assert len(got) == 2
+        for b, ((gb, gs), (wb, ws)) in enumerate(zip(got, whole)):
+            for g, w in zip(gs, ws):
+                _assert_same(g.xyz, w.xyz, "scenes")
+            if it.splits(b):
+                _assert_same(gb, mesh.shard_batch(wb, r, 2), f"rank {r}")
+            elif r == 0:
+                _assert_same(gb, wb, "short batch")
+            else:
+                assert gb is None
+
+
+def test_cap_stats_equal_for_one_and_eight_workers(scenes):
+    """The truncation counters of an epoch do not depend on the workers
+    (points and voxels past the caps of a tighter spec)."""
+    spec = tcollate.BatchSpec(**dict(SPEC, max_points=2000,
+                                     voxel_caps=[1024, 512, 256]))
+    totals = []
+    for workers in (1, 8):
+        tcollate.CAP_STATS.reset()
+        list(tds.BatchIterator(scenes, spec, 2, shuffle=True, augment=False,
+                               seed=7, workers=workers))
+        totals.append(tcollate.CAP_STATS.reset())
+    assert totals[0] == totals[1]
+    assert totals[0]["batches"] == 2
+    assert totals[0]["cap_points_truncated"] == 4 * 800
+    assert totals[0]["cap_voxel_overflow"] > 0
 
 
 def test_val_iterator_keeps_the_last_partial_batch(scenes):

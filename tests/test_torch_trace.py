@@ -126,9 +126,16 @@ def test_worker_collates_carry_their_batch_id(tmp_path, workers):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     rows = {e["tid"] for e in events if e.get("name") == "d3net.data.collate"}
+    scene_rows = {e["tid"] for e in events
+                  if e.get("name") == "d3net.data.collate.scene"}
     named = {e["tid"] for e in events if e.get("ph") == "M"
              and "d3net spans" in e["args"].get("name", "")}
-    assert rows and rows == named and main not in rows
+    assert rows and scene_rows and rows | scene_rows == named
+    assert main not in named
+    # a batch whose rows several threads collate is an async slice
+    phases = sorted(e["ph"] for e in events
+                    if e.get("name") == "d3net.data.collate")
+    assert phases == (["X"] * 3 if workers == 1 else ["b"] * 3 + ["e"] * 3)
     assert sum(e.get("name") == "d3net.eval.batch" for e in events) >= 3
 
 
